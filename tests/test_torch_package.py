@@ -1,0 +1,214 @@
+"""The port as a package: what it imports, how it resolves its device, and how a
+setup and a loop state are carried across from the JAX package.
+"""
+import ast
+import importlib
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tube_mpc_tpu.presets import dubins_paper_setup as j_dubins_paper_setup
+from tube_mpc_tpu.tube.lane_closed_loop import paper_lane_init_state as j_paper_lane_init_state
+
+import tube_mpc_tpu_torch
+from tube_mpc_tpu_torch.convert import lane_state_from_numpy, setup_from_numpy
+from tube_mpc_tpu_torch.device import resolve_device
+from tube_mpc_tpu_torch.ops.cuda import launch_counts
+from tube_mpc_tpu_torch.ops.cuda import _build
+from tube_mpc_tpu_torch.ops.cuda.lane_solver import kernel_consts, on_cpu
+from tube_mpc_tpu_torch.ops.lanes import dubins_components
+from tube_mpc_tpu_torch.presets import dubins_paper_setup
+from tube_mpc_tpu_torch.tube.lane_closed_loop import paper_lane_init_state
+from tube_mpc_tpu_torch.tube.lane_interface import (
+    make_lane_problem,
+    tube_ilqr_solve_lanes,
+    tube_sensitivity_grads_lanes,
+)
+from tube_mpc_tpu_torch.tube.lane_closed_loop import run_paper_closed_loop_lanes
+
+from test_torch_lane_closed_loop import setup_as_numpy
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "tube_mpc_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "tube_mpc_tpu")
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_module_imports_jax_or_the_jax_package(path):
+    assert path.exists()
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def test_package_imports_without_nvcc_and_builds_nothing():
+    """Every module imports in a process whose PATH holds no nvcc, and importing
+    builds no kernel."""
+    code = (
+        "import importlib, pkgutil, sys, tube_mpc_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'tube_mpc_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from tube_mpc_tpu_torch.ops.cuda import _build\n"
+        "assert not _build._LIBS and not _build.BUILD_LOG\n"
+        "assert not any(n in sys.modules for n in ('jax', 'tube_mpc_tpu'))\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PATH=str(Path(sys.executable).parent), PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_every_module_imports_here():
+    names = [m.name for m in pkgutil.walk_packages(tube_mpc_tpu_torch.__path__,
+                                                   "tube_mpc_tpu_torch.")]
+    assert "tube_mpc_tpu_torch.ops.cuda.lane_solver" in names
+    for name in names:
+        importlib.import_module(name)
+    assert set(launch_counts()) == {"ric", "fwd", "sbwd", "sfwd"}
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    """With no card and no device='cpu' the entry points raise; they never carry
+    on quietly on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dubins_paper_setup(N=4, H=2)
+    s = dubins_paper_setup(N=4, H=2, device="cpu", dtype=torch.float64)
+    pb = make_lane_problem(s.sys_c, eps=s.eps)
+    B = 2
+    x_hat0 = torch.zeros((B, 4), dtype=torch.float64)
+    U = torch.zeros((B, 4, 2), dtype=torch.float64)
+    X_ref = torch.zeros((B, 5, 3), dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tube_ilqr_solve_lanes(pb, s.cfg.aux_ilqr(), w=s.w_nominal, bp=s.bp, x_hat0=x_hat0,
+                              U_init=U, X_ref=X_ref, U_ref=U)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tube_sensitivity_grads_lanes(pb, w=s.w_nominal, bp=s.bp,
+                                     X_hat=torch.zeros((B, 5, 4), dtype=torch.float64),
+                                     U=U, X_ref=X_ref, U_ref=U)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_paper_closed_loop_lanes(
+            s.system, s.aug, s.sys_c, s.cfg, w_nominal=s.w_nominal, aux_init=s.aux_init,
+            bp=s.bp, x0=s.x0, target=s.target,
+            w_seqs=torch.zeros((B, 2, 3), dtype=torch.float64), eps=s.eps)
+    with pytest.raises(RuntimeError, match="requested but no CUDA device"):
+        resolve_device("cuda")
+
+
+def test_wrappers_take_cpu_or_cuda_tensors_only():
+    cpu = torch.zeros(3)
+    assert on_cpu(cpu, cpu)
+    with pytest.raises(ValueError, match="lie on meta"):
+        on_cpu(torch.zeros(3, device="meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        on_cpu(cpu, torch.zeros(3, device="meta"))
+
+
+def test_kernel_constants_refuse_what_the_kernels_do_not_take():
+    s = dubins_paper_setup(N=4, H=2, device="cpu", dtype=torch.float64)
+    pb = make_lane_problem(s.sys_c, eps=s.eps)
+    k = kernel_consts(pb, reg=1e-6, alphas=(1.0, 0.5), active_tol=1e-8)
+    assert (k.n_obs, k.n_alphas, k.reg, k.eps) == (5, 2, 1e-6, s.eps)
+    assert k.act_lo[0] == -10.0 + 1e-8 and k.act_hi[1] == np.pi - 1e-8
+    with pytest.raises(ValueError, match="at most 8 alphas"):
+        kernel_consts(pb, alphas=(1.0,) * 9)
+    many = dubins_components(dt=0.01, v_min=-1.0, v_max=1.0, omega_max=1.0,
+                             centers=[(float(i), 0.0) for i in range(9)], radii=[0.5] * 9)
+    with pytest.raises(ValueError, match="1 to 8 obstacles"):
+        kernel_consts(make_lane_problem(many))
+    log_pb = make_lane_problem(s.sys_c, barrier_type="log", eps=s.eps)
+    with pytest.raises(ValueError, match="inverse barrier"):
+        kernel_consts(log_pb)
+
+
+def test_build_needs_no_work_at_import_and_names_its_sources():
+    assert _build.SOURCES == ("lane_solver", "lane_sensitivity")
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").exists()
+        assert _build.library_path(name).parent == PKG / "_build"
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+@pytest.fixture(scope="module")
+def jax_setup():
+    return j_dubins_paper_setup(N=5, H=4, dtype=jnp.float64, nominal_max_iter=3,
+                                aux_max_iter=4, alphas=(1.0, 0.5, 0.0))
+
+
+def test_setup_round_trip(jax_setup):
+    d = setup_as_numpy(jax_setup)
+    s = setup_from_numpy(d, device="cpu", dtype=torch.float64)
+    assert s.cfg.N == 5 and s.cfg.H == 4 and s.cfg.alphas == (1.0, 0.5, 0.0)
+    assert (s.cfg.nominal_max_iter, s.cfg.aux_max_iter) == (3, 4)
+    assert (s.cfg.tol, s.cfg.reg, s.cfg.adapt.lr, s.cfg.adapt.momentum) == (1e-3, 1e-6, 5e-2, 0.9)
+    back = dict(
+        w_nominal={f: getattr(s.w_nominal, f).numpy() for f in ("Q", "R", "Qf", "qb")},
+        aux_init={f: getattr(s.aux_init, f).numpy() for f in ("Q", "R", "qb")},
+        bp={f: getattr(s.bp, f).numpy() for f in ("alpha", "gamma", "tight")},
+        x0=s.x0.numpy(), target=s.target.numpy(),
+        centers=s.field.centers.numpy(), radii=s.field.radii.numpy(),
+    )
+    for key, value in back.items():
+        ref = d[key]
+        if isinstance(value, dict):
+            for f in value:
+                np.testing.assert_array_equal(value[f], ref[f])
+        else:
+            np.testing.assert_array_equal(value, ref)
+    assert s.sys_c.spec.centers == tuple(tuple(c) for c in d["centers"].tolist())
+    assert s.eps == 1e-4 and s.sys_c.spec.beta == 20.0
+    # the port's own preset is the same setup
+    p = dubins_paper_setup(N=5, H=4, device="cpu", dtype=torch.float64, nominal_max_iter=3,
+                           aux_max_iter=4, alphas=(1.0, 0.5, 0.0))
+    assert p.cfg == s.cfg
+    np.testing.assert_array_equal(p.field.centers.numpy(), s.field.centers.numpy())
+
+
+def test_lane_state_round_trip(jax_setup):
+    js = jax_setup
+    B = 4
+    j_state = j_paper_lane_init_state(js.system, js.aug, js.cfg, aux_init=js.aux_init, bp=js.bp,
+                                      x0=js.x0, B=B, dtype=jnp.float64)
+    d = {f: np.asarray(getattr(j_state, f)) for f in ("x", "b", "x_bar", "b_bar",
+                                                       "U_nom_ws", "U_aux_ws")}
+    for f in ("adapt", "vel"):
+        d[f] = {g: np.asarray(getattr(getattr(j_state, f), g)) for g in ("Q", "R", "qb")}
+    state = lane_state_from_numpy(d, device="cpu", dtype=torch.float64)
+    for f in ("x", "b", "x_bar", "b_bar", "U_nom_ws", "U_aux_ws"):
+        np.testing.assert_array_equal(getattr(state, f).numpy(), d[f])
+    for f in ("adapt", "vel"):
+        for g in ("Q", "R", "qb"):
+            np.testing.assert_array_equal(getattr(getattr(state, f), g).numpy(), d[f][g])
+    # the port's own initial state equals the JAX one (b0 through the logsumexp h)
+    s = setup_from_numpy(setup_as_numpy(js), device="cpu", dtype=torch.float64)
+    mine = paper_lane_init_state(s.system, s.aug, s.cfg, aux_init=s.aux_init, bp=s.bp,
+                                 x0=s.x0, B=B, dtype=torch.float64)
+    for f in ("x", "b", "x_bar", "b_bar", "U_nom_ws", "U_aux_ws"):
+        np.testing.assert_allclose(getattr(mine, f).numpy(), d[f], rtol=1e-12, atol=0.0)

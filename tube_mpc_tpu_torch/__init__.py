@@ -1,0 +1,12 @@
+"""PyTorch and CUDA port of tube_mpc_tpu for NVIDIA Hopper (H100).
+
+The first slice is the Dubins paper lane closed loop
+(``tube.lane_closed_loop.run_paper_closed_loop_lanes``): two lane iLQR solves and
+one lane sensitivity per step, on four hand-written CUDA kernels
+(``csrc/lane_solver.cu``, ``csrc/lane_sensitivity.cu``) built at first use by
+``ops.cuda._build``. Each kernel has a plain PyTorch version beside its wrapper,
+which runs for CPU tensors; the tests hold those against the JAX package.
+"""
+from .device import resolve_device, resolve_dtype
+
+__all__ = ["resolve_device", "resolve_dtype"]

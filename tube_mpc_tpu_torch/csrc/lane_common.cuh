@@ -1,0 +1,307 @@
+// Shared device code of the lane kernels: the Dubins component step, the
+// smooth-min obstacle value h, the relaxed inverse barrier, the DBaS-augmented
+// step f̂ and its hand-written tangent map (the counterpart of jax.jvp in
+// tube_mpc_tpu/ops/lanes.py::jac_rows).
+//
+// Layout: every array is [.., component, B] with the lane index fastest, so one
+// thread owns one lane and neighbouring threads read neighbouring addresses.
+//
+// Arithmetic order follows the JAX kernels and their JVP rules term by term, and
+// the sources are built with -fmad=false, so a kernel and its plain PyTorch
+// version (tube_mpc_tpu_torch/ops/cuda/*.py) round identically on the card.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace lane {
+
+constexpr int NH = 4;                 // augmented state (px, py, theta, b)
+constexpr int M = 2;                  // controls (v, omega)
+constexpr int NC = 2 * NH + M + 3;    // const rows, see tube/lane_interface.py::_build_C
+constexpr int ROW_ALPHA = 2 * NH + M;
+constexpr int MAX_OBS = 8;
+constexpr int MAX_ALPHAS = 8;
+constexpr int THREADS = 128;
+
+// Runtime constants, passed by value to every kernel. Mirrors
+// ops/cuda/lane_solver.py::LaneConsts field by field. Sums such as
+// u_min + active_tol are formed in double on the host and rounded once to the
+// working type, as the reference does with Python floats.
+struct Consts {
+  double dt;
+  double u_min[M];
+  double u_max[M];
+  double act_lo[M];   // u_min + active_tol
+  double act_hi[M];   // u_max - active_tol
+  double eps;         // barrier floor
+  double neg_beta;    // -beta
+  double inv_beta;    // 1 / beta
+  double cx[MAX_OBS];
+  double cy[MAX_OBS];
+  double r2[MAX_OBS]; // radius * radius
+  double alphas[MAX_ALPHAS];
+  double reg;
+  int32_t n_obs;
+  int32_t n_alphas;
+};
+
+__device__ __forceinline__ float m_exp(float x) { return expf(x); }
+__device__ __forceinline__ double m_exp(double x) { return exp(x); }
+__device__ __forceinline__ float m_log(float x) { return logf(x); }
+__device__ __forceinline__ double m_log(double x) { return log(x); }
+__device__ __forceinline__ float m_sin(float x) { return sinf(x); }
+__device__ __forceinline__ double m_sin(double x) { return sin(x); }
+__device__ __forceinline__ float m_cos(float x) { return cosf(x); }
+__device__ __forceinline__ double m_cos(double x) { return cos(x); }
+__device__ __forceinline__ float m_abs(float x) { return fabsf(x); }
+__device__ __forceinline__ double m_abs(double x) { return fabs(x); }
+
+template <typename T> __device__ __forceinline__ T tiny();
+template <> __device__ __forceinline__ float tiny<float>() { return FLT_MIN; }
+template <> __device__ __forceinline__ double tiny<double>() { return DBL_MIN; }
+template <typename T> __device__ __forceinline__ T epsilon();
+template <> __device__ __forceinline__ float epsilon<float>() { return FLT_EPSILON; }
+template <> __device__ __forceinline__ double epsilon<double>() { return DBL_EPSILON; }
+
+// jnp.maximum / jnp.minimum: a NaN in either operand gives NaN (fmax would drop it).
+template <typename T> __device__ __forceinline__ T jmax(T a, T b) { return (a > b || a != a) ? a : b; }
+template <typename T> __device__ __forceinline__ T jmin(T a, T b) { return (a < b || a != a) ? a : b; }
+
+// The reference scrubs a carry entry unless it is finite after a cast to f32,
+// in f64 too: a double above FLT_MAX is scrubbed to 0.
+template <typename T> __device__ __forceinline__ T scrub(T v) {
+  return isfinite(static_cast<float>(v)) ? v : T(0);
+}
+
+// ---------------------------------------------------------------------------
+// Smooth-min obstacle value in component form (ops/lanes.py::dubins_components):
+//   h = z - (1/beta) log sum_i exp(-beta (h_i - z)),  z = min_i h_i.
+// ---------------------------------------------------------------------------
+template <typename T> struct HLin {
+  T px, py;
+  T hs[MAX_OBS];
+  T e[MAX_OBS];
+  T acc;
+  T value;
+};
+
+template <typename T>
+__device__ __forceinline__ void h_lin(const Consts& p, T px, T py, HLin<T>& L) {
+  L.px = px;
+  L.py = py;
+#pragma unroll
+  for (int i = 0; i < MAX_OBS; ++i) {
+    if (i < p.n_obs) {
+      const T dx = px - T(p.cx[i]);
+      const T dy = py - T(p.cy[i]);
+      L.hs[i] = (dx * dx + dy * dy) - T(p.r2[i]);
+    }
+  }
+  T z = L.hs[0];
+#pragma unroll
+  for (int i = 1; i < MAX_OBS; ++i)
+    if (i < p.n_obs) z = jmin(z, L.hs[i]);
+  const T nb = T(p.neg_beta);
+#pragma unroll
+  for (int i = 0; i < MAX_OBS; ++i) {
+    if (i < p.n_obs) {
+      L.e[i] = m_exp(nb * (L.hs[i] - z));
+      L.acc = (i == 0) ? L.e[0] : L.acc + L.e[i];
+    }
+  }
+  L.value = z - T(p.inv_beta) * m_log(L.acc);
+}
+
+// Tangent of h along (dpx, dpy), by JAX's rules: d(a**2) = da * (2a); the min
+// chain weighs tangents by the balanced-equality factors of lax.min; d exp =
+// g * ans; d log = g / x.
+template <typename T>
+__device__ __forceinline__ T h_tan(const Consts& p, const HLin<T>& L, T dpx, T dpy) {
+  T dh[MAX_OBS];
+#pragma unroll
+  for (int i = 0; i < MAX_OBS; ++i) {
+    if (i < p.n_obs) {
+      const T ax = T(2) * (L.px - T(p.cx[i]));
+      const T ay = T(2) * (L.py - T(p.cy[i]));
+      dh[i] = dpx * ax + dpy * ay;
+    }
+  }
+  T z = L.hs[0];
+  T dz = dh[0];
+#pragma unroll
+  for (int i = 1; i < MAX_OBS; ++i) {
+    if (i < p.n_obs) {
+      const T v = L.hs[i];
+      const T zn = jmin(z, v);
+      const T wz = (z == zn ? T(1) : T(0)) / (v == zn ? T(2) : T(1));
+      const T wv = (v == zn ? T(1) : T(0)) / (z == zn ? T(2) : T(1));
+      dz = dz * wz + dh[i] * wv;
+      z = zn;
+    }
+  }
+  const T nb = T(p.neg_beta);
+  T dacc = T(0);
+#pragma unroll
+  for (int i = 0; i < MAX_OBS; ++i) {
+    if (i < p.n_obs) {
+      const T de = (nb * (dh[i] - dz)) * L.e[i];
+      dacc = (i == 0) ? de : dacc + de;
+    }
+  }
+  return dz - T(p.inv_beta) * (dacc / L.acc);
+}
+
+// ---------------------------------------------------------------------------
+// Relaxed inverse barrier (ops/barrier.py::relaxed_inverse_barrier) and its
+// tangent by JAX's rules for max, div and integer_pow.
+// ---------------------------------------------------------------------------
+template <typename T> struct BLin {
+  T value, m, a, diff, beq;
+  bool safe;
+};
+
+template <typename T>
+__device__ __forceinline__ void barrier_lin(const Consts& p, T zeta, T alpha, BLin<T>& L) {
+  const T eps = T(p.eps);
+  L.a = jmax(alpha, eps);
+  L.safe = zeta >= L.a;
+  L.m = jmax(zeta, eps);
+  const T b_safe = T(1) / L.m;
+  L.diff = zeta - L.a;
+  const T aa = L.a * L.a;
+  const T b_unsafe = (T(1) / L.a - L.diff / aa) + (L.diff * L.diff) / (aa * L.a);
+  L.value = L.safe ? b_safe : b_unsafe;
+  L.beq = (zeta == L.m ? T(1) : T(0)) / (eps == L.m ? T(2) : T(1));
+}
+
+template <typename T>
+__device__ __forceinline__ T barrier_tan(const BLin<T>& L, T dzeta) {
+  if (L.safe) {
+    const T dm = dzeta * L.beq;
+    return (-dm) * (T(1) / (L.m * L.m));
+  }
+  const T aa = L.a * L.a;
+  return -(dzeta / aa) + (dzeta * (T(2) * L.diff)) / (aa * L.a);
+}
+
+// ---------------------------------------------------------------------------
+// Augmented step f̂(x̂, u) = [f(x, u), B(h(f) - s) - gamma (B(h(x) - s) - b)]
+// (ops/lanes.py::augmented_step_fn) and its tangent map.
+// ---------------------------------------------------------------------------
+template <typename T> struct FLin {
+  T c, s, dtv, dt, gamma;
+  HLin<T> hc, hn;
+  BLin<T> bc, bn;
+  T out[NH];
+};
+
+template <typename T>
+__device__ __forceinline__ void fhat_lin(const Consts& p, const T x[NH], const T u[M],
+                                         T alpha, T gamma, T tight, FLin<T>& L) {
+  L.dt = T(p.dt);
+  L.gamma = gamma;
+  L.c = m_cos(x[2]);
+  L.s = m_sin(x[2]);
+  L.dtv = L.dt * u[0];
+  const T pxn = x[0] + L.dtv * L.c;
+  const T pyn = x[1] + L.dtv * L.s;
+  const T thn = x[2] + L.dt * u[1];
+  h_lin(p, pxn, pyn, L.hn);
+  h_lin(p, x[0], x[1], L.hc);
+  barrier_lin(p, L.hn.value - tight, alpha, L.bn);
+  barrier_lin(p, L.hc.value - tight, alpha, L.bc);
+  L.out[0] = pxn;
+  L.out[1] = pyn;
+  L.out[2] = thn;
+  L.out[3] = L.bn.value - gamma * (L.bc.value - x[3]);
+}
+
+// The value of f̂ alone (the compiler drops what only the tangent needs).
+template <typename T>
+__device__ __forceinline__ void fhat(const Consts& p, const T x[NH], const T u[M], T alpha,
+                                     T gamma, T tight, T out[NH]) {
+  FLin<T> L;
+  fhat_lin(p, x, u, alpha, gamma, tight, L);
+#pragma unroll
+  for (int i = 0; i < NH; ++i) out[i] = L.out[i];
+}
+
+template <typename T>
+__device__ __forceinline__ void fhat_tan(const Consts& p, const FLin<T>& L, const T dx[NH],
+                                         const T du[M], T out[NH]) {
+  const T ddtv = L.dt * du[0];
+  const T dpxn = dx[0] + (ddtv * L.c + L.dtv * (-(dx[2] * L.s)));
+  const T dpyn = dx[1] + (ddtv * L.s + L.dtv * (dx[2] * L.c));
+  const T dthn = dx[2] + L.dt * du[1];
+  const T dBn = barrier_tan(L.bn, h_tan(p, L.hn, dpxn, dpyn));
+  const T dBc = barrier_tan(L.bc, h_tan(p, L.hc, dx[0], dx[1]));
+  out[0] = dpxn;
+  out[1] = dpyn;
+  out[2] = dthn;
+  out[3] = dBn - L.gamma * (dBc - dx[3]);
+}
+
+// Jacobian rows A[i][j] = d f̂_i / d x̂_j, Bm[i][a] = d f̂_i / d u_a by basis
+// tangents, as jac_rows does.
+template <typename T>
+__device__ __forceinline__ void fhat_jac(const Consts& p, const FLin<T>& L, T A[NH][NH], T Bm[NH][M]) {
+#pragma unroll
+  for (int j = 0; j < NH + M; ++j) {
+    T dx[NH], du[M], col[NH];
+#pragma unroll
+    for (int i = 0; i < NH; ++i) dx[i] = (i == j) ? T(1) : T(0);
+#pragma unroll
+    for (int a = 0; a < M; ++a) du[a] = (NH + a == j) ? T(1) : T(0);
+    fhat_tan(p, L, dx, du, col);
+#pragma unroll
+    for (int i = 0; i < NH; ++i) {
+      if (j < NH) A[i][j] = col[i];
+      else Bm[i][j - NH] = col[i];
+    }
+  }
+}
+
+// Scale-invariant adjugate inverse of a 2x2 block with resolve-or-zero
+// (ops/pallas/lane_solver.py:126-143).
+template <typename T>
+__device__ __forceinline__ void inv2(T q00, T q01, T q10, T q11, T inv[M][M]) {
+  T s = jmax(jmax(m_abs(q00), m_abs(q01)), jmax(m_abs(q10), m_abs(q11)));
+  s = jmax(s, tiny<T>());
+  const T n00 = q00 / s, n01 = q01 / s, n10 = q10 / s, n11 = q11 / s;
+  const T det = n00 * n11 - n01 * n10;
+  const bool ok = m_abs(det) > T(100) * epsilon<T>();
+  const T safe_det = ok ? det : T(1);
+  const T det_inv = (ok ? T(1) : T(0)) / (safe_det * s);
+  inv[0][0] = n11 * det_inv;
+  inv[0][1] = -n01 * det_inv;
+  inv[1][0] = -n10 * det_inv;
+  inv[1][1] = n00 * det_inv;
+}
+
+// Renormalise the value-function carry above 1e8 and scrub non-finite entries
+// (ops/pallas/lane_solver.py:173-189). vx is V_x (K1) or tV_x (K3).
+template <typename T>
+__device__ __forceinline__ void rescale_carry(const T vx_new[NH], const T vxx_new[NH][NH],
+                                              T vx[NH], T vxx[NH][NH], T& logs) {
+  T mmax = T(0);
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    mmax = jmax(mmax, m_abs(vx_new[i]));
+#pragma unroll
+    for (int j = 0; j < NH; ++j) mmax = jmax(mmax, m_abs(vxx_new[i][j]));
+  }
+  const T thresh = T(1e8);
+  const T scale_inv = (mmax > thresh) ? thresh / mmax : T(1);
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    vx[i] = scrub(vx_new[i] * scale_inv);
+#pragma unroll
+    for (int j = 0; j < NH; ++j) vxx[i][j] = scrub(vxx_new[i][j] * scale_inv);
+  }
+  logs = logs - m_log(jmax(scale_inv, tiny<T>()));
+}
+
+}  // namespace lane

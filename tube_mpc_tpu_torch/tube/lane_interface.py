@@ -1,0 +1,135 @@
+"""Public interface to the lane kernels for tube-MPC problems (port of
+tube_mpc_tpu/tube/lane_interface.py:26-180).
+
+Bridges the feature-last [B, ...] API to the [.., B] lane layout: builds the
+LaneProblem from a ComponentSystem, packs weights and barrier parameters into
+const rows, and transposes operands once at entry and once at exit.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import Tensor
+
+from ..device import DeviceLike, check_on, resolve_device
+from ..ops.costs import CostWeights
+from ..ops.dbas import BarrierParams
+from ..ops.lanes import ComponentSystem, augmented_lin_fn, augmented_step_fn
+from ..ops.cuda.lane_sensitivity import lane_sensitivity_grads
+from ..ops.cuda.lane_solver import LaneProblem, lane_ilqr_solve, rollout
+from ..solvers.ilqr import ILQRConfig
+from .params import AuxAdapt
+
+
+def make_lane_problem(sys_c: ComponentSystem, *, barrier_type: str = "inverse",
+                      eps: float = 1e-6) -> LaneProblem:
+    return LaneProblem(
+        n=sys_c.n, m=sys_c.m,
+        f_hat=augmented_step_fn(sys_c, barrier_type=barrier_type, eps=eps),
+        f_hat_lin=augmented_lin_fn(sys_c, barrier_type=barrier_type, eps=eps),
+        u_min=sys_c.u_min, u_max=sys_c.u_max, spec=sys_c.spec,
+        barrier_type=barrier_type, eps=eps,
+    )
+
+
+def _rows(x: Tensor) -> Tensor:
+    """[B, ..., d] feature-last -> [..., d, B] lane-major, contiguous."""
+    return torch.movedim(x, 0, -1).contiguous()
+
+
+def _unrows(x: Tensor) -> Tensor:
+    return torch.movedim(x, -1, 0)
+
+
+def _with_barrier_row(X_ref: Tensor) -> Tensor:
+    return torch.cat([X_ref, X_ref.new_zeros(X_ref.shape[:-1] + (1,))], dim=-1)
+
+
+def _build_C(pb: LaneProblem, w: CostWeights, bp: BarrierParams, B: int, dtype,
+             device) -> Tensor:
+    """Const rows [nc, B]; vector weights shared [d] or per lane [B, d]; qb,
+    alpha, gamma, tight scalar or per lane [B]."""
+
+    def comp(v, i) -> Tensor:
+        v = torch.as_tensor(v, dtype=dtype, device=device)
+        if v.ndim == 2:
+            return v[:, i]
+        return v[i].expand(B)
+
+    def scal(v) -> Tensor:
+        return torch.as_tensor(v, dtype=dtype, device=device).expand(B)
+
+    rows = (
+        [2.0 * comp(w.Q, i) for i in range(pb.n)] + [2.0 * scal(w.qb)]
+        + [2.0 * comp(w.R, a) for a in range(pb.m)]
+        + [2.0 * comp(w.Qf, i) for i in range(pb.n)] + [2.0 * scal(w.qb)]
+        + [scal(bp.alpha), scal(bp.gamma), scal(bp.tight)]
+    )
+    return torch.stack(rows, dim=0)
+
+
+def tube_ilqr_solve_lanes(
+    pb: LaneProblem,
+    cfg: ILQRConfig,
+    *,
+    w: CostWeights,
+    bp: BarrierParams,
+    x_hat0: Tensor,      # [B, n̂]
+    U_init: Tensor,      # [B, N, m]
+    X_ref: Tensor,       # [B, N+1, n] (or [N+1, n] shared: goal tracking)
+    U_ref: Tensor,       # [B, N, m]   (or [N, m] shared)
+    device: DeviceLike = None,
+) -> Tuple[Tensor, Tensor]:
+    """Solve B tube OCPs at once on the lane kernels; returns
+    (X_hat [B, N+1, n̂], U [B, N, m]). Runs on the card unless device='cpu'."""
+    dev = resolve_device(device)
+    check_on(dev, (x_hat0, U_init, X_ref, U_ref), "tube_ilqr_solve_lanes")
+    B, N, m = U_init.shape
+    dtype = x_hat0.dtype
+    if X_ref.ndim == 2:
+        X_ref = X_ref[None].expand((B,) + tuple(X_ref.shape))
+    if U_ref.ndim == 2:
+        U_ref = U_ref[None].expand((B,) + tuple(U_ref.shape))
+
+    u_min = torch.as_tensor(pb.u_min, dtype=dtype, device=dev)
+    u_max = torch.as_tensor(pb.u_max, dtype=dtype, device=dev)
+    U0_r = _rows(torch.minimum(u_max, torch.maximum(u_min, U_init)))
+    x0_r = _rows(x_hat0)
+    Xr_r = _rows(_with_barrier_row(X_ref))
+    Ur_r = _rows(U_ref)
+    C = _build_C(pb, w, bp, B, dtype, dev)
+    X0_r = rollout(pb, x0_r, U0_r, Xr_r, Ur_r, C)
+
+    X_r, U_r = lane_ilqr_solve(
+        pb, x_hat0=x0_r, U0=U0_r, X0=X0_r, X_ref=Xr_r, U_ref=Ur_r, C=C,
+        max_iter=cfg.max_iter, tol=cfg.tol, reg=cfg.reg, alphas=cfg.alphas,
+    )
+    return _unrows(X_r), _unrows(U_r)
+
+
+def tube_sensitivity_grads_lanes(
+    pb: LaneProblem,
+    *,
+    w: CostWeights,
+    bp: BarrierParams,
+    X_hat: Tensor,    # [B, N+1, n̂] solved aux trajectory
+    U: Tensor,        # [B, N, m]
+    X_ref: Tensor,    # [B, N+1, n] physical reference (nominal plan)
+    U_ref: Tensor,    # [B, N, m]
+    reg: float = 1e-9,
+    active_tol: float = 1e-8,
+    device: DeviceLike = None,
+) -> AuxAdapt:
+    """Per-lane gradients of the upper loss L = ||x* - x̄||² + ||b*||² with respect to
+    the ancillary (Q [B, n], R [B, m], qb [B]), from the δz sensitivity."""
+    dev = resolve_device(device)
+    check_on(dev, (X_hat, U, X_ref, U_ref), "tube_sensitivity_grads_lanes")
+    B = U.shape[0]
+    dtype = U.dtype
+    C = _build_C(pb, w, bp, B, dtype, dev)
+    gx, gr = lane_sensitivity_grads(
+        pb, X=_rows(X_hat), U=_rows(U), X_ref=_rows(_with_barrier_row(X_ref)),
+        U_ref=_rows(U_ref), C=C, reg=reg, active_tol=active_tol,
+    )
+    return AuxAdapt(Q=_unrows(gx[: pb.n]), R=_unrows(gr), qb=gx[pb.n])
