@@ -1,38 +1,53 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's two lane paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py            # from the repository root, on a machine with a card
 
+The two paths are bench.py's paper workload (run_paper_closed_loop_lanes: K1-K4) and
+its BENCH_MODE=coupled workload (run_generic_closed_loop_lanes with adapt_nominal:
+K1, K2 and the generic and coupled variants K5, K6 of the sensitivity kernels).
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 
-1. device:  the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build:   nvcc builds the two kernel sources (four kernels) from csrc/, in parallel;
-3. kernels: each kernel against its plain PyTorch version on the same inputs, at the
-            main path's shapes (B=16384, N=50, n̂=4, m=2, nα=7) in f64 and in f32.
-            The inputs are those of a real closed-loop step of the paper setup
-            (after three disturbed steps, so that the lanes differ); some of its
-            ancillary controls must lie at a bound, so that K3's active set runs.
-            Each kernel is timed with CUDA events (median of 20 runs) beside its
-            plain version;
-4. loop64:  a short f64 closed loop (B=256, N=50, H=5) through the kernels on the
-            card and through the plain versions on the CPU, held at the
-            tolerances of tests/test_lane_closed_loop.py:45-50;
-5. main:    the full-width slice, B=16384, N=50, H=300 in f32, disturbances from a
-            seeded torch.Generator on the card; every kernel must have launched in
-            this run (the launch counts are set to 0 just before it), K3 and K4
-            exactly H times, and at least 99% of the lanes must end with a finite loss;
-6. profile: torch.profiler over five full-width steps: the device's busy share and
-            the device time of the four kernels and of PyTorch's own kernels.
+1. device:   the card's name and power limit (nvidia-smi), torch and CUDA versions;
+2. build:    nvcc builds the two kernel sources (eight kernel variants, float and
+             double) from csrc/, in parallel, and prints each instantiation's
+             registers and spills;
+3. kernels:  each kernel variant against its plain PyTorch version on the same
+             inputs, at the main paths' shapes (B=16384, N=50, n̂=4, m=2, nα=7) in
+             f64 and in f32. The inputs are those of a real closed-loop step (after
+             three disturbed steps, so that the lanes differ): of the paper setup for
+             K1-K4, of the coupled setup for K5/K6; some ancillary controls must lie
+             at a bound in each, so that the active set runs. Each variant is timed
+             with CUDA events over 20 launches back to back (its plain version, 5);
+4. loop64:   a short f64 paper loop (B=256, N=50, H=5) through the kernels on the
+             card and through the plain versions on the CPU, held at the tolerances
+             of tests/test_lane_closed_loop.py:45-50;
+5. loop64_coupled: the same for the coupled loop, held at the tolerances of
+             tests/test_lane_generic.py:219-225, with the final raw parameters;
+6. main:     the full-width paper path, B=16384, N=50, H=300 in f32, disturbances
+             from a seeded torch.Generator on the card; every paper kernel must have
+             launched in this run (the launch counts are set to 0 just before it), K3
+             and K4 exactly H times, and at least 99% of the lanes must end with a
+             finite loss;
+7. coupled:  the full-width coupled path at the same B, N, H in f32 (the counts set to
+             0 again just before it): K1 and K2 launched, each K5/K6 variant exactly
+             H times, at least 99% of the lanes finite, and the nominal tightening
+             moved on some lane (the coupled chain ran);
+8. profile:  torch.profiler over five full-width steps of each path: the device's
+             busy share and the device time of each kernel variant and of PyTorch's
+             own kernels.
 
-Then it prints the `kernels` JSON line, the card's name and power limit, and, as
-the last line, {"ok": true, "device": {...}}. With no card it exits non-zero at once.
-It takes no arguments: every size is fixed below, so a result line always stands
-for the whole run at full width.
+Then it prints the `kernels` JSON line (launches from the main path for K1-K4, from
+the coupled path for K5/K6), the card's name and power limit, and, as the last line,
+{"ok": true, "device": {...}}. With no card it exits non-zero at once. It takes no
+arguments: every size is fixed below, so a result line always stands for the whole
+run at full width.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
-import statistics
+import re
 import subprocess
 import sys
 import time
@@ -44,39 +59,61 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 
 SEED = 0  # every random number here comes from torch.Generator seeded from it
 
-B, N, H = 16384, 50, 300  # the main path: bench.py's paper workload, full width and depth
+B, N, H = 16384, 50, 300  # the main paths: bench.py's paper and coupled workloads, full width and depth
 RUNS = 20                 # timed runs per kernel
+PLAIN_RUNS = 5            # timed runs per plain version (one small PyTorch kernel per operation)
 LOOP64_B, LOOP64_H = 256, 5
 PROFILE_H = 5
 
+SENS = "tube_mpc_tpu_torch/csrc/lane_sensitivity.cu"
 KERNELS = {
-    # name: (source, the Pallas kernel it replaces)
-    "ric": ("tube_mpc_tpu_torch/csrc/lane_solver.cu", "tube_mpc_tpu/ops/pallas/lane_solver.py:78"),
-    "fwd": ("tube_mpc_tpu_torch/csrc/lane_solver.cu", "tube_mpc_tpu/ops/pallas/lane_solver.py:196"),
-    "sbwd": ("tube_mpc_tpu_torch/csrc/lane_sensitivity.cu",
-             "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:48"),
-    "sfwd": ("tube_mpc_tpu_torch/csrc/lane_sensitivity.cu",
-             "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:172"),
+    # name: (source, the Pallas kernel it replaces, the CUDA kernel and its template flags)
+    "ric": ("tube_mpc_tpu_torch/csrc/lane_solver.cu", "tube_mpc_tpu/ops/pallas/lane_solver.py:78",
+            "ric_kernel", ""),
+    "fwd": ("tube_mpc_tpu_torch/csrc/lane_solver.cu", "tube_mpc_tpu/ops/pallas/lane_solver.py:196",
+            "fwd_kernel", ""),
+    "sbwd": (SENS, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:48", "sbwd_kernel", ", false, false"),
+    "sfwd": (SENS, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:172", "sfwd_kernel", ", false, false"),
+    "sbwd_generic": (SENS, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:48", "sbwd_kernel",
+                     ", true, false"),
+    "sbwd_upper": (SENS, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:48", "sbwd_kernel",
+                   ", true, true"),
+    "sfwd_generic": (SENS, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:172", "sfwd_kernel",
+                     ", true, false"),
+    "sfwd_ref": (SENS, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:172", "sfwd_kernel",
+                 ", true, true"),
 }
+# Rows of the const block C [13, B] that a kernel reads, where not all: K4 and the generic
+# K6 read only the barrier parameters (alpha, gamma, tight); the bound counts no other.
+C_ROWS = 13
+C_ROWS_READ = {"sfwd": 3, "sfwd_generic": 3}
+PAPER = ("ric", "fwd", "sbwd", "sfwd")
+COUPLED = ("sbwd_generic", "sbwd_upper", "sfwd_generic", "sfwd_ref")
 
 # Kernel against plain version: (rtol, atol as a fraction of the largest finite |value| of
 # the same output row, i.e. the same component index across steps and lanes, so that the
 # barrier rows, which reach 1/eps and more, set no tolerance for the position rows).
-# f64: the CPU tests' tolerances (tests/test_torch_lane_solver.py, test_torch_lane_sensitivity.py).
+# f64: the CPU tests' tolerances (tests/test_torch_lane_solver.py, test_torch_lane_sensitivity.py;
+# K5/K6 have K3/K4's).
 # f32: the two run the same operations in the same order (-fmad=false), so they differ only
 # where the card's math library rounds sin/cos/exp/log differently inside a kernel than in
 # PyTorch's; the Riccati recursions carry such a last-bit difference over 50 steps, so 1e-4
 # of the row's scale holds what f32 can promise. Where the plain output is not finite, the
 # kernel's must be the same (NaN where NaN, the same infinity) in either type.
 TOL = {
-    "float64": {"ric": (1e-12, 1e-12), "fwd": (1e-12, 1e-12), "sbwd": (1e-9, 1e-11),
-                "sfwd": (1e-9, 1e-11)},
+    "float64": {"ric": (1e-12, 1e-12), "fwd": (1e-12, 1e-12),
+                **{k: (1e-9, 1e-11) for k in ("sbwd", "sfwd") + COUPLED}},
     "float32": {k: (1e-4, 1e-4) for k in KERNELS},
 }
 LOOP_TOL = {  # tests/test_lane_closed_loop.py:45-50
     "x_real": (1e-7, 1e-8), "u_real": (1e-7, 1e-8), "x_bar": (1e-7, 1e-8),
     "u_bar": (1e-7, 1e-8), "b_real": (1e-7, 1e-8), "loss": (1e-7, 1e-8),
     "Q_hist": (1e-8, 1e-11), "R_hist": (1e-8, 1e-11), "qb_hist": (1e-8, 1e-11),
+}
+COUPLED_LOOP_TOL = {  # tests/test_lane_generic.py:219-225; the final raw parameters as Q/R
+    "x_real": (1e-7, 1e-8), "u_real": (1e-7, 1e-8), "x_bar": (1e-7, 1e-8),
+    "u_bar": (1e-7, 1e-7), "Q_hist": (1e-7, 1e-10), "R_hist": (1e-7, 1e-10),
+    "raw_aux": (1e-7, 1e-10), "raw_nom": (1e-7, 1e-10),
 }
 
 
@@ -91,20 +128,35 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_label(line: str) -> str:
+    """ptxas names a kernel by its mangled symbol; write it as name<type, flags>."""
+    def label(m):
+        sym = m.group(0)
+        k = re.match(r"_ZN4lane\d+(\w+?_kernel)I([fd])((?:Lb[01]E)*)E", sym)
+        if not k:
+            return sym
+        args = ["float" if k[2] == "f" else "double"]
+        args += ["true" if b == "1" else "false" for b in re.findall(r"Lb([01])E", k[3])]
+        return f"{k[1]}<{', '.join(args)}>"
+    return re.sub(r"_ZN4lane\w+", label, line)
+
+
 def device_time_ms(torch, fn, runs: int, warmup: int = 2) -> float:
-    """Median over `runs` of one call's device time, by CUDA events."""
+    """Device time per call of `runs` calls made back to back, by CUDA events around
+    all of them. Back to back, the host prepares the next launch (the wrapper's checks,
+    allocations and ctypes call) while the device runs the last one, so a kernel's
+    time does not take in the host's time per call, as an event pair around each
+    single call would: that adds some 0.1 ms per launch here, more on a slower host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
 
 
 def count_ops(torch, fn, args, lanes: int) -> int:
@@ -138,6 +190,8 @@ def max_err(torch, got, ref, rtol, atol_frac):
     outputs agree): where ref is finite, |got - ref| <= rtol |ref| + atol_frac * (largest
     finite |ref| of the element's row, dim -2); elsewhere got equals ref, or both are NaN."""
     worst, ok = 0.0, True
+    if len(got) != len(ref):
+        return float("inf"), False
     for g, r in zip(got, ref):
         fin = torch.isfinite(r)
         ra = torch.where(fin, r.abs(), torch.zeros_like(r))
@@ -160,12 +214,21 @@ def main() -> int:
     from tube_mpc_tpu_torch.ops.costs import CostWeights
     from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
     from tube_mpc_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
-    from tube_mpc_tpu_torch.ops.cuda.lane_sensitivity import sbwd_plain, sfwd_plain
+    from tube_mpc_tpu_torch.ops.cuda.lane_sensitivity import (
+        sbwd_plain,
+        sbwd_upper_plain,
+        sfwd_plain,
+    )
     from tube_mpc_tpu_torch.ops.cuda.lane_solver import fwd_plain, ric_plain, rollout
     from tube_mpc_tpu_torch.presets import dubins_paper_setup
     from tube_mpc_tpu_torch.tube.lane_closed_loop import (
+        _aux_params,
+        _nom_params,
+        generic_lane_init_state,
+        make_generic_lane_step,
         make_paper_lane_step,
         paper_lane_init_state,
+        run_generic_closed_loop_lanes,
         run_paper_closed_loop_lanes,
     )
     from tube_mpc_tpu_torch.tube.lane_interface import (
@@ -174,12 +237,40 @@ def main() -> int:
         _with_barrier_row,
         make_lane_problem,
         tube_ilqr_solve_lanes,
+        tube_sensitivity_grads_lanes_generic,
     )
+    from tube_mpc_tpu_torch.tube.params import AdaptConfig, RawAuxTheta, RawNominalTheta
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
+    t_start = time.perf_counter()
+
+    def coupled_setup(H_, where, dtype):
+        """bench.py's BENCH_MODE=coupled configuration (bench.py:229-255): the paper
+        setup, the clipped adaptation, adapt_nominal, its raw parameters, eps=1e-4."""
+        s = dubins_paper_setup(N=N, H=H_, device=where, dtype=dtype)
+        cfg = dataclasses.replace(s.cfg, adapt=AdaptConfig(
+            lr=5e-2, momentum=0.9, steps=1, grad_clip_norm=1.0, project=True), adapt_nominal=True)
+        t = lambda v: torch.as_tensor(v, dtype=dtype, device=where)
+        raw_nom = RawNominalTheta(
+            Q_raw=t([1.0, 1.0, 0.0]), R_raw=t([1.0, 1.0]), Qf_raw=t([1000.0] * 3), qb_raw=t(1.0),
+            alpha_raw=t(0.0), gamma_raw=t(0.0), tight_raw=t(0.0))
+        raw_aux = RawAuxTheta(
+            Q_raw=t([1.0, 1.0, 0.0]), R_raw=t([1.0, 1.0]), Qf_raw=t([1000.0] * 3), qb_raw=t(1.0),
+            alpha_raw=t(0.0), gamma_raw=t(0.0))
+        return s, cfg, raw_nom, raw_aux
+
+    def run_coupled(s, cfg, raw_nom, raw_aux, w, where):
+        return run_generic_closed_loop_lanes(
+            s.system, s.aug, s.sys_c, cfg, raw_nom=raw_nom, raw_aux_init=raw_aux, x0=s.x0,
+            target=s.target, w_seqs=w, eps=1e-4, device=where)
+
+    def run_paper(s, w, where):
+        return run_paper_closed_loop_lanes(
+            s.system, s.aug, s.sys_c, s.cfg, w_nominal=s.w_nominal, aux_init=s.aux_init,
+            bp=s.bp, x0=s.x0, target=s.target, w_seqs=w, eps=s.eps, device=where)
 
     # ---- 1. device ------------------------------------------------------------
     log(f"[device] {card}")
@@ -194,14 +285,19 @@ def main() -> int:
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"[build] {name}: {line.strip()}")
+                log(f"[build] {name}: {kernel_label(line.strip())}")
 
     # ---- 3. kernels against their plain versions --------------------------------
     reg_sens, active_tol = 1e-9, 1e-8
 
+    def at_bound(pb, U_rows):
+        lo = torch.as_tensor(pb.u_min, dtype=U_rows.dtype, device=U_rows.device)[:, None]
+        hi = torch.as_tensor(pb.u_max, dtype=U_rows.dtype, device=U_rows.device)[:, None]
+        return int(((U_rows <= lo + active_tol) | (U_rows >= hi - active_tol)).sum())
+
     def step_inputs(dtype):
-        """The four kernels' inputs in one real closed-loop step of the paper setup at
-        full width: three disturbed steps first, then this step's nominal solve, the
+        """The four paper kernels' inputs in one real closed-loop step of the paper setup
+        at full width: three disturbed steps first, then this step's nominal solve, the
         first iteration of its ancillary solve, and the sensitivity of its solution."""
         s = dubins_paper_setup(N=N, H=4, device=dev, dtype=dtype)
         pb = make_lane_problem(s.sys_c, eps=s.eps)
@@ -241,7 +337,6 @@ def main() -> int:
         Ks, kffs = WRAPPERS["sbwd"](pb, reg_sens, active_tol, *k3)
         k4 = (Ks, kffs, Xa[:-1], Xr[:-1], Ua, Ur, C, Xa[-1], Xr[-1])
         torch.cuda.synchronize()
-        at_bound = int(((Ua <= -10.0 + active_tol) | (Ua >= 10.0 - active_tol)).sum())
         calls = {
             "ric": (lambda *t: WRAPPERS["ric"](pb, s.cfg.reg, *t),
                     lambda *t: ric_plain(pb, s.cfg.reg, *t), k1),
@@ -251,61 +346,122 @@ def main() -> int:
                      lambda *t: sbwd_plain(pb, reg_sens, active_tol, *t), k3),
             "sfwd": (lambda *t: WRAPPERS["sfwd"](pb, *t), lambda *t: sfwd_plain(pb, *t), k4),
         }
-        return calls, at_bound, len(s.cfg.alphas)
+        return calls, at_bound(pb, Ua), f"paper setup, {len(s.cfg.alphas)} alphas"
+
+    def coupled_step_inputs(dtype):
+        """The four K5/K6 variants' inputs in one real step of the coupled setup at full
+        width: three disturbed steps first, then this step's two solves, the ancillary
+        sweeps (K5 generic, K6 with the reference cotangents) and the nominal sweeps fed
+        those cotangents (K5 with upper rows, K6 generic)."""
+        s, cfg, raw_nom, raw_aux = coupled_setup(4, dev, dtype)
+        pb = make_lane_problem(s.sys_c, eps=1e-4)
+        step = make_generic_lane_step(s.system, s.aug, pb, cfg, target=s.target, B=B,
+                                      dtype=dtype, device=dev)
+        state = generic_lane_init_state(s.system, s.aug, cfg, raw_nom=raw_nom,
+                                        raw_aux_init=raw_aux, x0=s.x0, B=B, dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        w = s.system.sample_disturbance(gen, (B, 3), dtype=dtype)
+        for t in range(3):
+            state, _ = step(state, w[:, t])
+        zero_t = torch.zeros((B,), dtype=dtype, device=dev)
+        w_aux, bp_aux = _aux_params(state.raw_aux, zero_t)
+        w_nom, bp_nom = _nom_params(state.raw_nom)
+        x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
+        X_ref_nom = s.target[None, None].expand(B, N + 1, 3)
+        U_ref_nom = torch.zeros((B, N, 2), dtype=dtype, device=dev)
+        X_nom, U_nom = tube_ilqr_solve_lanes(
+            pb, cfg.nominal_ilqr(), w=w_nom, bp=bp_nom, x_hat0=x_hat_bar,
+            U_init=state.U_nom_ws, X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev)
+        x_hat = torch.cat([state.x, state.b[:, None]], dim=-1)
+        X_aux, U_aux = tube_ilqr_solve_lanes(
+            pb, cfg.aux_ilqr(), w=w_aux, bp=bp_aux, x_hat0=x_hat, U_init=state.U_aux_ws,
+            X_ref=X_nom[..., :3], U_ref=U_nom, device=dev)
+        Xa, Ua = _rows(X_aux), _rows(U_aux)
+        Xr, Ur = _rows(_with_barrier_row(X_nom[..., :3])), _rows(U_nom)
+        Ca = _build_C(pb, w_aux, bp_aux, B, dtype, dev)
+        k5g = (Ua, Xa[:-1], Xr[:-1], Ca, Xa[-1], Xr[-1])
+        K, kff, tVx, Vxx, LogS = WRAPPERS["sbwd_generic"](pb, reg_sens, active_tol, *k5g)
+        k6r = (K, kff, Xa[:-1], Xr[:-1], Ua, Ur, Ca, Xa[-1], Xr[-1], tVx, Vxx, LogS)
+        _, g_Xref, g_Uref = tube_sensitivity_grads_lanes_generic(
+            pb, w=w_aux, bp=bp_aux, X_hat=X_aux, U=U_aux, X_ref=X_nom[..., :3], U_ref=U_nom,
+            reg=reg_sens, emit_ref_grads=True, device=dev)
+        gX, gU = _rows(g_Xref), _rows(g_Uref)
+        Xn, Un = _rows(X_nom), _rows(U_nom)
+        Xrn, Urn = _rows(_with_barrier_row(X_ref_nom)), _rows(U_ref_nom)
+        Cn = _build_C(pb, w_nom, bp_nom, B, dtype, dev)
+        k5u = (gX[:-1].contiguous(), gU, gX[-1], Un, Xn[:-1], Cn)
+        K2, kff2, tVx2, Vxx2, LogS2 = WRAPPERS["sbwd_upper"](pb, reg_sens, active_tol, *k5u)
+        k6g = (K2, kff2, Xn[:-1], Xrn[:-1], Un, Urn, Cn, Xn[-1], Xrn[-1], tVx2, Vxx2, LogS2)
+        torch.cuda.synchronize()
+        calls = {
+            "sbwd_generic": (lambda *t: WRAPPERS["sbwd_generic"](pb, reg_sens, active_tol, *t),
+                             lambda *t: sbwd_plain(pb, reg_sens, active_tol, *t, generic=True),
+                             k5g),
+            "sbwd_upper": (lambda *t: WRAPPERS["sbwd_upper"](pb, reg_sens, active_tol, *t),
+                           lambda *t: sbwd_upper_plain(pb, reg_sens, active_tol, *t), k5u),
+            "sfwd_generic": (lambda *t: WRAPPERS["sfwd_generic"](pb, *t),
+                             lambda *t: sfwd_plain(pb, *t[:9], value=t[9:]), k6g),
+            "sfwd_ref": (lambda *t: WRAPPERS["sfwd_ref"](pb, *t),
+                         lambda *t: sfwd_plain(pb, *t[:9], value=t[9:], emit_ref_grads=True),
+                         k6r),
+        }
+        return calls, at_bound(pb, Ua), "coupled setup"
 
     results = {}
     failed = []
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).replace("torch.", "")
-        calls, at_bound, n_alphas = step_inputs(dtype)
-        log(f"[kernels] {dname}: inputs from a closed-loop step at B={B}, N={N}, "
-            f"{n_alphas} alphas; {at_bound} ancillary controls at a bound")
-        if at_bound == 0:
-            failed.append(f"{dname} inputs: no ancillary control at a bound, K3's active set unchecked")
-        for name, (kernel, plain, inputs) in calls.items():
-            got = kernel(*inputs)
-            ref = plain(*inputs)
-            torch.cuda.synchronize()
-            rtol, atol_frac = TOL[dname][name]
-            err, ok = max_err(torch, got, ref, rtol, atol_frac)
-            nonfinite = sum(int((~torch.isfinite(r)).sum()) for r in ref)
-            log(f"[kernels] {dname} {name}: max |kernel - plain| = {err!r} "
-                f"(rtol {rtol}, atol {atol_frac} of the row's max|plain|) -> "
-                f"{'ok' if ok else 'FAIL'}; {nonfinite} non-finite values in the plain output")
-            if not ok:
-                failed.append(f"{dname} {name}")
-            if dtype != torch.float32:
-                continue
-            ms = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
-            plain_ms = device_time_ms(torch, lambda: plain(*inputs), RUNS, warmup=1)
-            out_bytes = sum(t.numel() * t.element_size() for t in got)
-            in_bytes = sum(t.numel() * t.element_size() for t in inputs)
-            lanes = 8
-            ops = count_ops(torch, plain, inputs, lanes) * (B // lanes)
-            t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS_PER_S[dname] * 1e3
-            results[name] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=in_bytes + out_bytes, ops=ops)
-            log(f"[kernels] {dname} {name}: {ms:.4f} ms (median of {RUNS}), plain "
-                f"{plain_ms:.2f} ms; {in_bytes + out_bytes} bytes -> {t_bytes:.4f} ms, "
-                f"{ops} ops -> {t_ops:.4f} ms at peak")
-        del calls
-        torch.cuda.empty_cache()
+        for inputs_of in (step_inputs, coupled_step_inputs):
+            calls, n_bound, what = inputs_of(dtype)
+            log(f"[kernels] {dname}: inputs from a closed-loop step of the {what} at B={B}, "
+                f"N={N}; {n_bound} ancillary controls at a bound")
+            if n_bound == 0:
+                failed.append(f"{dname} {what}: no ancillary control at a bound, active set unchecked")
+            for name, (kernel, plain, inputs) in calls.items():
+                got = kernel(*inputs)
+                ref = plain(*inputs)
+                torch.cuda.synchronize()
+                rtol, atol_frac = TOL[dname][name]
+                err, ok = max_err(torch, got, ref, rtol, atol_frac)
+                nonfinite = sum(int((~torch.isfinite(r)).sum()) for r in ref)
+                log(f"[kernels] {dname} {name}: max |kernel - plain| = {err!r} "
+                    f"(rtol {rtol}, atol {atol_frac} of the row's max|plain|) -> "
+                    f"{'ok' if ok else 'FAIL'}; {nonfinite} non-finite values in the plain output")
+                if not ok:
+                    failed.append(f"{dname} {name}")
+                if dtype != torch.float32:
+                    continue
+                ms = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
+                plain_ms = device_time_ms(torch, lambda: plain(*inputs), PLAIN_RUNS, warmup=1)
+                out_bytes = sum(t.numel() * t.element_size() for t in got)
+                in_bytes = sum(t.numel() * t.element_size() for t in inputs)
+                in_bytes -= (C_ROWS - C_ROWS_READ.get(name, C_ROWS)) * B * got[0].element_size()
+                lanes = 8
+                ops = count_ops(torch, plain, inputs, lanes) * (B // lanes)
+                t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+                t_ops = ops / PEAK_OPS_PER_S[dname] * 1e3
+                results[name] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bytes=in_bytes + out_bytes, ops=ops)
+                log(f"[kernels] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back), plain "
+                    f"{plain_ms:.2f} ms (mean of {PLAIN_RUNS}); {in_bytes + out_bytes} bytes "
+                    f"-> {t_bytes:.4f} ms, {ops} ops -> {t_ops:.4f} ms at peak")
+            del calls
+            torch.cuda.empty_cache()
     if failed:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
+    log(f"[kernels] done at {time.perf_counter() - t_start:.0f} s")
 
-    # ---- 4. short f64 closed loop: kernels on the card vs plain versions on the CPU ----
+    # ---- 4. short f64 paper loop: kernels on the card vs plain versions on the CPU ----
     logs = {}
     for where in ("cpu", dev):
         s = dubins_paper_setup(N=N, H=LOOP64_H, device=where, dtype=torch.float64)
         w = s.system.sample_disturbance(torch.Generator().manual_seed(SEED + 2),
                                         (LOOP64_B, LOOP64_H), dtype=torch.float64).to(where)
         t0 = time.perf_counter()
-        out = run_paper_closed_loop_lanes(
-            s.system, s.aug, s.sys_c, s.cfg, w_nominal=s.w_nominal, aux_init=s.aux_init,
-            bp=s.bp, x0=s.x0, target=s.target, w_seqs=w, eps=s.eps, device=where)
+        out = run_paper(s, w, where)
         if where != "cpu":
             torch.cuda.synchronize()
         log(f"[loop64] B={LOOP64_B}, N={N}, H={LOOP64_H} f64 on {where}: "
@@ -323,7 +479,40 @@ def main() -> int:
     if bad:
         raise SystemExit(f"chip_smoke: the f64 loop on the card disagrees with the plain loop: {bad}")
 
-    # ---- 5. the full-width main path ---------------------------------------------
+    # ---- 5. short f64 coupled loop: the same for the coupled path ----------------------
+    logs = {}
+    for where in ("cpu", dev):
+        s, cfg, raw_nom, raw_aux = coupled_setup(LOOP64_H, where, torch.float64)
+        w = s.system.sample_disturbance(torch.Generator().manual_seed(SEED + 5),
+                                        (LOOP64_B, LOOP64_H), dtype=torch.float64).to(where)
+        t0 = time.perf_counter()
+        out, raws = run_coupled(s, cfg, raw_nom, raw_aux, w, where)
+        if where != "cpu":
+            torch.cuda.synchronize()
+        log(f"[loop64_coupled] B={LOOP64_B}, N={N}, H={LOOP64_H} f64 on {where}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        logs[where] = (out, raws)
+    bad = []
+    for field, (rtol, atol) in COUPLED_LOOP_TOL.items():
+        if field.startswith("raw_"):
+            i = 0 if field == "raw_aux" else 1
+            pairs = [(f"{field}.{f}", getattr(logs[dev][1][i], f).cpu(),
+                      getattr(logs["cpu"][1][i], f)) for f in logs["cpu"][1][i]._fields]
+        else:
+            pairs = [(field, getattr(logs[dev][0], field).cpu(), getattr(logs["cpu"][0], field))]
+        for label, a, b in pairs:
+            d = (a - b).abs()
+            ok = bool((d <= atol + rtol * b.abs()).all())
+            log(f"[loop64_coupled] {label}: max |card - cpu| = {float(d.max())!r} "
+                f"(rtol {rtol}, atol {atol}) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(label)
+    if bad:
+        raise SystemExit(f"chip_smoke: the f64 coupled loop on the card disagrees with the plain "
+                         f"loop: {bad}")
+    log(f"[loop64_coupled] done at {time.perf_counter() - t_start:.0f} s")
+
+    # ---- 6. the full-width paper path ---------------------------------------------
     s = dubins_paper_setup(N=N, H=H, device=dev, dtype=torch.float32)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     w = s.system.sample_disturbance(gen, (B, H), dtype=torch.float32)
@@ -331,9 +520,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    out = run_paper_closed_loop_lanes(
-        s.system, s.aug, s.sys_c, s.cfg, w_nominal=s.w_nominal, aux_init=s.aux_init,
-        bp=s.bp, x0=s.x0, target=s.target, w_seqs=w, eps=s.eps, device=dev)
+    out = run_paper(s, w, dev)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = launch_counts()
@@ -345,7 +532,7 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     log(f"[main] launches: {json.dumps(counts)}; final loss median "
         f"{float(out.loss[:, -1].nanmedian())!r}")
-    problems = [k for k, v in counts.items() if v == 0]
+    problems = [k for k in PAPER if counts[k] == 0]
     if problems:
         raise SystemExit(f"chip_smoke: kernels not launched on the main path: {problems}")
     if counts["sbwd"] != H or counts["sfwd"] != H:
@@ -354,53 +541,109 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: finite_lane_frac {finite} < 0.99")
     if not shapes_ok:
         raise SystemExit("chip_smoke: the closed-loop log has the wrong shapes")
+    del out
 
-    # ---- 6. where the time goes: torch.profiler over a few full-width steps ---------
+    # ---- 7. the full-width coupled path ---------------------------------------------
+    s, cfg, raw_nom, raw_aux = coupled_setup(H, dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    w = s.system.sample_disturbance(gen, (B, H), dtype=torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out, (raw_aux_f, raw_nom_f) = run_coupled(s, cfg, raw_nom, raw_aux, w, dev)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    coupled_counts = launch_counts()
+    finite = float(torch.isfinite(out.loss[:, -1]).float().mean())
+    tight_moved = int((raw_nom_f.tight_raw != raw_nom.tight_raw).sum())
+    shapes_ok = (tuple(out.x_real.shape) == (B, H, 3) and tuple(out.u_bar.shape) == (B, H, 2)
+                 and tuple(out.loss.shape) == (B, H) and tuple(raw_nom_f.Q_raw.shape) == (B, 3))
+    log(f"[coupled] B={B}, N={N}, H={H} f32: {elapsed:.3f} s, {2 * H * B / elapsed:.1f} solves/s "
+        f"(2*H*B / elapsed), finite_lane_frac {finite!r}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    log(f"[coupled] launches: {json.dumps(coupled_counts)}; final loss median "
+        f"{float(out.loss[:, -1].nanmedian())!r}; tight_raw moved on {tight_moved} lanes "
+        f"(final median {float(raw_nom_f.tight_raw.median())!r}), alpha_raw (ancillary) final "
+        f"median {float(raw_aux_f.alpha_raw.median())!r}")
+    problems = [k for k in ("ric", "fwd") if coupled_counts[k] == 0]
+    problems += [f"{k}: {coupled_counts[k]}" for k in COUPLED if coupled_counts[k] != H]
+    if problems:
+        raise SystemExit(f"chip_smoke: the coupled path's launches are wrong (K5/K6 need H={H} "
+                         f"each): {problems}")
+    if finite < 0.99:
+        raise SystemExit(f"chip_smoke: coupled finite_lane_frac {finite} < 0.99")
+    if tight_moved == 0:
+        raise SystemExit("chip_smoke: the nominal tightening moved on no lane")
+    if not shapes_ok:
+        raise SystemExit("chip_smoke: the coupled log has the wrong shapes")
+    del out
+    log(f"[coupled] done at {time.perf_counter() - t_start:.0f} s")
+
+    # ---- 8. where the time goes: torch.profiler over a few full-width steps ---------
     from torch.profiler import ProfilerActivity, profile
+
+    def profile_phase(label, run):
+        t0 = time.perf_counter()
+        run()
+        plain_wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall = time.perf_counter() - t0
+        rows = []
+        for e in prof.key_averages():
+            # device-side events only: an aten op on the host also reports the
+            # device time of the kernels it launched, which would count them twice
+            if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            if us > 0:
+                rows.append((us, e.count, e.key))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows) / 1e6
+        ours = sum(r[0] for r in rows if any(v[2] in r[2] for v in KERNELS.values())) / 1e6
+        log(f"[profile] {label}: {PROFILE_H} steps at B={B}, N={N}, f32: {plain_wall:.3f} s "
+            f"unprofiled, {wall:.3f} s profiled; device busy {busy:.3f} s ({busy / wall:.1%} of "
+            f"the profiled wall, {busy / plain_wall:.1%} of the unprofiled), of which the lane "
+            f"kernels {ours:.3f} s and PyTorch's own kernels {busy - ours:.3f} s")
+        for name, (_, _, fn, flags) in KERNELS.items():
+            sym = f"{fn}<float{flags}>"
+            hit = [r for r in rows if sym in r[2]]
+            if hit:
+                log(f"[profile] {label}   {name} ({sym}): {sum(r[0] for r in hit) / 1e3:.3f} ms "
+                    f"over {sum(r[1] for r in hit)} launches")
+        for us, count, key in rows[:12]:
+            log(f"[profile] {label}   {us / 1e3:10.3f} ms  x{count:<6d} {key[:110]}")
 
     s = dubins_paper_setup(N=N, H=PROFILE_H, device=dev, dtype=torch.float32)
     w = s.system.sample_disturbance(torch.Generator(device=dev).manual_seed(SEED + 3),
                                     (B, PROFILE_H), dtype=torch.float32)
 
-    def run():
-        run_paper_closed_loop_lanes(
-            s.system, s.aug, s.sys_c, s.cfg, w_nominal=s.w_nominal, aux_init=s.aux_init,
-            bp=s.bp, x0=s.x0, target=s.target, w_seqs=w, eps=s.eps, device=dev)
+    def paper_steps():
+        run_paper(s, w, dev)
         torch.cuda.synchronize()
 
-    t0 = time.perf_counter()
-    run()
-    plain_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only: an aten op on the host also reports the
-        # device time of the kernels it launched, which would count them twice
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((us, e.count, e.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
-    ours = sum(r[0] for r in rows if any(f"{k}_kernel" in r[2] for k in KERNELS)) / 1e6
-    log(f"[profile] {PROFILE_H} steps at B={B}, N={N}, f32: {plain_wall:.3f} s unprofiled, "
-        f"{wall:.3f} s profiled; device busy {busy:.3f} s ({busy / wall:.1%} of the profiled "
-        f"wall, {busy / plain_wall:.1%} of the unprofiled), of which the four kernels "
-        f"{ours:.3f} s and PyTorch's own kernels {busy - ours:.3f} s")
-    for us, count, key in rows[:12]:
-        log(f"[profile]   {us / 1e3:10.3f} ms  x{count:<6d} {key[:110]}")
+    profile_phase("paper", paper_steps)
+    sc, cfg, raw_nom, raw_aux = coupled_setup(PROFILE_H, dev, torch.float32)
+    wc = sc.system.sample_disturbance(torch.Generator(device=dev).manual_seed(SEED + 7),
+                                      (B, PROFILE_H), dtype=torch.float32)
+
+    def coupled_steps():
+        run_coupled(sc, cfg, raw_nom, raw_aux, wc, dev)
+        torch.cuda.synchronize()
+
+    profile_phase("coupled", coupled_steps)
+    log(f"[profile] done at {time.perf_counter() - t_start:.0f} s")
 
     line = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, _, _) in KERNELS.items():
         r = results[name]
+        launches = counts[name] if name in PAPER else coupled_counts[name]
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=counts[name], max_abs_err=r["max_abs_err"],
+                         launches=launches, max_abs_err=r["max_abs_err"],
                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"], library_ms=None))
     print(json.dumps({"kernels": line}))

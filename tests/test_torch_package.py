@@ -2,7 +2,9 @@
 setup and a loop state are carried across from the JAX package.
 """
 import ast
+import dataclasses
 import importlib
+import re
 import os
 import pkgutil
 import subprocess
@@ -15,23 +17,39 @@ import pytest
 import torch
 
 from tube_mpc_tpu.presets import dubins_paper_setup as j_dubins_paper_setup
+from tube_mpc_tpu.tube.lane_closed_loop import generic_lane_init_state as j_generic_lane_init_state
 from tube_mpc_tpu.tube.lane_closed_loop import paper_lane_init_state as j_paper_lane_init_state
+from tube_mpc_tpu.tube.params import RawAuxTheta as JRawAuxTheta
+from tube_mpc_tpu.tube.params import RawNominalTheta as JRawNominalTheta
 
 import tube_mpc_tpu_torch
-from tube_mpc_tpu_torch.convert import lane_state_from_numpy, setup_from_numpy
+from tube_mpc_tpu_torch.convert import (
+    generic_lane_state_from_numpy,
+    lane_state_from_numpy,
+    raw_aux_from_numpy,
+    raw_nom_from_numpy,
+    setup_from_numpy,
+)
 from tube_mpc_tpu_torch.device import resolve_device
-from tube_mpc_tpu_torch.ops.cuda import launch_counts
+from tube_mpc_tpu_torch.ops.cuda import KERNELS, launch_counts, reset_launch_counts
 from tube_mpc_tpu_torch.ops.cuda import _build
+from tube_mpc_tpu_torch.ops.cuda import lane_sensitivity as sens
 from tube_mpc_tpu_torch.ops.cuda.lane_solver import kernel_consts, on_cpu
 from tube_mpc_tpu_torch.ops.lanes import dubins_components
 from tube_mpc_tpu_torch.presets import dubins_paper_setup
-from tube_mpc_tpu_torch.tube.lane_closed_loop import paper_lane_init_state
+from tube_mpc_tpu_torch.tube.lane_closed_loop import (
+    generic_lane_init_state,
+    paper_lane_init_state,
+    run_generic_closed_loop_lanes,
+    run_paper_closed_loop_lanes,
+)
 from tube_mpc_tpu_torch.tube.lane_interface import (
     make_lane_problem,
     tube_ilqr_solve_lanes,
     tube_sensitivity_grads_lanes,
+    tube_sensitivity_grads_lanes_generic,
+    tube_sensitivity_grads_lanes_nominal_coupled,
 )
-from tube_mpc_tpu_torch.tube.lane_closed_loop import run_paper_closed_loop_lanes
 
 from test_torch_lane_closed_loop import setup_as_numpy
 
@@ -41,7 +59,7 @@ FORBIDDEN = ("jax", "jaxlib", "tube_mpc_tpu")
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tools" / "port_kernel_ab.py"]
 
 
 def _imported_roots(path: Path):
@@ -88,7 +106,8 @@ def test_every_module_imports_here():
     assert "tube_mpc_tpu_torch.ops.cuda.lane_solver" in names
     for name in names:
         importlib.import_module(name)
-    assert set(launch_counts()) == {"ric", "fwd", "sbwd", "sfwd"}
+    assert set(launch_counts()) == {"ric", "fwd", "sbwd", "sfwd", "sbwd_generic", "sbwd_upper",
+                                    "sfwd_generic", "sfwd_ref"}
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -117,6 +136,23 @@ def test_entry_points_raise_without_a_card(monkeypatch):
             s.system, s.aug, s.sys_c, s.cfg, w_nominal=s.w_nominal, aux_init=s.aux_init,
             bp=s.bp, x0=s.x0, target=s.target,
             w_seqs=torch.zeros((B, 2, 3), dtype=torch.float64), eps=s.eps)
+    X_hat = torch.zeros((B, 5, 4), dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tube_sensitivity_grads_lanes_generic(pb, w=s.w_nominal, bp=s.bp, X_hat=X_hat, U=U,
+                                             X_ref=X_ref, U_ref=U, emit_ref_grads=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tube_sensitivity_grads_lanes_nominal_coupled(pb, w=s.w_nominal, bp=s.bp, X_hat=X_hat,
+                                                     U=U, target=s.target, upper_gX=X_hat,
+                                                     upper_gU=U)
+    raws = dict(Q_raw=[1.0] * 3, R_raw=[1.0] * 2, Qf_raw=[1.0] * 3, qb_raw=1.0, alpha_raw=0.0,
+                gamma_raw=0.0)
+    coupled = dataclasses.replace(s.cfg, adapt_nominal=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_generic_closed_loop_lanes(
+            s.system, s.aug, s.sys_c, coupled,
+            raw_nom=raw_nom_from_numpy(dict(raws, tight_raw=0.0), "cpu", torch.float64),
+            raw_aux_init=raw_aux_from_numpy(raws, "cpu", torch.float64), x0=s.x0,
+            target=s.target, w_seqs=torch.zeros((B, 2, 3), dtype=torch.float64), eps=s.eps)
     with pytest.raises(RuntimeError, match="requested but no CUDA device"):
         resolve_device("cuda")
 
@@ -128,6 +164,93 @@ def test_wrappers_take_cpu_or_cuda_tensors_only():
         on_cpu(torch.zeros(3, device="meta"))
     with pytest.raises(ValueError, match="several devices"):
         on_cpu(cpu, torch.zeros(3, device="meta"))
+
+
+def _c_entry_tensor_counts():
+    """{entry point: number of tensor pointers} of csrc/lane_sensitivity.cu's C entry
+    points (each ends with N, B, the constants and the stream)."""
+    src = (PKG / "csrc" / "lane_sensitivity.cu").read_text()
+    out = {}
+    for name, params in re.findall(r"int (lane_\w+?)_##SUFFIX\((.*?)\)", src, flags=re.S):
+        out[name] = params.count("void*") - 1
+    return out
+
+
+def test_sensitivity_variants_launch_their_own_entry_points(monkeypatch):
+    """Each variant's wrapper takes its plain version for CPU tensors and counts
+    nothing; for CUDA tensors it calls its own C entry point with as many tensors as
+    that entry takes, and counts one launch on its own counter only. (No card here:
+    the device test and the launch itself are stood in for.)"""
+    s = dubins_paper_setup(N=4, H=2, device="cpu", dtype=torch.float64)
+    pb = make_lane_problem(s.sys_c, eps=s.eps)
+    B, N = 3, 4
+    rng = np.random.default_rng(5)
+    t = lambda *shape: torch.as_tensor(rng.normal(size=shape))
+    U, X, Xr, C, XN, XrN = t(N, 2, B), t(N, 4, B), t(N, 4, B), t(13, B).abs(), t(4, B), t(4, B)
+    upper = (t(N, 4, B), t(N, 2, B), t(4, B))
+    calls = {
+        "sbwd": lambda: sens.sbwd(pb, 1e-9, 1e-8, U, X, Xr, C, XN, XrN),
+        "sbwd_generic": lambda: sens.sbwd_generic(pb, 1e-9, 1e-8, U, X, Xr, C, XN, XrN),
+        "sbwd_upper": lambda: sens.sbwd_upper(pb, 1e-9, 1e-8, *upper, U, X, C),
+    }
+    K, kff, tVx, Vxx, LogS = sens.sbwd_plain(pb, 1e-9, 1e-8, U, X, Xr, C, XN, XrN, generic=True)
+    fwd = (K, kff, X, Xr, U, t(N, 2, B), C, XN, XrN)
+    calls.update({
+        "sfwd": lambda: sens.sfwd(pb, *fwd),
+        "sfwd_generic": lambda: sens.sfwd_generic(pb, *fwd, tVx, Vxx, LogS),
+        "sfwd_ref": lambda: sens.sfwd_ref(pb, *fwd, tVx, Vxx, LogS),
+    })
+    reset_launch_counts()
+    plain = {name: call() for name, call in calls.items()}
+    assert not any(launch_counts().values())
+    assert [len(plain[n]) for n in calls] == [2, 5, 5, 2, 4, 7]
+
+    entries = _c_entry_tensor_counts()
+    launched = []
+
+    def fake_launch(lib, fn, dtype, device, tensors, n, b, consts):
+        assert lib == "lane_sensitivity" and (n, b) == (N, B)
+        launched.append((fn, len(tensors)))
+
+    monkeypatch.setattr(sens, "on_cpu", lambda *ts: False)
+    monkeypatch.setattr(sens, "launch", fake_launch)
+    done = []
+    for name, call in calls.items():
+        out = call()
+        done.append(name)
+        assert [tuple(o.shape) for o in out] == [tuple(o.shape) for o in plain[name]]
+        fn, n_tensors = launched[-1]
+        assert fn == f"lane_{name}" and entries[fn] == n_tensors, (fn, n_tensors, entries)
+        assert launch_counts() == {k: int(k in done) for k in KERNELS}
+    assert set(entries) == {f"lane_{name}" for name in calls}
+    reset_launch_counts()
+
+
+@pytest.mark.parametrize("loop,change,match", [
+    ("generic", dict(adapt_ancillary=False), "adapt_ancillary=False"),
+    ("generic", dict(coupling="exact"), "coupling must be"),
+    ("paper", dict(adapt_ancillary=False), "ancillary θ only"),
+    ("paper", dict(adapt_nominal=True), "ancillary θ only"),
+])
+def test_lane_loops_refuse_modes_they_do_not_run(loop, change, match):
+    """A TubeMPCConfig mode that a lane loop does not run raises before any work,
+    rather than being ignored."""
+    s = dubins_paper_setup(N=4, H=2, device="cpu", dtype=torch.float64)
+    cfg = dataclasses.replace(s.cfg, **change)
+    w = torch.zeros((2, 2, 3), dtype=torch.float64)
+    with pytest.raises(ValueError, match=match):
+        if loop == "paper":
+            run_paper_closed_loop_lanes(
+                s.system, s.aug, s.sys_c, cfg, w_nominal=s.w_nominal, aux_init=s.aux_init,
+                bp=s.bp, x0=s.x0, target=s.target, w_seqs=w, eps=s.eps, device="cpu")
+        else:
+            raws = dict(Q_raw=[1.0] * 3, R_raw=[1.0] * 2, Qf_raw=[1.0] * 3, qb_raw=1.0,
+                        alpha_raw=0.0, gamma_raw=0.0)
+            run_generic_closed_loop_lanes(
+                s.system, s.aug, s.sys_c, cfg,
+                raw_nom=raw_nom_from_numpy(dict(raws, tight_raw=0.0), "cpu", torch.float64),
+                raw_aux_init=raw_aux_from_numpy(raws, "cpu", torch.float64), x0=s.x0,
+                target=s.target, w_seqs=w, eps=s.eps, device="cpu")
 
 
 def test_kernel_constants_refuse_what_the_kernels_do_not_take():
@@ -212,3 +335,43 @@ def test_lane_state_round_trip(jax_setup):
                                  x0=s.x0, B=B, dtype=torch.float64)
     for f in ("x", "b", "x_bar", "b_bar", "U_nom_ws", "U_aux_ws"):
         np.testing.assert_allclose(getattr(mine, f).numpy(), d[f], rtol=1e-12, atol=0.0)
+
+
+def test_generic_lane_state_round_trip(jax_setup):
+    """Raw parameters and a generic loop state carried across from the JAX package,
+    and the port's own initial generic state against the JAX one."""
+    js = jax_setup
+    B = 3
+    f64 = jnp.float64
+    aux = dict(Q_raw=[1.0, 1.0, 0.5], R_raw=[1.0, 1.0], Qf_raw=[2.0, 2.0, 1.0], qb_raw=1.0,
+               alpha_raw=0.5, gamma_raw=0.2)
+    nom = dict(Q_raw=[1.0, 1.0, 0.0], R_raw=[1.0, 1.0], Qf_raw=[1000.0] * 3, qb_raw=1.0,
+               alpha_raw=0.01, gamma_raw=0.1, tight_raw=0.02)
+    x0 = [3.2, 1.0, np.pi / 4]
+    j_state = j_generic_lane_init_state(
+        js.system, js.aug, js.cfg,
+        raw_nom=JRawNominalTheta(**{k: jnp.asarray(v, f64) for k, v in nom.items()}),
+        raw_aux_init=JRawAuxTheta(**{k: jnp.asarray(v, f64) for k, v in aux.items()}),
+        x0=jnp.asarray(x0, f64), B=B, dtype=f64)
+    d = {f: np.asarray(getattr(j_state, f)) for f in ("x", "b", "x_bar", "b_bar", "U_nom_ws",
+                                                       "U_aux_ws")}
+    for f in ("raw_aux", "vel_aux", "raw_nom", "vel_nom"):
+        d[f] = {g: np.asarray(v) for g, v in getattr(j_state, f)._asdict().items()}
+    state = generic_lane_state_from_numpy(d, device="cpu", dtype=torch.float64)
+    for f in ("x", "b", "x_bar", "b_bar", "U_nom_ws", "U_aux_ws"):
+        np.testing.assert_array_equal(getattr(state, f).numpy(), d[f])
+    for f in ("raw_aux", "vel_aux", "raw_nom", "vel_nom"):
+        tree = getattr(state, f)
+        assert type(tree).__name__ == ("RawAuxTheta" if "aux" in f else "RawNominalTheta")
+        for g, v in tree._asdict().items():
+            np.testing.assert_array_equal(v.numpy(), d[f][g])
+    s = setup_from_numpy(setup_as_numpy(js), device="cpu", dtype=torch.float64)
+    mine = generic_lane_init_state(
+        s.system, s.aug, s.cfg, raw_nom=raw_nom_from_numpy(nom, "cpu", torch.float64),
+        raw_aux_init=raw_aux_from_numpy(aux, "cpu", torch.float64),
+        x0=torch.as_tensor(x0, dtype=torch.float64), B=B, dtype=torch.float64)
+    for f in ("x", "b", "x_bar", "b_bar", "U_nom_ws", "U_aux_ws"):
+        np.testing.assert_allclose(getattr(mine, f).numpy(), d[f], rtol=1e-12, atol=0.0)
+    for f in ("raw_aux", "vel_aux", "raw_nom", "vel_nom"):
+        for g, v in getattr(mine, f)._asdict().items():
+            np.testing.assert_array_equal(v.numpy(), d[f][g])

@@ -1,11 +1,12 @@
 """PyTorch and CUDA port of tube_mpc_tpu for NVIDIA Hopper (H100).
 
-The first slice is the Dubins paper lane closed loop
-(``tube.lane_closed_loop.run_paper_closed_loop_lanes``): two lane iLQR solves and
-one lane sensitivity per step, on four hand-written CUDA kernels
-(``csrc/lane_solver.cu``, ``csrc/lane_sensitivity.cu``) built at first use by
-``ops.cuda._build``. Each kernel has a plain PyTorch version beside its wrapper,
-which runs for CPU tensors; the tests hold those against the JAX package.
+Two lane closed loops (``tube.lane_closed_loop``): the Dubins paper loop
+(``run_paper_closed_loop_lanes``) and the generic and coupled loop
+(``run_generic_closed_loop_lanes``), each two lane iLQR solves and the lane
+sensitivity per step, on hand-written CUDA kernels (``csrc/lane_solver.cu``,
+``csrc/lane_sensitivity.cu``) built at first use by ``ops.cuda._build``. Each
+kernel has a plain PyTorch version beside its wrapper, which runs for CPU
+tensors; the tests hold those against the JAX package.
 """
 from .device import resolve_device, resolve_dtype
 

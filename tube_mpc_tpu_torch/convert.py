@@ -19,8 +19,8 @@ from .ops.dbas import BarrierParams
 from .presets import DubinsPaperSetup, build_dubins_setup
 from .systems.dubins import DubinsConfig
 from .tube.closed_loop import TubeMPCConfig
-from .tube.lane_closed_loop import LaneLoopState
-from .tube.params import AdaptConfig, AuxAdapt
+from .tube.lane_closed_loop import GenericLaneState, LaneLoopState
+from .tube.params import AdaptConfig, AuxAdapt, RawAuxTheta, RawNominalTheta
 
 
 def _get(obj: Any, key: str) -> Any:
@@ -33,7 +33,8 @@ def _has(obj: Any, key: str) -> bool:
 
 def setup_from_numpy(d: Any, device: DeviceLike = None, dtype=torch.float32) -> DubinsPaperSetup:
     """A DubinsPaperSetup from ``d`` with: cfg (N, H, nominal_max_iter, aux_max_iter,
-    tol, reg, alphas, adapt{lr, momentum, steps, grad_clip_norm, project}),
+    tol, reg, alphas, adapt{lr, momentum, steps, grad_clip_norm, project}, and
+    optionally adapt_nominal, adapt_ancillary, coupling),
     w_nominal{Q, R, Qf, qb}, aux_init{Q, R, qb}, bp{alpha, gamma, tight}, x0,
     target, centers [M, 2], radii [M], beta, eps, and optionally dubins (the
     DubinsConfig fields; default dt=0.01)."""
@@ -55,6 +56,8 @@ def setup_from_numpy(d: Any, device: DeviceLike = None, dtype=torch.float32) -> 
             steps=int(_get(a, "steps")), grad_clip_norm=float(_get(a, "grad_clip_norm")),
             project=bool(_get(a, "project")),
         ),
+        **{f: (str if f == "coupling" else bool)(_get(c, f))
+           for f in ("adapt_nominal", "adapt_ancillary", "coupling") if _has(c, f)},
     )
     wn, ai, bp = _get(d, "w_nominal"), _get(d, "aux_init"), _get(d, "bp")
     dubins = DubinsConfig(dt=0.01)
@@ -96,4 +99,41 @@ def lane_state_from_numpy(d: Any, device: DeviceLike = None, dtype=torch.float32
         x=t(_get(d, "x")), b=t(_get(d, "b")), x_bar=t(_get(d, "x_bar")), b_bar=t(_get(d, "b_bar")),
         U_nom_ws=t(_get(d, "U_nom_ws")), U_aux_ws=t(_get(d, "U_aux_ws")),
         adapt=aux(_get(d, "adapt")), vel=aux(_get(d, "vel")),
+    )
+
+
+def raw_aux_from_numpy(d: Any, device: DeviceLike = None, dtype=torch.float32) -> RawAuxTheta:
+    """A RawAuxTheta from ``d`` with Q_raw, R_raw, Qf_raw, qb_raw, alpha_raw, gamma_raw."""
+    return _raw_from_numpy(RawAuxTheta, d, device, dtype)
+
+
+def raw_nom_from_numpy(d: Any, device: DeviceLike = None, dtype=torch.float32) -> RawNominalTheta:
+    """A RawNominalTheta from ``d`` with the RawAuxTheta fields and tight_raw."""
+    return _raw_from_numpy(RawNominalTheta, d, device, dtype)
+
+
+def _raw_from_numpy(cls, d: Any, device: DeviceLike, dtype):
+    dev = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    return cls(*(torch.tensor(np.array(_get(d, f)), dtype=dtype, device=dev) for f in cls._fields))
+
+
+def generic_lane_state_from_numpy(d: Any, device: DeviceLike = None,
+                                  dtype=torch.float32) -> GenericLaneState:
+    """A GenericLaneState from ``d`` with x, b, x_bar, b_bar, U_nom_ws, U_aux_ws,
+    raw_aux and vel_aux (RawAuxTheta fields), raw_nom and vel_nom (RawNominalTheta
+    fields)."""
+    dev = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+
+    def t(v):
+        return torch.tensor(np.array(v), dtype=dtype, device=dev)
+
+    return GenericLaneState(
+        x=t(_get(d, "x")), b=t(_get(d, "b")), x_bar=t(_get(d, "x_bar")), b_bar=t(_get(d, "b_bar")),
+        U_nom_ws=t(_get(d, "U_nom_ws")), U_aux_ws=t(_get(d, "U_aux_ws")),
+        raw_aux=raw_aux_from_numpy(_get(d, "raw_aux"), dev, dtype),
+        vel_aux=raw_aux_from_numpy(_get(d, "vel_aux"), dev, dtype),
+        raw_nom=raw_nom_from_numpy(_get(d, "raw_nom"), dev, dtype),
+        vel_nom=raw_nom_from_numpy(_get(d, "vel_nom"), dev, dtype),
     )

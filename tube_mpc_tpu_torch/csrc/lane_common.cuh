@@ -1,7 +1,8 @@
 // Shared device code of the lane kernels: the Dubins component step, the
 // smooth-min obstacle value h, the relaxed inverse barrier, the DBaS-augmented
-// step f̂ and its hand-written tangent map (the counterpart of jax.jvp in
-// tube_mpc_tpu/ops/lanes.py::jac_rows).
+// step f̂, its hand-written tangent map (the counterpart of jax.jvp in
+// tube_mpc_tpu/ops/lanes.py::jac_rows) and its derivatives in the barrier
+// parameters (the three jax.jvp calls of the generic _sfwd_kernel).
 //
 // Layout: every array is [.., component, B] with the lane index fastest, so one
 // thread owns one lane and neighbouring threads read neighbouring addresses.
@@ -187,6 +188,26 @@ __device__ __forceinline__ T barrier_tan(const BLin<T>& L, T dzeta) {
   return -(dzeta / aa) + (dzeta * (T(2) * L.diff)) / (aa * L.a);
 }
 
+// dB/dalpha (tangent 1 in alpha), as jax.jvp computes it (ops/barrier.py::
+// barrier_dalpha): da is the balanced-equality weight of max(alpha, eps); the
+// quotient rule for 1/a, diff/a^2 and diff^2/a^3 with d(a^2) = da (2a),
+// d(a^3) = da (3 a^2), d(diff) = -da; zero on the safe branch, where
+// B = 1/max(zeta, eps) does not depend on alpha.
+template <typename T>
+__device__ __forceinline__ T barrier_dalpha(const Consts& p, const BLin<T>& L, T alpha) {
+  if (L.safe) return T(0);
+  const T eps = T(p.eps);
+  const T da = (alpha == L.a ? T(1) : T(0)) / (eps == L.a ? T(2) : T(1));
+  const T aa = L.a * L.a;
+  const T a3 = L.a * aa;
+  const T d_diff = -da;
+  const T d_inv = (-da) * (T(1) / aa);
+  const T d_lin = d_diff / aa + ((-(da * (T(2) * L.a))) * L.diff) * (T(1) / (aa * aa));
+  const T d_quad = (d_diff * (T(2) * L.diff)) / a3
+                 + ((-(da * (T(3) * aa))) * (L.diff * L.diff)) * (T(1) / (a3 * a3));
+  return (d_inv - d_lin) + d_quad;
+}
+
 // ---------------------------------------------------------------------------
 // Augmented step f̂(x̂, u) = [f(x, u), B(h(f) - s) - gamma (B(h(x) - s) - b)]
 // (ops/lanes.py::augmented_step_fn) and its tangent map.
@@ -242,6 +263,25 @@ __device__ __forceinline__ void fhat_tan(const Consts& p, const FLin<T>& L, cons
   out[1] = dpyn;
   out[2] = dthn;
   out[3] = dBn - L.gamma * (dBc - dx[3]);
+}
+
+// Derivatives of f̂ in the barrier parameters at the point of L (b is the
+// barrier state x̂[3] there), the rows (d f̂/d alpha, d f̂/d gamma, d f̂/d tight)
+// of ops/lanes.py::augmented_lin_fn: only the barrier row depends on them.
+// The zero rows stay in the sums that use them, as in the reference, so that
+// an infinite weight on them gives NaN there too.
+template <typename T>
+__device__ __forceinline__ void fhat_dparams(const Consts& p, const FLin<T>& L, T alpha, T b,
+                                             T fa[NH], T fg[NH], T ft[NH]) {
+#pragma unroll
+  for (int i = 0; i < NH - 1; ++i) {
+    fa[i] = T(0);
+    fg[i] = T(0);
+    ft[i] = T(0);
+  }
+  fa[NH - 1] = barrier_dalpha(p, L.bn, alpha) - L.gamma * barrier_dalpha(p, L.bc, alpha);
+  fg[NH - 1] = -(L.bc.value - b);
+  ft[NH - 1] = barrier_tan(L.bn, T(-1)) - L.gamma * barrier_tan(L.bc, T(-1));
 }
 
 // Jacobian rows A[i][j] = d f̂_i / d x̂_j, Bm[i][a] = d f̂_i / d u_a by basis

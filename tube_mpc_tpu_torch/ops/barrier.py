@@ -5,9 +5,10 @@ Every function broadcasts over leading dims. ``alpha`` is a runtime tensor (or
 number); ``eps`` and ``barrier_type`` are Python constants. The arithmetic keeps
 the reference's operation order so that f64 results agree to rounding.
 
-``barrier_lin`` adds what the JAX package gets from ``jax.jvp``: the value and a
-tangent map written out by JAX's differentiation rules (max, div, integer_pow),
-used by the hand-written tangent map of the augmented step (ops/lanes.py).
+``barrier_lin`` and ``barrier_dalpha`` add what the JAX package gets from
+``jax.jvp``: the tangent in zeta and the derivative in alpha, written out by
+JAX's differentiation rules (max, div, integer_pow, where), used by the
+hand-written tangent maps of the augmented step (ops/lanes.py).
 """
 from __future__ import annotations
 
@@ -97,3 +98,28 @@ def barrier_lin(
         return torch.where(safe, d_safe, d_unsafe)
 
     return value, tangent
+
+
+def barrier_dalpha(zeta: Tensor, alpha, *, barrier_type: str = "inverse",
+                   eps: float = 1e-12) -> Tensor:
+    """∂B/∂α at zeta, as jax.jvp in alpha (tangent 1) computes it.
+
+    With a = max(α, ε): da = the balanced-equality weight of max (1/2 on the tie
+    α == ε); the quotient rule for 1/a, diff/a² and diff²/a³, with
+    d(a²) = da·(2a), d(a³) = da·(3a²), d(diff) = -da, d(diff²) = d(diff)·(2 diff);
+    0 on the branch B = 1/max(zeta, ε), which does not depend on α. The log
+    barrier does not depend on α."""
+    if barrier_type == "log":
+        return torch.zeros_like(zeta)
+    alpha = _as(alpha, zeta)
+    a = torch.clamp(alpha, min=eps)
+    da = balanced_weight(alpha, a, eps)
+    diff = zeta - a
+    aa = a * a
+    a3 = a * aa
+    d_diff = -da
+    d_inv = (-da) * (1.0 / aa)
+    d_lin = d_diff / aa + ((-(da * (2.0 * a))) * diff) * (1.0 / (aa * aa))
+    d_quad = (d_diff * (2.0 * diff)) / a3 + ((-(da * (3.0 * aa))) * (diff * diff)) * (1.0 / (a3 * a3))
+    d_unsafe = (d_inv - d_lin) + d_quad
+    return torch.where(zeta >= a, torch.zeros_like(d_unsafe), d_unsafe)

@@ -1,17 +1,23 @@
 """Hand-written CUDA kernels of the lane engine and their launch counts.
 
-KERNELS maps each kernel's name to its wrapper; a wrapper's ``launches`` counts
-the times it launched its CUDA kernel (plain-version calls on CPU tensors do not
-count).
+KERNELS maps each kernel variant's name to its wrapper; a wrapper's ``launches``
+counts the times it launched its CUDA kernel (plain-version calls on CPU tensors
+do not count). K1 ``ric``, K2 ``fwd``; K3 ``sbwd`` and K4 ``sfwd`` (paper); K5
+``sbwd_generic`` and ``sbwd_upper``, K6 ``sfwd_generic`` and ``sfwd_ref``
+(generic and coupled).
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from .lane_sensitivity import sbwd, sfwd
+from .lane_sensitivity import sbwd, sbwd_generic, sbwd_upper, sfwd, sfwd_generic, sfwd_ref
 from .lane_solver import fwd, ric
 
-KERNELS = {"ric": ric, "fwd": fwd, "sbwd": sbwd, "sfwd": sfwd}
+KERNELS = {
+    "ric": ric, "fwd": fwd, "sbwd": sbwd, "sfwd": sfwd,
+    "sbwd_generic": sbwd_generic, "sbwd_upper": sbwd_upper,
+    "sfwd_generic": sfwd_generic, "sfwd_ref": sfwd_ref,
+}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -16,7 +16,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch import Tensor
 
-from .barrier import balanced_weight, barrier_lin, barrier_value
+from .barrier import balanced_weight, barrier_dalpha, barrier_lin, barrier_value
 from .dbas import BarrierParams
 
 Rows = Tuple[Tensor, ...]
@@ -88,18 +88,25 @@ def augmented_lin_fn(sys_c: ComponentSystem, *, barrier_type: str = "inverse", e
     x̂⁺ = [f(x, u), B(h(f) - s) - γ (B(h(x) - s) - b)].
 
     The tangent of the barrier row is
-    dB(h⁺ - s) ∇h(x⁺)·dx⁺ - γ (dB(h - s) ∇h(x)·dx - db), so ∂b⁺/∂b = γ."""
+    dB(h⁺ - s) ∇h(x⁺)·dx⁺ - γ (dB(h - s) ∇h(x)·dx - db), so ∂b⁺/∂b = γ.
+
+    The tangent map also carries ``params()``, the derivatives of f̂ in the
+    barrier parameters as rows (∂f̂/∂α, ∂f̂/∂γ, ∂f̂/∂tight), as the three jax.jvp
+    calls of the generic sensitivity kernel compute them: only the barrier row
+    depends on them, ∂b⁺/∂α = ∂B(h⁺ - s)/∂α - γ ∂B(h - s)/∂α,
+    ∂b⁺/∂γ = -(B(h - s) - b) and ∂b⁺/∂s = dB(h⁺ - s)·(-1) - γ dB(h - s)·(-1)."""
     if sys_c.h_lin is None:
         raise ValueError("component system needs h for DBaS augmentation")
     f_lin, h_lin, n = sys_c.f_lin, sys_c.h_lin, sys_c.n
+    kw = dict(barrier_type=barrier_type, eps=eps)
 
     def f_hat_lin(x_hat: Rows, us: Rows, bp: BarrierParams):
         xs, b = x_hat[:n], x_hat[n]
         xn, f_tan = f_lin(xs, us)
         h_next, hn_tan = h_lin(xn)
         h_curr, hc_tan = h_lin(xs)
-        B_next, Bn_tan = barrier_lin(h_next - bp.tight, bp.alpha, barrier_type=barrier_type, eps=eps)
-        B_curr, Bc_tan = barrier_lin(h_curr - bp.tight, bp.alpha, barrier_type=barrier_type, eps=eps)
+        B_next, Bn_tan = barrier_lin(h_next - bp.tight, bp.alpha, **kw)
+        B_curr, Bc_tan = barrier_lin(h_curr - bp.tight, bp.alpha, **kw)
         b_next = B_next - bp.gamma * (B_curr - b)
 
         def tangent(dx_hat: Rows, dus: Rows) -> Rows:
@@ -108,6 +115,16 @@ def augmented_lin_fn(sys_c: ComponentSystem, *, barrier_type: str = "inverse", e
             dB_curr = Bc_tan(hc_tan(dx_hat[:n]))
             return tuple(dxn) + (dB_next - bp.gamma * (dB_curr - dx_hat[n]),)
 
+        def params() -> Tuple[Rows, Rows, Rows]:
+            zero = torch.zeros_like(b_next)
+            d_alpha = (barrier_dalpha(h_next - bp.tight, bp.alpha, **kw)
+                       - bp.gamma * barrier_dalpha(h_curr - bp.tight, bp.alpha, **kw))
+            d_gamma = -(B_curr - b)
+            minus_one = torch.full_like(b_next, -1.0)
+            d_tight = Bn_tan(minus_one) - bp.gamma * Bc_tan(minus_one)
+            return tuple((zero,) * n + (d,) for d in (d_alpha, d_gamma, d_tight))
+
+        tangent.params = params
         return tuple(xn) + (b_next,), tangent
 
     return f_hat_lin

@@ -1,5 +1,5 @@
 """Closed-loop configuration and log types (port of
-tube_mpc_tpu/tube/closed_loop.py:48-95, the parts the lane closed loop uses)."""
+tube_mpc_tpu/tube/closed_loop.py:48-93, the parts the lane closed loops use)."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,6 +21,12 @@ class TubeMPCConfig:
     reg: float = 1e-6
     alphas: Tuple[float, ...] = (1.0,)
     adapt: AdaptConfig = AdaptConfig(lr=5e-2, momentum=0.9)
+    adapt_nominal: bool = False
+    adapt_ancillary: bool = True
+    # "reference": L treats the nominal plan as constant, and dL/dθ̄ reaches the
+    # nominal parameters only through the ancillary problem's reference. "full":
+    # the exact bilevel gradient, with the explicit ∂L/∂x̄ term as well.
+    coupling: str = "reference"
 
     def nominal_ilqr(self) -> ILQRConfig:
         return ILQRConfig(max_iter=self.nominal_max_iter, tol=self.tol, reg=self.reg, alphas=self.alphas)

@@ -1,5 +1,5 @@
 """Public interface to the lane kernels for tube-MPC problems (port of
-tube_mpc_tpu/tube/lane_interface.py:26-180).
+tube_mpc_tpu/tube/lane_interface.py:26-313).
 
 Bridges the feature-last [B, ...] API to the [.., B] lane layout: builds the
 LaneProblem from a ComponentSystem, packs weights and barrier parameters into
@@ -7,7 +7,7 @@ const rows, and transposes operands once at entry and once at exit.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 from torch import Tensor
@@ -133,3 +133,112 @@ def tube_sensitivity_grads_lanes(
         U_ref=_rows(U_ref), C=C, reg=reg, active_tol=active_tol,
     )
     return AuxAdapt(Q=_unrows(gx[: pb.n]), R=_unrows(gr), qb=gx[pb.n])
+
+
+class GenericAuxGrads(NamedTuple):
+    """Per-lane gradients of the upper loss with respect to the MAPPED generic
+    ancillary parameters θ = (Q, R, Qf, qb, α, γ); the chain rule to the raw
+    parameters is the caller's."""
+
+    Q: Tensor      # [B, n]
+    R: Tensor      # [B, m]
+    Qf: Tensor     # [B, n]
+    qb: Tensor     # [B]
+    alpha: Tensor  # [B]
+    gamma: Tensor  # [B]
+
+
+class GenericNominalGrads(NamedTuple):
+    """Per-lane coupled-bilevel gradients with respect to the MAPPED nominal
+    parameters θ̄ = (Q, R, Qf, qb, α, γ, tight)."""
+
+    Q: Tensor
+    R: Tensor
+    Qf: Tensor
+    qb: Tensor
+    alpha: Tensor
+    gamma: Tensor
+    tight: Tensor
+
+
+def tube_sensitivity_grads_lanes_generic(
+    pb: LaneProblem,
+    *,
+    w: CostWeights,
+    bp: BarrierParams,
+    X_hat: Tensor,    # [B, N+1, n̂]
+    U: Tensor,        # [B, N, m]
+    X_ref: Tensor,    # [B, N+1, n]
+    U_ref: Tensor,    # [B, N, m]
+    reg: float = 1e-9,
+    active_tol: float = 1e-8,
+    emit_ref_grads: bool = False,
+    device: DeviceLike = None,
+) -> Union[GenericAuxGrads, Tuple[GenericAuxGrads, Tensor, Tensor]]:
+    """Generic-path gradients on the lane kernels: the full θ with the separate
+    terminal Qf and the barrier dynamics parameters (α, γ) by the
+    Σ_k δλ_{k+1}ᵀ ∂f̂/∂θ term.
+
+    emit_ref_grads=True also returns (g_Xref [B, N+1, n̂], g_Uref [B, N, m]),
+    ∂L/∂(X_ref, U_ref) with the barrier row zeroed and the terminal row from the
+    terminal weights: the upper gradients of the coupled nominal sweep."""
+    dev = resolve_device(device)
+    check_on(dev, (X_hat, U, X_ref, U_ref), "tube_sensitivity_grads_lanes_generic")
+    B = U.shape[0]
+    dtype = U.dtype
+    C = _build_C(pb, w, bp, B, dtype, dev)
+    out = lane_sensitivity_grads(
+        pb, X=_rows(X_hat), U=_rows(U), X_ref=_rows(_with_barrier_row(X_ref)),
+        U_ref=_rows(U_ref), C=C, reg=reg, active_tol=active_tol,
+        generic=True, emit_ref_grads=emit_ref_grads,
+    )
+    gx, gr, gxt, gdyn = out[:4]
+    grads = GenericAuxGrads(
+        Q=_unrows(gx[: pb.n]), R=_unrows(gr), Qf=_unrows(gxt[: pb.n]),
+        qb=gx[pb.n] + gxt[pb.n], alpha=gdyn[0], gamma=gdyn[1],
+    )
+    if not emit_ref_grads:
+        return grads
+    gxr, gur, gxrN = out[4:]
+    # The barrier row of X_ref is a structural 0, not a parameter of the
+    # ancillary cost: its cotangent is masked out.
+    mask = torch.as_tensor([1.0] * pb.n + [0.0], dtype=dtype, device=dev)
+    g_Xref = torch.cat([_unrows(gxr), _unrows(gxrN)[:, None]], dim=1) * mask
+    return grads, g_Xref, _unrows(gur)
+
+
+def tube_sensitivity_grads_lanes_nominal_coupled(
+    pb: LaneProblem,
+    *,
+    w: CostWeights,
+    bp: BarrierParams,
+    X_hat: Tensor,     # [B, N+1, n̂] solved NOMINAL trajectory
+    U: Tensor,         # [B, N, m]
+    target: Tensor,    # [n] goal (the nominal stage tracks the fixed target)
+    upper_gX: Tensor,  # [B, N+1, n̂] upper gradients, the ancillary reference cotangents
+    upper_gU: Tensor,  # [B, N, m]
+    reg: float = 1e-9,
+    active_tol: float = 1e-8,
+    device: DeviceLike = None,
+) -> GenericNominalGrads:
+    """Coupled-bilevel nominal gradients: the δz sweep runs with the caller's upper
+    gradients (the ancillary solve's ∂L/∂(X_ref, U_ref)) in place of the tube
+    loss, and accumulates the full θ̄ gradient with the barrier dynamics
+    parameters and the nominal tightening."""
+    dev = resolve_device(device)
+    check_on(dev, (X_hat, U, target, upper_gX, upper_gU),
+             "tube_sensitivity_grads_lanes_nominal_coupled")
+    B, N, m = U.shape
+    dtype = U.dtype
+    Xr = target[None, None].expand(B, N + 1, pb.n)
+    Ur = torch.zeros((B, N, m), dtype=dtype, device=dev)
+    C = _build_C(pb, w, bp, B, dtype, dev)
+    gx, gr, gxt, gdyn = lane_sensitivity_grads(
+        pb, X=_rows(X_hat), U=_rows(U), X_ref=_rows(_with_barrier_row(Xr)), U_ref=_rows(Ur),
+        C=C, reg=reg, active_tol=active_tol, generic=True,
+        upper_gx=_rows(upper_gX), upper_gu=_rows(upper_gU),
+    )
+    return GenericNominalGrads(
+        Q=_unrows(gx[: pb.n]), R=_unrows(gr), Qf=_unrows(gxt[: pb.n]),
+        qb=gx[pb.n] + gxt[pb.n], alpha=gdyn[0], gamma=gdyn[1], tight=gdyn[2],
+    )

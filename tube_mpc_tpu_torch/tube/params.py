@@ -1,5 +1,11 @@
-"""Adapted ancillary weights and the projected momentum update of Algorithm 2
-(port of tube_mpc_tpu/tube/params.py:27-42, 126-160, paper path)."""
+"""Adapted parameters and the projected momentum update of Algorithm 2 (port of
+tube_mpc_tpu/tube/params.py:27-160).
+
+Two parameterisations:
+- the paper path adapts (Q, R, q_b) directly, with projection clamps;
+- the generic path adapts unconstrained raw parameters mapped through
+  softplus/tanh, projected by field name.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -25,6 +31,90 @@ def project_aux_adapt(p: AuxAdapt) -> AuxAdapt:
         qb=torch.clamp(p.qb, 0.0, 1.0),
     )
 
+
+# ---------------------------------------------------------------------------
+# Generic-path raw parameters: softplus/tanh reparameterisation.
+# ---------------------------------------------------------------------------
+
+def softplus(x: Tensor) -> Tensor:
+    """log(1 + e^x) as jax.nn.softplus computes it, logaddexp(x, 0).
+
+    Not torch.nn.functional.softplus, which returns x unchanged above its
+    threshold of 20: the raw terminal weights start at 1000."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def inv_softplus(y: Tensor) -> Tensor:
+    """Inverse of softplus, for raw parameters that map to given values."""
+    return y + torch.log(-torch.expm1(-y))
+
+
+class RawNominalTheta(NamedTuple):
+    """Unconstrained raw nominal parameters; leaves [..] or [.., d]."""
+
+    Q_raw: Tensor
+    R_raw: Tensor
+    Qf_raw: Tensor
+    qb_raw: Tensor
+    alpha_raw: Tensor
+    gamma_raw: Tensor
+    tight_raw: Tensor
+
+    def Q(self): return softplus(self.Q_raw)
+    def R(self): return softplus(self.R_raw)
+    def Qf(self): return softplus(self.Qf_raw)
+    def qb(self): return softplus(self.qb_raw)
+    def alpha(self): return softplus(self.alpha_raw) + 1e-6
+    def gamma(self): return torch.tanh(self.gamma_raw)
+    def tight(self): return softplus(self.tight_raw)
+
+
+class RawAuxTheta(NamedTuple):
+    """Unconstrained raw ancillary parameters; leaves [..] or [.., d]."""
+
+    Q_raw: Tensor
+    R_raw: Tensor
+    Qf_raw: Tensor
+    qb_raw: Tensor
+    alpha_raw: Tensor
+    gamma_raw: Tensor
+
+    def Q(self): return softplus(self.Q_raw)
+    def R(self): return softplus(self.R_raw)
+    def Qf(self): return softplus(self.Qf_raw)
+    def qb(self): return softplus(self.qb_raw)
+    def alpha(self): return softplus(self.alpha_raw) + 1e-6
+    def gamma(self): return torch.tanh(self.gamma_raw)
+
+
+# Projection bounds on the RAW parameters, by field name: (min, max), None for
+# no bound on that side.
+_RAW_PROJECTION: dict = {
+    "Q_raw": (0.0, None),
+    "Qf_raw": (0.0, None),
+    "R_raw": (1e-4, 1e4),
+    "qb_raw": (0.0, 1.0),
+    "gamma_raw": (-1.0, 1.0),
+    "alpha_raw": (0.0, 1.0),
+    "tight_raw": (0.0, 2.0),
+}
+
+
+def project_raw(p):
+    """Project a Raw*Theta by field name."""
+    vals = {}
+    for name in p._fields:
+        lo, hi = _RAW_PROJECTION.get(name, (None, None))
+        v = getattr(p, name)
+        if lo is not None or hi is not None:
+            v = torch.clamp(v, min=lo, max=hi)
+        vals[name] = v
+    return type(p)(**vals)
+
+
+# ---------------------------------------------------------------------------
+# Projected momentum SGD (Algorithm 2 update rule).
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class AdaptConfig:
