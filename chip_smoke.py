@@ -10,15 +10,20 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 
 1. device:   the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build:    nvcc builds the two kernel sources (eight kernel variants, float and
-             double) from csrc/, in parallel, and prints each instantiation's
-             registers and spills;
+             double; K1 and K2 once for each obstacle count, 1 to 8) from csrc/, in
+             parallel, and prints each instantiation's registers and spills;
 3. kernels:  each kernel variant against its plain PyTorch version on the same
              inputs, at the main paths' shapes (B=16384, N=50, n̂=4, m=2, nα=7) in
              f64 and in f32. The inputs are those of a real closed-loop step (after
              three disturbed steps, so that the lanes differ): of the paper setup for
              K1-K4, of the coupled setup for K5/K6; some ancillary controls must lie
-             at a bound in each, so that the active set runs. Each variant is timed
-             with CUDA events over 20 launches back to back (its plain version, 5);
+             at a bound in each, so that the active set runs. K1 and K2 (at nα=7 and
+             at nα=1, the rollout's shape) are also held at a ragged shape, the first
+             1000 lanes and 37 steps of the same inputs, and there with 1 and with 8
+             obstacles (K1/K2 are built for each count), and with 8 obstacles at the
+             main shape too. Each variant is timed with CUDA events over 20 launches
+             back to back, in f64 and in f32 (its plain version, 5, in f32), and so
+             are K2 at nα=1 and K1/K2 with 8 obstacles at the main shape;
 4. loop64:   a short f64 paper loop (B=256, N=50, H=5) through the kernels on the
              card and through the plain versions on the CPU, held at the tolerances
              of tests/test_lane_closed_loop.py:45-50;
@@ -53,13 +58,18 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and float32 / float64 outside
-# the tensor cores.
+# the tensor cores (132 SMs x 128 or 64 lanes x 2 x 1.98 GHz). count_ops counts a
+# multiply and an add as one operation each, as the peak does, which pairs them into
+# one fused multiply-add. The kernels are built with -fmad=false, to round as their
+# plain versions do, so they issue no FMA and reach at most half that rate: the log
+# line shows the time at that rate beside the bound, which stays at the card's peak.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 
 SEED = 0  # every random number here comes from torch.Generator seeded from it
 
 B, N, H = 16384, 50, 300  # the main paths: bench.py's paper and coupled workloads, full width and depth
+RAGGED_B, RAGGED_N = 1000, 37  # K1/K2 also here: B not a multiple of 32, N not of 3
 RUNS = 20                 # timed runs per kernel
 PLAIN_RUNS = 5            # timed runs per plain version (one small PyTorch kernel per operation)
 LOOP64_B, LOOP64_H = 256, 5
@@ -132,25 +142,36 @@ def kernel_label(line: str) -> str:
     """ptxas names a kernel by its mangled symbol; write it as name<type, flags>."""
     def label(m):
         sym = m.group(0)
-        k = re.match(r"_ZN4lane\d+(\w+?_kernel)I([fd])((?:Lb[01]E)*)E", sym)
+        k = re.match(r"_ZN4lane\d+(\w+?_kernel)I([fd])((?:L[bi]\d+E)*)E", sym)
         if not k:
             return sym
         args = ["float" if k[2] == "f" else "double"]
-        args += ["true" if b == "1" else "false" for b in re.findall(r"Lb([01])E", k[3])]
+        for kind, v in re.findall(r"L([bi])(\d+)E", k[3]):   # a bool flag or an int
+            args.append(v if kind == "i" else "true" if v == "1" else "false")
         return f"{k[1]}<{', '.join(args)}>"
     return re.sub(r"_ZN4lane\w+", label, line)
 
 
+def is_kernel(key: str, fn: str, args: str) -> bool:
+    """Whether a profiler key ("void lane::fwd_kernel<float, 5>(...)") names the kernel
+    `fn` with template arguments that begin with `args` ("float" or "float, true,
+    false"); the name must follow "::", so that fwd_kernel does not match sfwd_kernel."""
+    return re.search(rf"::{fn}<{re.escape(args)}[,>]", key) is not None
+
+
 def device_time_ms(torch, fn, runs: int, warmup: int = 2) -> float:
     """Device time per call of `runs` calls made back to back, by CUDA events around
-    all of them. Back to back, the host prepares the next launch (the wrapper's checks,
-    allocations and ctypes call) while the device runs the last one, so a kernel's
-    time does not take in the host's time per call, as an event pair around each
-    single call would: that adds some 0.1 ms per launch here, more on a slower host."""
+    all of them. The device first spins for ~25 ms (torch.cuda._sleep), long enough for
+    the host to queue every call of a kernel wrapper (its checks, allocations and ctypes
+    call, some 0.05-0.2 ms each), so the device then runs the kernels back to back and
+    the time is the device's alone, also for a kernel that takes less time than its
+    wrapper. A plain version queues one small kernel per operation, more than the spin
+    covers, so its time stays the host's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)   # cycles, ~25 ms at the H100's 1.98 GHz
     start.record()
     for _ in range(runs):
         fn()
@@ -220,6 +241,7 @@ def main() -> int:
         sfwd_plain,
     )
     from tube_mpc_tpu_torch.ops.cuda.lane_solver import fwd_plain, ric_plain, rollout
+    from tube_mpc_tpu_torch.ops.lanes import dubins_components
     from tube_mpc_tpu_torch.presets import dubins_paper_setup
     from tube_mpc_tpu_torch.tube.lane_closed_loop import (
         _aux_params,
@@ -346,7 +368,39 @@ def main() -> int:
                      lambda *t: sbwd_plain(pb, reg_sens, active_tol, *t), k3),
             "sfwd": (lambda *t: WRAPPERS["sfwd"](pb, *t), lambda *t: sfwd_plain(pb, *t), k4),
         }
-        return calls, at_bound(pb, Ua), f"paper setup, {len(s.cfg.alphas)} alphas"
+
+        def ragged(t):
+            """The first RAGGED_N steps and RAGGED_B lanes of a [N, rows, B] or [rows, B] input."""
+            return (t[:RAGGED_N, :, :RAGGED_B] if t.ndim == 3 else t[:, :RAGGED_B]).contiguous()
+
+        fwd1 = (lambda *t: WRAPPERS["fwd"](pb, (1.0,), *t), lambda *t: fwd_plain(pb, (1.0,), *t))
+        at = f"B={RAGGED_B}, N={RAGGED_N}"
+        extra = [  # (label, its entry of TOL and results, kernel, plain, inputs, timed)
+            ("fwd nα=1", "fwd", *fwd1, k2, True),
+            (f"ric at {at}", "ric", *calls["ric"][:2], tuple(map(ragged, k1)), False),
+            (f"fwd at {at}", "fwd", *calls["fwd"][:2], tuple(map(ragged, k2)), False),
+            (f"fwd nα=1 at {at}", "fwd", *fwd1, tuple(map(ragged, k2)), False),
+        ]
+        # K1/K2 are built for each obstacle count (the paper has 5): also the first and the
+        # last instantiation, with the paper's first obstacle alone and with three more; the
+        # last, whose f64 K1 spills, also at the main shape, timed.
+        sp = pb.spec
+        for centers in (sp.centers[:1], sp.centers + ((2.0, 8.0), (8.0, 2.0), (5.0, 9.0))):
+            pbn = make_lane_problem(dubins_components(
+                dt=sp.dt, v_min=pb.u_min[0], v_max=pb.u_max[0], omega_max=pb.u_max[1],
+                centers=centers, radii=[1.0] * len(centers), beta=sp.beta), eps=s.eps)
+            n = f"{len(centers)} obstacles"
+            shapes = [(f" at {at}", ragged, False)]
+            if len(centers) == 8:
+                shapes.append((" at the main shape", lambda t: t, True))
+            for where, cut, timed in shapes:
+                extra += [
+                    (f"ric, {n}{where}", "ric", lambda *t, q=pbn: WRAPPERS["ric"](q, s.cfg.reg, *t),
+                     lambda *t, q=pbn: ric_plain(q, s.cfg.reg, *t), tuple(map(cut, k1)), timed),
+                    (f"fwd, {n}{where}", "fwd", lambda *t, q=pbn: WRAPPERS["fwd"](q, s.cfg.alphas, *t),
+                     lambda *t, q=pbn: fwd_plain(q, s.cfg.alphas, *t), tuple(map(cut, k2)), timed),
+                ]
+        return calls, extra, at_bound(pb, Ua), f"paper setup, {len(s.cfg.alphas)} alphas"
 
     def coupled_step_inputs(dtype):
         """The four K5/K6 variants' inputs in one real step of the coupled setup at full
@@ -405,33 +459,42 @@ def main() -> int:
                          lambda *t: sfwd_plain(pb, *t[:9], value=t[9:], emit_ref_grads=True),
                          k6r),
         }
-        return calls, at_bound(pb, Ua), "coupled setup"
+        return calls, [], at_bound(pb, Ua), "coupled setup"
 
     results = {}
+    main_ms = {}   # (type, kernel): ms per launch at the main shape
     failed = []
+
+    def check(dname, label, name, kernel, plain, inputs):
+        """Hold a kernel against its plain version at TOL[dname][name]; log, record a
+        failure, and return the kernel's outputs and the largest difference."""
+        got = kernel(*inputs)
+        ref = plain(*inputs)
+        torch.cuda.synchronize()
+        rtol, atol_frac = TOL[dname][name]
+        err, ok = max_err(torch, got, ref, rtol, atol_frac)
+        nonfinite = sum(int((~torch.isfinite(r)).sum()) for r in ref)
+        log(f"[kernels] {dname} {label}: max |kernel - plain| = {err!r} "
+            f"(rtol {rtol}, atol {atol_frac} of the row's max|plain|) -> "
+            f"{'ok' if ok else 'FAIL'}; {nonfinite} non-finite values in the plain output")
+        if not ok:
+            failed.append(f"{dname} {label}")
+        return got, err
+
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).replace("torch.", "")
         for inputs_of in (step_inputs, coupled_step_inputs):
-            calls, n_bound, what = inputs_of(dtype)
+            calls, extra, n_bound, what = inputs_of(dtype)
             log(f"[kernels] {dname}: inputs from a closed-loop step of the {what} at B={B}, "
                 f"N={N}; {n_bound} ancillary controls at a bound")
             if n_bound == 0:
                 failed.append(f"{dname} {what}: no ancillary control at a bound, active set unchecked")
             for name, (kernel, plain, inputs) in calls.items():
-                got = kernel(*inputs)
-                ref = plain(*inputs)
-                torch.cuda.synchronize()
-                rtol, atol_frac = TOL[dname][name]
-                err, ok = max_err(torch, got, ref, rtol, atol_frac)
-                nonfinite = sum(int((~torch.isfinite(r)).sum()) for r in ref)
-                log(f"[kernels] {dname} {name}: max |kernel - plain| = {err!r} "
-                    f"(rtol {rtol}, atol {atol_frac} of the row's max|plain|) -> "
-                    f"{'ok' if ok else 'FAIL'}; {nonfinite} non-finite values in the plain output")
-                if not ok:
-                    failed.append(f"{dname} {name}")
+                got, err = check(dname, name, name, kernel, plain, inputs)
+                ms = main_ms[dname, name] = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
                 if dtype != torch.float32:
+                    log(f"[kernels] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back)")
                     continue
-                ms = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
                 plain_ms = device_time_ms(torch, lambda: plain(*inputs), PLAIN_RUNS, warmup=1)
                 out_bytes = sum(t.numel() * t.element_size() for t in got)
                 in_bytes = sum(t.numel() * t.element_size() for t in inputs)
@@ -447,8 +510,15 @@ def main() -> int:
                     bytes=in_bytes + out_bytes, ops=ops)
                 log(f"[kernels] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back), plain "
                     f"{plain_ms:.2f} ms (mean of {PLAIN_RUNS}); {in_bytes + out_bytes} bytes "
-                    f"-> {t_bytes:.4f} ms, {ops} ops -> {t_ops:.4f} ms at peak")
-            del calls
+                    f"-> {t_bytes:.4f} ms, {ops} ops -> {t_ops:.4f} ms at peak "
+                    f"({2 * t_ops:.4f} ms without fused multiply-adds)")
+            for label, name, kernel, plain, inputs, timed in extra:
+                check(dname, label, name, kernel, plain, inputs)
+                if timed:
+                    ms = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
+                    log(f"[kernels] {dname} {label}: {ms:.4f} ms (mean of {RUNS} back to back), "
+                        f"beside {main_ms[dname, name]:.4f} ms for {name} on the main path's inputs")
+            del calls, extra
             torch.cuda.empty_cache()
     if failed:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
@@ -604,16 +674,17 @@ def main() -> int:
                 rows.append((us, e.count, e.key))
         rows.sort(reverse=True)
         busy = sum(r[0] for r in rows) / 1e6
-        ours = sum(r[0] for r in rows if any(v[2] in r[2] for v in KERNELS.values())) / 1e6
+        hits = {name: [r for r in rows if is_kernel(r[2], fn, f"float{flags}")]
+                for name, (_, _, fn, flags) in KERNELS.items()}
+        ours = sum(r[0] for hit in hits.values() for r in hit) / 1e6
         log(f"[profile] {label}: {PROFILE_H} steps at B={B}, N={N}, f32: {plain_wall:.3f} s "
             f"unprofiled, {wall:.3f} s profiled; device busy {busy:.3f} s ({busy / wall:.1%} of "
             f"the profiled wall, {busy / plain_wall:.1%} of the unprofiled), of which the lane "
             f"kernels {ours:.3f} s and PyTorch's own kernels {busy - ours:.3f} s")
-        for name, (_, _, fn, flags) in KERNELS.items():
-            sym = f"{fn}<float{flags}>"
-            hit = [r for r in rows if sym in r[2]]
+        for name, hit in hits.items():
             if hit:
-                log(f"[profile] {label}   {name} ({sym}): {sum(r[0] for r in hit) / 1e3:.3f} ms "
+                fn, flags = KERNELS[name][2:]
+                log(f"[profile] {label}   {name} ({fn}<float{flags}): {sum(r[0] for r in hit) / 1e3:.3f} ms "
                     f"over {sum(r[1] for r in hit)} launches")
         for us, count, key in rows[:12]:
             log(f"[profile] {label}   {us / 1e3:10.3f} ms  x{count:<6d} {key[:110]}")

@@ -59,7 +59,8 @@ FORBIDDEN = ("jax", "jaxlib", "tube_mpc_tpu")
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tools" / "port_kernel_ab.py"]
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
+        REPO / "tools" / f"{name}.py" for name in ("port_kernel_ab", "ric_probe")]
 
 
 def _imported_roots(path: Path):

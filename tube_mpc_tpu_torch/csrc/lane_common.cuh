@@ -4,8 +4,9 @@
 // tube_mpc_tpu/ops/lanes.py::jac_rows) and its derivatives in the barrier
 // parameters (the three jax.jvp calls of the generic _sfwd_kernel).
 //
-// Layout: every array is [.., component, B] with the lane index fastest, so one
-// thread owns one lane and neighbouring threads read neighbouring addresses.
+// Layout: every array is [.., component, B] with the lane index fastest, so
+// neighbouring threads of a warp, which own neighbouring lanes, read neighbouring
+// addresses.
 //
 // Arithmetic order follows the JAX kernels and their JVP rules term by term, and
 // the sources are built with -fmad=false, so a kernel and its plain PyTorch
@@ -25,7 +26,7 @@ constexpr int NC = 2 * NH + M + 3;    // const rows, see tube/lane_interface.py:
 constexpr int ROW_ALPHA = 2 * NH + M;
 constexpr int MAX_OBS = 8;
 constexpr int MAX_ALPHAS = 8;
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;          // block of the one-thread-per-lane kernels (K3-K6)
 
 // Runtime constants, passed by value to every kernel. Mirrors
 // ops/cuda/lane_solver.py::LaneConsts field by field. Sums such as
@@ -80,22 +81,35 @@ template <typename T> __device__ __forceinline__ T scrub(T v) {
 // ---------------------------------------------------------------------------
 // Smooth-min obstacle value in component form (ops/lanes.py::dubins_components):
 //   h = z - (1/beta) log sum_i exp(-beta (h_i - z)),  z = min_i h_i.
+//
+// NOBS is the obstacle count when it is fixed at compile time (NOBS > 0, equal to
+// p.n_obs), so that every obstacle loop unrolls into straight-line code. NOBS = 0
+// loops over MAX_OBS slots and guards each with a branch on p.n_obs; the branches
+// cut the code into blocks the compiler cannot schedule across, which makes a
+// linearisation several times slower on an H100 (PERF.md). Both do the same
+// operations on the first p.n_obs slots. K1 and K2 launch the instantiation for the
+// problem's count; K3-K6 take NOBS = 0.
 // ---------------------------------------------------------------------------
-template <typename T> struct HLin {
+template <int NOBS> constexpr int OBS_SLOTS = NOBS > 0 ? NOBS : MAX_OBS;
+template <int NOBS> __device__ __forceinline__ bool obs_on(const Consts& p, int i) {
+  return NOBS > 0 || i < p.n_obs;
+}
+
+template <typename T, int NOBS = 0> struct HLin {
   T px, py;
-  T hs[MAX_OBS];
-  T e[MAX_OBS];
+  T hs[OBS_SLOTS<NOBS>];
+  T e[OBS_SLOTS<NOBS>];
   T acc;
   T value;
 };
 
-template <typename T>
-__device__ __forceinline__ void h_lin(const Consts& p, T px, T py, HLin<T>& L) {
+template <typename T, int NOBS>
+__device__ __forceinline__ void h_lin(const Consts& p, T px, T py, HLin<T, NOBS>& L) {
   L.px = px;
   L.py = py;
 #pragma unroll
-  for (int i = 0; i < MAX_OBS; ++i) {
-    if (i < p.n_obs) {
+  for (int i = 0; i < OBS_SLOTS<NOBS>; ++i) {
+    if (obs_on<NOBS>(p, i)) {
       const T dx = px - T(p.cx[i]);
       const T dy = py - T(p.cy[i]);
       L.hs[i] = (dx * dx + dy * dy) - T(p.r2[i]);
@@ -103,12 +117,12 @@ __device__ __forceinline__ void h_lin(const Consts& p, T px, T py, HLin<T>& L) {
   }
   T z = L.hs[0];
 #pragma unroll
-  for (int i = 1; i < MAX_OBS; ++i)
-    if (i < p.n_obs) z = jmin(z, L.hs[i]);
+  for (int i = 1; i < OBS_SLOTS<NOBS>; ++i)
+    if (obs_on<NOBS>(p, i)) z = jmin(z, L.hs[i]);
   const T nb = T(p.neg_beta);
 #pragma unroll
-  for (int i = 0; i < MAX_OBS; ++i) {
-    if (i < p.n_obs) {
+  for (int i = 0; i < OBS_SLOTS<NOBS>; ++i) {
+    if (obs_on<NOBS>(p, i)) {
       L.e[i] = m_exp(nb * (L.hs[i] - z));
       L.acc = (i == 0) ? L.e[0] : L.acc + L.e[i];
     }
@@ -119,12 +133,12 @@ __device__ __forceinline__ void h_lin(const Consts& p, T px, T py, HLin<T>& L) {
 // Tangent of h along (dpx, dpy), by JAX's rules: d(a**2) = da * (2a); the min
 // chain weighs tangents by the balanced-equality factors of lax.min; d exp =
 // g * ans; d log = g / x.
-template <typename T>
-__device__ __forceinline__ T h_tan(const Consts& p, const HLin<T>& L, T dpx, T dpy) {
-  T dh[MAX_OBS];
+template <typename T, int NOBS>
+__device__ __forceinline__ T h_tan(const Consts& p, const HLin<T, NOBS>& L, T dpx, T dpy) {
+  T dh[OBS_SLOTS<NOBS>];
 #pragma unroll
-  for (int i = 0; i < MAX_OBS; ++i) {
-    if (i < p.n_obs) {
+  for (int i = 0; i < OBS_SLOTS<NOBS>; ++i) {
+    if (obs_on<NOBS>(p, i)) {
       const T ax = T(2) * (L.px - T(p.cx[i]));
       const T ay = T(2) * (L.py - T(p.cy[i]));
       dh[i] = dpx * ax + dpy * ay;
@@ -133,8 +147,8 @@ __device__ __forceinline__ T h_tan(const Consts& p, const HLin<T>& L, T dpx, T d
   T z = L.hs[0];
   T dz = dh[0];
 #pragma unroll
-  for (int i = 1; i < MAX_OBS; ++i) {
-    if (i < p.n_obs) {
+  for (int i = 1; i < OBS_SLOTS<NOBS>; ++i) {
+    if (obs_on<NOBS>(p, i)) {
       const T v = L.hs[i];
       const T zn = jmin(z, v);
       const T wz = (z == zn ? T(1) : T(0)) / (v == zn ? T(2) : T(1));
@@ -146,8 +160,8 @@ __device__ __forceinline__ T h_tan(const Consts& p, const HLin<T>& L, T dpx, T d
   const T nb = T(p.neg_beta);
   T dacc = T(0);
 #pragma unroll
-  for (int i = 0; i < MAX_OBS; ++i) {
-    if (i < p.n_obs) {
+  for (int i = 0; i < OBS_SLOTS<NOBS>; ++i) {
+    if (obs_on<NOBS>(p, i)) {
       const T de = (nb * (dh[i] - dz)) * L.e[i];
       dacc = (i == 0) ? de : dacc + de;
     }
@@ -212,16 +226,16 @@ __device__ __forceinline__ T barrier_dalpha(const Consts& p, const BLin<T>& L, T
 // Augmented step f̂(x̂, u) = [f(x, u), B(h(f) - s) - gamma (B(h(x) - s) - b)]
 // (ops/lanes.py::augmented_step_fn) and its tangent map.
 // ---------------------------------------------------------------------------
-template <typename T> struct FLin {
+template <typename T, int NOBS = 0> struct FLin {
   T c, s, dtv, dt, gamma;
-  HLin<T> hc, hn;
+  HLin<T, NOBS> hc, hn;
   BLin<T> bc, bn;
   T out[NH];
 };
 
-template <typename T>
+template <typename T, int NOBS>
 __device__ __forceinline__ void fhat_lin(const Consts& p, const T x[NH], const T u[M],
-                                         T alpha, T gamma, T tight, FLin<T>& L) {
+                                         T alpha, T gamma, T tight, FLin<T, NOBS>& L) {
   L.dt = T(p.dt);
   L.gamma = gamma;
   L.c = m_cos(x[2]);
@@ -240,19 +254,37 @@ __device__ __forceinline__ void fhat_lin(const Consts& p, const T x[NH], const T
   L.out[3] = L.bn.value - gamma * (L.bc.value - x[3]);
 }
 
-// The value of f̂ alone (the compiler drops what only the tangent needs).
-template <typename T>
-__device__ __forceinline__ void fhat(const Consts& p, const T x[NH], const T u[M], T alpha,
-                                     T gamma, T tight, T out[NH]) {
-  FLin<T> L;
-  fhat_lin(p, x, u, alpha, gamma, tight, L);
-#pragma unroll
-  for (int i = 0; i < NH; ++i) out[i] = L.out[i];
+// The barrier value B(h(px, py) - tight) of fhat_lin's bc and bn.
+template <int NOBS, typename T>
+__device__ __forceinline__ T barrier_at(const Consts& p, T px, T py, T alpha, T tight) {
+  HLin<T, NOBS> h;
+  h_lin(p, px, py, h);
+  BLin<T> b;
+  barrier_lin(p, h.value - tight, alpha, b);
+  return b.value;
 }
 
-template <typename T>
-__device__ __forceinline__ void fhat_tan(const Consts& p, const FLin<T>& L, const T dx[NH],
-                                         const T du[M], T out[NH]) {
+// The value of f̂ alone, given the barrier value at the current state,
+// bc = B(h(x) - tight), which is replaced by the barrier value at the next state.
+// A rollout carries it from step to step, so each step evaluates h once: the next
+// state of step k is, bit for bit, the current state of step k+1. The operations
+// are fhat_lin's, so the values are too.
+template <int NOBS, typename T>
+__device__ __forceinline__ void fhat_carry(const Consts& p, const T x[NH], const T u[M], T alpha,
+                                           T gamma, T tight, T& bc, T out[NH]) {
+  const T dt = T(p.dt);
+  const T dtv = dt * u[0];
+  out[0] = x[0] + dtv * m_cos(x[2]);
+  out[1] = x[1] + dtv * m_sin(x[2]);
+  out[2] = x[2] + dt * u[1];
+  const T bn = barrier_at<NOBS>(p, out[0], out[1], alpha, tight);
+  out[3] = bn - gamma * (bc - x[3]);
+  bc = bn;
+}
+
+template <typename T, int NOBS>
+__device__ __forceinline__ void fhat_tan(const Consts& p, const FLin<T, NOBS>& L,
+                                         const T dx[NH], const T du[M], T out[NH]) {
   const T ddtv = L.dt * du[0];
   const T dpxn = dx[0] + (ddtv * L.c + L.dtv * (-(dx[2] * L.s)));
   const T dpyn = dx[1] + (ddtv * L.s + L.dtv * (dx[2] * L.c));
@@ -270,8 +302,8 @@ __device__ __forceinline__ void fhat_tan(const Consts& p, const FLin<T>& L, cons
 // of ops/lanes.py::augmented_lin_fn: only the barrier row depends on them.
 // The zero rows stay in the sums that use them, as in the reference, so that
 // an infinite weight on them gives NaN there too.
-template <typename T>
-__device__ __forceinline__ void fhat_dparams(const Consts& p, const FLin<T>& L, T alpha, T b,
+template <typename T, int NOBS>
+__device__ __forceinline__ void fhat_dparams(const Consts& p, const FLin<T, NOBS>& L, T alpha, T b,
                                              T fa[NH], T fg[NH], T ft[NH]) {
 #pragma unroll
   for (int i = 0; i < NH - 1; ++i) {
@@ -286,8 +318,9 @@ __device__ __forceinline__ void fhat_dparams(const Consts& p, const FLin<T>& L, 
 
 // Jacobian rows A[i][j] = d f̂_i / d x̂_j, Bm[i][a] = d f̂_i / d u_a by basis
 // tangents, as jac_rows does.
-template <typename T>
-__device__ __forceinline__ void fhat_jac(const Consts& p, const FLin<T>& L, T A[NH][NH], T Bm[NH][M]) {
+template <typename T, int NOBS>
+__device__ __forceinline__ void fhat_jac(const Consts& p, const FLin<T, NOBS>& L, T A[NH][NH],
+                                         T Bm[NH][M]) {
 #pragma unroll
   for (int j = 0; j < NH + M; ++j) {
     T dx[NH], du[M], col[NH];

@@ -1,292 +1,446 @@
 // K1 and K2 of the lane iLQR solver on Hopper.
 //
 // K1 ric_kernel replaces tube_mpc_tpu/ops/pallas/lane_solver.py::_ric_kernel:
-// the backward Riccati sweep with the f̂ Jacobians formed in-kernel.
+// the backward Riccati sweep with f̂'s Jacobians formed in-kernel.
 // K2 fwd_kernel replaces tube_mpc_tpu/ops/pallas/lane_solver.py::_fwd_kernel:
-// the line search, all alpha candidates advancing together.
+// the line search over the alpha ladder.
 //
-// Design: one thread per lane; the k loop runs inside the thread in place of
-// the Pallas kernels' sequential grid axis, and the carry (V_x, V_xx, LogS in
-// K1; the candidate states and costs in K2) stays in registers. Neighbouring
-// threads read neighbouring addresses of every [.., component, B] row.
+// What bounds them on an H100 (B=16384, N=50, f32). Per lane and step K1 reads 12
+// values and writes 10 (88 bytes): 73 MB a sweep, 22 us at 3.35 TB/s. It also does
+// some 3,000 operations per lane and step, nearly all of them the linearisation
+// (fhat_lin and the six tangents of fhat_jac): 2.5e9 a sweep, 37 us at the card's
+// f32 peak, which pairs a multiply and an add into one FMA, and 75 us at the half
+// rate this kernel can reach, built with -fmad=false to round as its plain version
+// does. So K1 is bound by operations. Only the Riccati algebra, some 500 operations per
+// lane and step, depends on the carry from step k+1. K2 reads 22 values per lane
+// and step and writes 6 per candidate, 256 bytes with seven: 212 MB a sweep, 63 us;
+// its operations take less, so K2 is bound by bytes. Both are sequential in k per
+// lane, so the chain of one lane's N steps also bounds each from below.
 //
-// What bounds it on an H100: per lane and step K1 reads 12 values and writes
-// 10 (88 bytes in f32), K2 reads 22 and writes 42 with seven candidates
-// (256 bytes), so a whole sweep at B=16384, N=50 moves 73 MB (K1) and 212 MB
-// (K2): 22 us and 63 us at 3.35 TB/s. K1 also does some 3,000 operations per
-// lane and step (six tangents of f̂ for the Jacobian columns), 38 us at the
-// f32 peak. One thread per lane gives only 128 blocks of 128 threads at
-// B=16384: one warp per scheduler on 128 of the 132 SMs, so nothing hides the
-// latency of each step's dependent chain of divides and transcendentals.
-// chip_smoke.py measures each kernel's time beside its bound; PERF.md keeps the
-// numbers with the card they came from. A later change could
-// split a lane's work over several threads (one per Jacobian column in K1, one
-// per alpha candidate in K2) to put more warps in flight, and keep the f̂
-// linearisation of the accepted trajectory from K2 for the next K1.
+// K1: linearise in parallel, recurse in one warp, the two overlapped. A block owns
+// 32 lanes and has RIC_WARPS warps, and walks k = N-1..0 in chunks of RIC_KC steps
+// (the last chunk, which ends at k = 0, is ragged when RIC_KC does not divide N).
+// - Phase A linearises a chunk: for each (step, lane) it writes A (16 rows), Bm
+//   (8), lx (4) and lu (2) into shared memory laid out [RIC_KC][LIN_ROWS][32], so a
+//   warp's stores and the recursion warp's loads are 32 consecutive words, free of
+//   bank conflicts. These rows depend on the step's X, U, Xr, Ur and C alone, so the
+//   serial chain loses the linearisation, nearly all of the operations.
+// - Phase B, in warp 0, runs the recursion over a chunk with its carry (V_x, V_xx,
+//   LogS) in registers, and writes K and kff.
+// - Warps 1..RIC_WARPS-1 linearise chunk j+1 into one of two buffers while warp 0
+//   recurses over chunk j from the other; a named barrier closes each chunk. All
+//   warps linearise chunk 0 first. Without the overlap (phase A in every warp, then
+//   phase B) the blocks, which all do the same work, run in lockstep: while warp 0
+//   recurses, the other warps of every block on the SM wait.
+// - The obstacle count is a template parameter (lane_common.cuh, HLin), so phase A
+//   is straight-line code the compiler can schedule; the launcher instantiates the
+//   kernel for the problem's count.
+// - Phase A takes most of the time, and the overlap hides little of phase B: the
+//   warps of both share each SM's issue slots. The f32 register cap (RicBlocksPerSM)
+//   costs 36 bytes of spill at 5 obstacles, nearly all in phase A. tools/ric_probe.py
+//   times each phase alone, other chunk sizes and caps, and places the spills.
+// Lanes past B do no work but reach every barrier. The arithmetic and its order are
+// those of the plain version (ops/cuda/lane_solver.py::ric_plain, whose two phases
+// are these); only where each value is computed differs.
+//
+// K2: one thread per (lane, candidate). A block is 32 lanes by nα candidates, so a
+// warp is 32 lanes of one candidate and its stores of Xn, Un and cost are
+// coalesced; the per-step inputs the candidates share (Xo, Uo, K, kff, Xr, Ur) are
+// read by the nα warps of a block, one from DRAM and the others from L1. With fewer
+// than four candidates a block takes more lanes, so the rollout (nα = 1, two
+// launches per closed-loop step) keeps one thread per lane in blocks of 128. A
+// thread loads step k+1's inputs before it computes step k, so their latency
+// leaves the chain. The barrier value at the next state is carried into the next
+// step as the barrier at the current state (lane_common.cuh::fhat_carry), so each
+// step evaluates the smooth-min h once, not twice. chip_smoke.py measures each
+// kernel's time beside its bound; PERF.md keeps the numbers with the card they
+// came from.
+#include <type_traits>
+
 #include "lane_common.cuh"
 
 namespace lane {
 
+constexpr int RIC_WARPS = 4;                         // warps of a K1 block
+constexpr int RIC_THREADS = 32 * RIC_WARPS;
+constexpr int RIC_KC = 3;                            // steps per chunk, one per linearising warp
+constexpr int ROW_BM = NH * NH;                      // rows of a step in shared memory:
+constexpr int ROW_LX = ROW_BM + NH * M;              //   A [0, 16), Bm [16, 24),
+constexpr int ROW_LU = ROW_LX + NH;                  //   lx [24, 28), lu [28, 30)
+constexpr int LIN_ROWS = ROW_LU + M;
+constexpr int STEP_VALUES = LIN_ROWS * 32;           // one step's rows for the block's lanes
+constexpr int CHUNK_VALUES = RIC_KC * STEP_VALUES;   // one buffer
+
+// K1 blocks each SM must hold at once: four f32 blocks (at most 128 registers a
+// thread) hold all 512 blocks of B=16384 on the 132 SMs. f64 is not capped.
+template <typename T> struct RicBlocksPerSM {
+  static constexpr int value = sizeof(T) == 4 ? 4 : 1;
+};
+
+// Barrier 1 over the K1 block's threads, which warp 0 and the linearising warps
+// reach from loops of their own.
+__device__ __forceinline__ void ric_sync() {
+  asm volatile("bar.sync 1, %0;" :: "n"(RIC_THREADS) : "memory");
+}
+
+// Phase A for step k of one lane: f̂'s Jacobian rows and the cost gradients, at
+// row[r * 32] for row r.
+template <int NOBS, typename T>
+__device__ __forceinline__ void lin_step(const Consts& p, const T* __restrict__ X,
+                                         const T* __restrict__ U, const T* __restrict__ Xr,
+                                         const T* __restrict__ Ur, const T c[NC], int k,
+                                         size_t Bs, int lane, T* row) {
+  T xs[NH], xr[NH], us[M], ur[M];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    xs[i] = X[(static_cast<size_t>(k) * NH + i) * Bs + lane];
+    xr[i] = Xr[(static_cast<size_t>(k) * NH + i) * Bs + lane];
+  }
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+    us[a] = U[(static_cast<size_t>(k) * M + a) * Bs + lane];
+    ur[a] = Ur[(static_cast<size_t>(k) * M + a) * Bs + lane];
+  }
+  FLin<T, NOBS> L;
+  fhat_lin(p, xs, us, c[ROW_ALPHA], c[ROW_ALPHA + 1], c[ROW_ALPHA + 2], L);
+  T A[NH][NH], Bm[NH][M];
+  fhat_jac(p, L, A, Bm);
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+#pragma unroll
+    for (int j = 0; j < NH; ++j) row[(i * NH + j) * 32] = A[i][j];
+#pragma unroll
+    for (int a = 0; a < M; ++a) row[(ROW_BM + i * M + a) * 32] = Bm[i][a];
+    row[(ROW_LX + i) * 32] = c[i] * (xs[i] - xr[i]);
+  }
+#pragma unroll
+  for (int a = 0; a < M; ++a) row[(ROW_LU + a) * 32] = c[NH + a] * (us[a] - ur[a]);
+}
+
+// Phase B for step k of one lane: K and kff from the step's rows (row[r * 32]) and
+// the carry, which it advances to step k.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void ric_step(const T* row, const T c[NC], T reg0, T vx[NH],
+                                         T vxx[NH][NH], T& logs, T* __restrict__ Kout,
+                                         T* __restrict__ kffout, int k, size_t Bs, int lane) {
+  T A[NH][NH], Bm[NH][M], lx[NH], lu[M];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+#pragma unroll
+    for (int j = 0; j < NH; ++j) A[i][j] = row[(i * NH + j) * 32];
+#pragma unroll
+    for (int a = 0; a < M; ++a) Bm[i][a] = row[(ROW_BM + i * M + a) * 32];
+    lx[i] = row[(ROW_LX + i) * 32];
+  }
+#pragma unroll
+  for (int a = 0; a < M; ++a) lu[a] = row[(ROW_LU + a) * 32];
+
+  const T inv_s = m_exp(-logs);
+  T Qx[NH], Qu[M], VA[NH][NH], VB[NH][M], Qxx[NH][NH], Qux[M][NH], Quu[M][M];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    T s = A[0][i] * vx[0];
+#pragma unroll
+    for (int j = 1; j < NH; ++j) s = s + A[j][i] * vx[j];
+    Qx[i] = lx[i] * inv_s + s;
+  }
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+    T s = Bm[0][a] * vx[0];
+#pragma unroll
+    for (int j = 1; j < NH; ++j) s = s + Bm[j][a] * vx[j];
+    Qu[a] = lu[a] * inv_s + s;
+  }
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      T s = vxx[i][0] * A[0][j];
+#pragma unroll
+      for (int q = 1; q < NH; ++q) s = s + vxx[i][q] * A[q][j];
+      VA[i][j] = s;
+    }
+#pragma unroll
+    for (int a = 0; a < M; ++a) {
+      T s = vxx[i][0] * Bm[0][a];
+#pragma unroll
+      for (int q = 1; q < NH; ++q) s = s + vxx[i][q] * Bm[q][a];
+      VB[i][a] = s;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      T s = A[0][i] * VA[0][j];
+#pragma unroll
+      for (int q = 1; q < NH; ++q) s = s + A[q][i] * VA[q][j];
+      Qxx[i][j] = (i == j) ? c[i] * inv_s + s : s;
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+#pragma unroll
+    for (int i = 0; i < NH; ++i) {
+      T s = Bm[0][a] * VA[0][i];
+#pragma unroll
+      for (int q = 1; q < NH; ++q) s = s + Bm[q][a] * VA[q][i];
+      Qux[a][i] = s;
+    }
+#pragma unroll
+    for (int b = 0; b < M; ++b) {
+      T s = Bm[0][a] * VB[0][b];
+#pragma unroll
+      for (int q = 1; q < NH; ++q) s = s + Bm[q][a] * VB[q][b];
+      Quu[a][b] = (a == b) ? c[NH + a] * inv_s + s : s;
+    }
+  }
+  const T reg = reg0 * inv_s;
+
+  T inv[M][M];
+  inv2(Quu[0][0] + reg, Quu[0][1], Quu[1][0], Quu[1][1] + reg, inv);
+
+  T K[M][NH], kf[M];
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+#pragma unroll
+    for (int i = 0; i < NH; ++i) K[a][i] = -(inv[a][0] * Qux[0][i] + inv[a][1] * Qux[1][i]);
+    kf[a] = -(inv[a][0] * Qu[0] + inv[a][1] * Qu[1]);
+    kffout[(static_cast<size_t>(k) * M + a) * Bs + lane] = kf[a];
+#pragma unroll
+    for (int i = 0; i < NH; ++i)
+      Kout[(static_cast<size_t>(k) * (M * NH) + a * NH + i) * Bs + lane] = K[a][i];
+  }
+
+  T Quu_k[M], QuuK[M][NH];
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+    Quu_k[a] = Quu[a][0] * kf[0] + Quu[a][1] * kf[1];
+#pragma unroll
+    for (int j = 0; j < NH; ++j) QuuK[a][j] = Quu[a][0] * K[0][j] + Quu[a][1] * K[1][j];
+  }
+  T vx_new[NH], vxx_new[NH][NH];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    vx_new[i] = (Qx[i] + (K[0][i] * (Quu_k[0] + Qu[0]) + K[1][i] * (Quu_k[1] + Qu[1])))
+                + (Qux[0][i] * kf[0] + Qux[1][i] * kf[1]);
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      vxx_new[i][j] = ((Qxx[i][j] + (K[0][i] * QuuK[0][j] + K[1][i] * QuuK[1][j]))
+                       + (K[0][i] * Qux[0][j] + K[1][i] * Qux[1][j]))
+                      + (Qux[0][i] * K[0][j] + Qux[1][i] * K[1][j]);
+    }
+  }
+  rescale_carry(vx_new, vxx_new, vx, vxx, logs);
+}
+
+template <typename T, int NOBS>
+__global__ void __launch_bounds__(RIC_THREADS, RicBlocksPerSM<T>::value)
 ric_kernel(const T* __restrict__ X, const T* __restrict__ U, const T* __restrict__ Xr,
            const T* __restrict__ Ur, const T* __restrict__ C, const T* __restrict__ phix,
            T* __restrict__ Kout, T* __restrict__ kffout, int N, int B, Consts p) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* lin = reinterpret_cast<T*>(smem);              // [2][RIC_KC][LIN_ROWS][32]
+  const int l = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lane = blockIdx.x * 32 + l;
+  const bool live = lane < B;
   const size_t Bs = static_cast<size_t>(B);
 
   T c[NC];
 #pragma unroll
-  for (int r = 0; r < NC; ++r) c[r] = C[r * Bs + lane];
-  const T alpha = c[ROW_ALPHA], gamma = c[ROW_ALPHA + 1], tight = c[ROW_ALPHA + 2];
-  const T reg0 = T(p.reg);
+  for (int r = 0; r < NC; ++r) c[r] = live ? C[r * Bs + lane] : T(0);
 
-  T vx[NH], vxx[NH][NH];
-  T logs = T(0);
-#pragma unroll
-  for (int i = 0; i < NH; ++i) {
-    vx[i] = phix[i * Bs + lane];
-#pragma unroll
-    for (int j = 0; j < NH; ++j) vxx[i][j] = (i == j) ? c[NH + M + i] : T(0);
-  }
+  // Chunk j holds the steps [lo, hi), hi = N - j RIC_KC, lo = max(hi - RIC_KC, 0),
+  // in buffer j % 2.
+  const int chunks = (N + RIC_KC - 1) / RIC_KC;
+  auto linearise = [&](int j, int first, int stride) {   // steps lo + first, + stride, ...
+    const int hi = N - j * RIC_KC, lo = hi > RIC_KC ? hi - RIC_KC : 0;
+    T* buf = lin + (j & 1) * CHUNK_VALUES + l;
+    if (live)
+      for (int k = lo + first; k < hi; k += stride)
+        lin_step<NOBS>(p, X, U, Xr, Ur, c, k, Bs, lane, buf + (k - lo) * STEP_VALUES);
+  };
 
-  for (int k = N - 1; k >= 0; --k) {
-    const T inv_s = m_exp(-logs);
-    T xs[NH], xr[NH], us[M], ur[M];
+  linearise(0, warp, RIC_WARPS);
+  ric_sync();
+  if (warp == 0) {
+    T vx[NH], vxx[NH][NH];
+    T logs = T(0);
 #pragma unroll
     for (int i = 0; i < NH; ++i) {
-      xs[i] = X[(static_cast<size_t>(k) * NH + i) * Bs + lane];
-      xr[i] = Xr[(static_cast<size_t>(k) * NH + i) * Bs + lane];
+      vx[i] = live ? phix[i * Bs + lane] : T(0);
+#pragma unroll
+      for (int j = 0; j < NH; ++j) vxx[i][j] = (i == j) ? c[NH + M + i] : T(0);
     }
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-      us[a] = U[(static_cast<size_t>(k) * M + a) * Bs + lane];
-      ur[a] = Ur[(static_cast<size_t>(k) * M + a) * Bs + lane];
+    const T reg0 = T(p.reg);
+    for (int j = 0; j < chunks; ++j) {
+      const int hi = N - j * RIC_KC, lo = hi > RIC_KC ? hi - RIC_KC : 0;
+      const T* buf = lin + (j & 1) * CHUNK_VALUES + l;
+      if (live)
+        for (int k = hi - 1; k >= lo; --k)
+          ric_step(buf + (k - lo) * STEP_VALUES, c, reg0, vx, vxx, logs, Kout, kffout, k, Bs,
+                   lane);
+      ric_sync();
     }
-
-    FLin<T> L;
-    fhat_lin(p, xs, us, alpha, gamma, tight, L);
-    T A[NH][NH], Bm[NH][M];
-    fhat_jac(p, L, A, Bm);
-
-    T Qx[NH], Qu[M], VA[NH][NH], VB[NH][M], Qxx[NH][NH], Qux[M][NH], Quu[M][M];
-#pragma unroll
-    for (int i = 0; i < NH; ++i) {
-      T s = A[0][i] * vx[0];
-#pragma unroll
-      for (int j = 1; j < NH; ++j) s = s + A[j][i] * vx[j];
-      Qx[i] = (c[i] * (xs[i] - xr[i])) * inv_s + s;
+  } else {
+    for (int j = 0; j < chunks; ++j) {
+      if (j + 1 < chunks) linearise(j + 1, warp - 1, RIC_WARPS - 1);
+      ric_sync();
     }
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-      T s = Bm[0][a] * vx[0];
-#pragma unroll
-      for (int j = 1; j < NH; ++j) s = s + Bm[j][a] * vx[j];
-      Qu[a] = (c[NH + a] * (us[a] - ur[a])) * inv_s + s;
-    }
-#pragma unroll
-    for (int i = 0; i < NH; ++i) {
-#pragma unroll
-      for (int j = 0; j < NH; ++j) {
-        T s = vxx[i][0] * A[0][j];
-#pragma unroll
-        for (int l = 1; l < NH; ++l) s = s + vxx[i][l] * A[l][j];
-        VA[i][j] = s;
-      }
-#pragma unroll
-      for (int a = 0; a < M; ++a) {
-        T s = vxx[i][0] * Bm[0][a];
-#pragma unroll
-        for (int l = 1; l < NH; ++l) s = s + vxx[i][l] * Bm[l][a];
-        VB[i][a] = s;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NH; ++i) {
-#pragma unroll
-      for (int j = 0; j < NH; ++j) {
-        T s = A[0][i] * VA[0][j];
-#pragma unroll
-        for (int l = 1; l < NH; ++l) s = s + A[l][i] * VA[l][j];
-        Qxx[i][j] = (i == j) ? c[i] * inv_s + s : s;
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-#pragma unroll
-      for (int i = 0; i < NH; ++i) {
-        T s = Bm[0][a] * VA[0][i];
-#pragma unroll
-        for (int l = 1; l < NH; ++l) s = s + Bm[l][a] * VA[l][i];
-        Qux[a][i] = s;
-      }
-#pragma unroll
-      for (int b = 0; b < M; ++b) {
-        T s = Bm[0][a] * VB[0][b];
-#pragma unroll
-        for (int l = 1; l < NH; ++l) s = s + Bm[l][a] * VB[l][b];
-        Quu[a][b] = (a == b) ? c[NH + a] * inv_s + s : s;
-      }
-    }
-    const T reg = reg0 * inv_s;
-
-    T inv[M][M];
-    inv2(Quu[0][0] + reg, Quu[0][1], Quu[1][0], Quu[1][1] + reg, inv);
-
-    T K[M][NH], kf[M];
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-#pragma unroll
-      for (int i = 0; i < NH; ++i) K[a][i] = -(inv[a][0] * Qux[0][i] + inv[a][1] * Qux[1][i]);
-      kf[a] = -(inv[a][0] * Qu[0] + inv[a][1] * Qu[1]);
-      kffout[(static_cast<size_t>(k) * M + a) * Bs + lane] = kf[a];
-#pragma unroll
-      for (int i = 0; i < NH; ++i)
-        Kout[(static_cast<size_t>(k) * (M * NH) + a * NH + i) * Bs + lane] = K[a][i];
-    }
-
-    T Quu_k[M], QuuK[M][NH];
-#pragma unroll
-    for (int a = 0; a < M; ++a) {
-      Quu_k[a] = Quu[a][0] * kf[0] + Quu[a][1] * kf[1];
-#pragma unroll
-      for (int j = 0; j < NH; ++j) QuuK[a][j] = Quu[a][0] * K[0][j] + Quu[a][1] * K[1][j];
-    }
-    T vx_new[NH], vxx_new[NH][NH];
-#pragma unroll
-    for (int i = 0; i < NH; ++i) {
-      vx_new[i] = (Qx[i] + (K[0][i] * (Quu_k[0] + Qu[0]) + K[1][i] * (Quu_k[1] + Qu[1])))
-                  + (Qux[0][i] * kf[0] + Qux[1][i] * kf[1]);
-#pragma unroll
-      for (int j = 0; j < NH; ++j) {
-        vxx_new[i][j] = ((Qxx[i][j] + (K[0][i] * QuuK[0][j] + K[1][i] * QuuK[1][j]))
-                         + (K[0][i] * Qux[0][j] + K[1][i] * Qux[1][j]))
-                        + (Qux[0][i] * K[0][j] + Qux[1][i] * K[1][j]);
-      }
-    }
-    rescale_carry(vx_new, vxx_new, vx, vxx, logs);
   }
 }
 
-// The alpha loop is unrolled over MAX_ALPHAS with a guard, so the candidate
-// states stay in registers for any ladder of up to MAX_ALPHAS alphas.
+// The inputs of step k that every candidate shares.
+template <typename T> struct FwdStep {
+  T xo[NH], xr[NH], uo[M], ur[M], kf[M], K[M][NH];
+};
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void fwd_load(FwdStep<T>& s, const T* __restrict__ Xo,
+                                         const T* __restrict__ Uo, const T* __restrict__ Kg,
+                                         const T* __restrict__ kff, const T* __restrict__ Xr,
+                                         const T* __restrict__ Ur, int k, size_t Bs, int lane) {
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    s.xo[i] = Xo[(static_cast<size_t>(k) * NH + i) * Bs + lane];
+    s.xr[i] = Xr[(static_cast<size_t>(k) * NH + i) * Bs + lane];
+  }
+#pragma unroll
+  for (int cc = 0; cc < M; ++cc) {
+    s.uo[cc] = Uo[(static_cast<size_t>(k) * M + cc) * Bs + lane];
+    s.ur[cc] = Ur[(static_cast<size_t>(k) * M + cc) * Bs + lane];
+    s.kf[cc] = kff[(static_cast<size_t>(k) * M + cc) * Bs + lane];
+#pragma unroll
+    for (int i = 0; i < NH; ++i)
+      s.K[cc][i] = Kg[(static_cast<size_t>(k) * (M * NH) + cc * NH + i) * Bs + lane];
+  }
+}
+
+// threadIdx.y is the candidate. K2 has no barrier, so a thread past B returns.
+template <typename T, int NOBS>
+__global__ void __launch_bounds__(32 * MAX_ALPHAS)
 fwd_kernel(const T* __restrict__ x0, const T* __restrict__ Xo, const T* __restrict__ Uo,
            const T* __restrict__ Kg, const T* __restrict__ kff, const T* __restrict__ Xr,
            const T* __restrict__ XrN, const T* __restrict__ Ur, const T* __restrict__ C,
            T* __restrict__ Xn, T* __restrict__ Un, T* __restrict__ cost, int N, int B, Consts p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
-  const size_t Bs = static_cast<size_t>(B);
+  const int a = threadIdx.y;
   const int na = p.n_alphas;
+  const size_t Bs = static_cast<size_t>(B);
 
   T c[NC];
 #pragma unroll
   for (int r = 0; r < NC; ++r) c[r] = C[r * Bs + lane];
   const T alpha_b = c[ROW_ALPHA], gamma = c[ROW_ALPHA + 1], tight = c[ROW_ALPHA + 2];
+  const T al = T(p.alphas[a]);
 
-  T xa[MAX_ALPHAS][NH], acc[MAX_ALPHAS];
+  T x[NH];
 #pragma unroll
-  for (int a = 0; a < MAX_ALPHAS; ++a) {
-    acc[a] = T(0);
-#pragma unroll
-    for (int i = 0; i < NH; ++i) xa[a][i] = x0[i * Bs + lane];
-  }
+  for (int i = 0; i < NH; ++i) x[i] = x0[i * Bs + lane];
+  T bc = barrier_at<NOBS>(p, x[0], x[1], alpha_b, tight);
+  T acc = T(0);
 
+  FwdStep<T> s;
+  fwd_load(s, Xo, Uo, Kg, kff, Xr, Ur, 0, Bs, lane);
   for (int k = 0; k < N; ++k) {
-    T xo[NH], xr[NH], uo[M], ur[M], kf[M], K[M][NH];
-#pragma unroll
-    for (int i = 0; i < NH; ++i) {
-      xo[i] = Xo[(static_cast<size_t>(k) * NH + i) * Bs + lane];
-      xr[i] = Xr[(static_cast<size_t>(k) * NH + i) * Bs + lane];
-    }
+    FwdStep<T> next;   // step k+1's inputs (step k's again at the last step)
+    fwd_load(next, Xo, Uo, Kg, kff, Xr, Ur, k + 1 < N ? k + 1 : k, Bs, lane);
+
+    T u[M];
 #pragma unroll
     for (int cc = 0; cc < M; ++cc) {
-      uo[cc] = Uo[(static_cast<size_t>(k) * M + cc) * Bs + lane];
-      ur[cc] = Ur[(static_cast<size_t>(k) * M + cc) * Bs + lane];
-      kf[cc] = kff[(static_cast<size_t>(k) * M + cc) * Bs + lane];
+      T d = s.K[cc][0] * (x[0] - s.xo[0]);
 #pragma unroll
-      for (int i = 0; i < NH; ++i)
-        K[cc][i] = Kg[(static_cast<size_t>(k) * (M * NH) + cc * NH + i) * Bs + lane];
+      for (int i = 1; i < NH; ++i) d = d + s.K[cc][i] * (x[i] - s.xo[i]);
+      const T du = s.kf[cc] + d;
+      u[cc] = jmin(T(p.u_max[cc]), jmax(T(p.u_min[cc]), s.uo[cc] + al * du));
     }
+    T sx = (T(0.5) * c[0]) * ((x[0] - s.xr[0]) * (x[0] - s.xr[0]));
+#pragma unroll
+    for (int i = 1; i < NH; ++i)
+      sx = sx + (T(0.5) * c[i]) * ((x[i] - s.xr[i]) * (x[i] - s.xr[i]));
+    T su = (T(0.5) * c[NH]) * ((u[0] - s.ur[0]) * (u[0] - s.ur[0]));
+#pragma unroll
+    for (int cc = 1; cc < M; ++cc)
+      su = su + (T(0.5) * c[NH + cc]) * ((u[cc] - s.ur[cc]) * (u[cc] - s.ur[cc]));
+    acc = acc + (sx + su);
 
+    T xn[NH];
+    fhat_carry<NOBS>(p, x, u, alpha_b, gamma, tight, bc, xn);
 #pragma unroll
-    for (int a = 0; a < MAX_ALPHAS; ++a) {
-      if (a < na) {
-        const T al = T(p.alphas[a]);
-        T u[M];
+    for (int i = 0; i < NH; ++i) {
+      Xn[(static_cast<size_t>(k) * (na * NH) + a * NH + i) * Bs + lane] = xn[i];
+      x[i] = xn[i];
+    }
 #pragma unroll
-        for (int cc = 0; cc < M; ++cc) {
-          T s = K[cc][0] * (xa[a][0] - xo[0]);
-#pragma unroll
-          for (int i = 1; i < NH; ++i) s = s + K[cc][i] * (xa[a][i] - xo[i]);
-          const T du = kf[cc] + s;
-          u[cc] = jmin(T(p.u_max[cc]), jmax(T(p.u_min[cc]), uo[cc] + al * du));
-        }
-        T sx = (T(0.5) * c[0]) * ((xa[a][0] - xr[0]) * (xa[a][0] - xr[0]));
-#pragma unroll
-        for (int i = 1; i < NH; ++i)
-          sx = sx + (T(0.5) * c[i]) * ((xa[a][i] - xr[i]) * (xa[a][i] - xr[i]));
-        T su = (T(0.5) * c[NH]) * ((u[0] - ur[0]) * (u[0] - ur[0]));
-#pragma unroll
-        for (int cc = 1; cc < M; ++cc)
-          su = su + (T(0.5) * c[NH + cc]) * ((u[cc] - ur[cc]) * (u[cc] - ur[cc]));
-        acc[a] = acc[a] + (sx + su);
+    for (int cc = 0; cc < M; ++cc)
+      Un[(static_cast<size_t>(k) * (na * M) + a * M + cc) * Bs + lane] = u[cc];
 
-        T xn[NH];
-        fhat(p, xa[a], u, alpha_b, gamma, tight, xn);
+    if (k == N - 1) {
+      T term = (T(0.5) * c[NH + M]) * ((xn[0] - XrN[lane]) * (xn[0] - XrN[lane]));
 #pragma unroll
-        for (int i = 0; i < NH; ++i) {
-          Xn[(static_cast<size_t>(k) * (na * NH) + a * NH + i) * Bs + lane] = xn[i];
-          xa[a][i] = xn[i];
-        }
-#pragma unroll
-        for (int cc = 0; cc < M; ++cc)
-          Un[(static_cast<size_t>(k) * (na * M) + a * M + cc) * Bs + lane] = u[cc];
-
-        if (k == N - 1) {
-          T term = (T(0.5) * c[NH + M]) * ((xn[0] - XrN[lane]) * (xn[0] - XrN[lane]));
-#pragma unroll
-          for (int i = 1; i < NH; ++i) {
-            const T d = xn[i] - XrN[i * Bs + lane];
-            term = term + (T(0.5) * c[NH + M + i]) * (d * d);
-          }
-          acc[a] = acc[a] + term;
-        }
+      for (int i = 1; i < NH; ++i) {
+        const T d = xn[i] - XrN[i * Bs + lane];
+        term = term + (T(0.5) * c[NH + M + i]) * (d * d);
       }
+      acc = acc + term;
     }
+    s = next;
   }
-#pragma unroll
-  for (int a = 0; a < MAX_ALPHAS; ++a)
-    if (a < na) cost[a * Bs + lane] = acc[a];
+  cost[a * Bs + lane] = acc;
+}
+
+// Calls f(std::integral_constant<int, NOBS>) for NOBS = n_obs, so that the kernel it
+// launches has the obstacle loops unrolled (lane_common.cuh, HLin).
+template <int NOBS = 1, typename F>
+int with_obs(int n_obs, F&& f) {
+  if constexpr (NOBS > MAX_OBS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (n_obs == NOBS) return f(std::integral_constant<int, NOBS>{});
+    return with_obs<NOBS + 1>(n_obs, f);
+  }
 }
 
 template <typename T>
 int launch_ric(const void* X, const void* U, const void* Xr, const void* Ur, const void* C,
                const void* phix, void* K, void* kff, int N, int B, const Consts* p,
                void* stream) {
-  const dim3 grid((B + THREADS - 1) / THREADS);
-  ric_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(X), static_cast<const T*>(U), static_cast<const T*>(Xr),
-      static_cast<const T*>(Ur), static_cast<const T*>(C), static_cast<const T*>(phix),
-      static_cast<T*>(K), static_cast<T*>(kff), N, B, *p);
-  return static_cast<int>(cudaGetLastError());
+  // Two buffers: f32 23,040 bytes, f64 46,080, within the 48 KB a launch gets without
+  // cudaFuncAttributeMaxDynamicSharedMemorySize.
+  constexpr int smem = 2 * CHUNK_VALUES * static_cast<int>(sizeof(T));
+  static_assert(smem <= 48 * 1024, "K1's buffers need the dynamic shared memory attribute");
+  const dim3 grid((B + 31) / 32);
+  return with_obs(p->n_obs, [&](auto nobs) {
+    constexpr int NOBS = decltype(nobs)::value;
+    ric_kernel<T, NOBS><<<grid, RIC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(X), static_cast<const T*>(U), static_cast<const T*>(Xr),
+        static_cast<const T*>(Ur), static_cast<const T*>(C), static_cast<const T*>(phix),
+        static_cast<T*>(K), static_cast<T*>(kff), N, B, *p);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 template <typename T>
 int launch_fwd(const void* x0, const void* Xo, const void* Uo, const void* K, const void* kff,
                const void* Xr, const void* XrN, const void* Ur, const void* C, void* Xn,
                void* Un, void* cost, int N, int B, const Consts* p, void* stream) {
-  if (p->n_alphas < 1 || p->n_alphas > MAX_ALPHAS) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((B + THREADS - 1) / THREADS);
-  fwd_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x0), static_cast<const T*>(Xo), static_cast<const T*>(Uo),
-      static_cast<const T*>(K), static_cast<const T*>(kff), static_cast<const T*>(Xr),
-      static_cast<const T*>(XrN), static_cast<const T*>(Ur), static_cast<const T*>(C),
-      static_cast<T*>(Xn), static_cast<T*>(Un), static_cast<T*>(cost), N, B, *p);
-  return static_cast<int>(cudaGetLastError());
+  const int na = p->n_alphas;
+  if (na < 1 || na > MAX_ALPHAS) return static_cast<int>(cudaErrorInvalidValue);
+  const int lanes = na >= 4 ? 32 : 32 * (4 / na);   // 32 x nα threads, at least 96
+  const dim3 block(lanes, na);
+  const dim3 grid((B + lanes - 1) / lanes);
+  return with_obs(p->n_obs, [&](auto nobs) {
+    constexpr int NOBS = decltype(nobs)::value;
+    fwd_kernel<T, NOBS><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(x0), static_cast<const T*>(Xo), static_cast<const T*>(Uo),
+        static_cast<const T*>(K), static_cast<const T*>(kff), static_cast<const T*>(Xr),
+        static_cast<const T*>(XrN), static_cast<const T*>(Ur), static_cast<const T*>(C),
+        static_cast<T*>(Xn), static_cast<T*>(Un), static_cast<T*>(cost), N, B, *p);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace lane

@@ -95,14 +95,29 @@ def _rescale(vx_new, vxx_new, LogS: Tensor):
     return Vx, Vxx, LogS
 
 
+def ric_lin_plain(pb: LaneProblem, X: Tensor, U: Tensor, Xr: Tensor, Ur: Tensor, C: Tensor):
+    """K1's phase A: f̂'s Jacobian rows and the cost gradients at every step at once,
+    each a row [N, B]: A[i][j] = ∂f̂_i/∂x̂_j, Bm[i][a] = ∂f̂_i/∂u_a, lx[i] = C_i (x_i - xr_i),
+    lu[a] = C_{n̂+a} (u_a - ur_a). None depends on the Riccati carry."""
+    nh, m = pb.n_hat, pb.m
+    xs = tuple(X[:, i] for i in range(nh))
+    us = tuple(U[:, a] for a in range(m))
+    _, tangent = pb.f_hat_lin(xs, us, _bp_from_C(pb, C))
+    A, Bm = jac_rows(tangent, nh, m, xs[0])
+    lx = [C[i] * (xs[i] - Xr[:, i]) for i in range(nh)]
+    lu = [C[nh + a] * (us[a] - Ur[:, a]) for a in range(m)]
+    return A, Bm, lx, lu
+
+
 def ric_plain(pb: LaneProblem, reg: float, X: Tensor, U: Tensor, Xr: Tensor, Ur: Tensor,
               C: Tensor, phix: Tensor) -> Tuple[Tensor, Tensor]:
-    """Backward Riccati sweep with in-sweep linearisation and diagonal cost
-    Hessians: X, Xr [N, n̂, B], U, Ur [N, m, B], C [nc, B], phix [n̂, B]
-    -> K [N, m n̂, B], kff [N, m, B]."""
+    """Backward Riccati sweep with diagonal cost Hessians: X, Xr [N, n̂, B], U, Ur
+    [N, m, B], C [nc, B], phix [n̂, B] -> K [N, m n̂, B], kff [N, m, B]. In the
+    kernel's two phases: the linearisation of every step (ric_lin_plain), then the
+    recursion over k = N-1..0."""
     nh, m = pb.n_hat, pb.m
     N, B = X.shape[0], X.shape[-1]
-    bp = _bp_from_C(pb, C)
+    A_all, Bm_all, lx_all, lu_all = ric_lin_plain(pb, X, U, Xr, Ur, C)
     K_out = X.new_empty((N, m * nh, B))
     kff_out = X.new_empty((N, m, B))
     zero = torch.zeros_like(phix[0])
@@ -112,12 +127,10 @@ def ric_plain(pb: LaneProblem, reg: float, X: Tensor, U: Tensor, Xr: Tensor, Ur:
 
     for k in reversed(range(N)):
         inv_s = torch.exp(-LogS)
-        xs = tuple(X[k, i] for i in range(nh))
-        us = tuple(U[k, a] for a in range(m))
-        _, tangent = pb.f_hat_lin(xs, us, bp)
-        A, Bm = jac_rows(tangent, nh, m, xs[0])
-        lx = [C[i] * (xs[i] - Xr[k, i]) for i in range(nh)]
-        lu = [C[nh + a] * (us[a] - Ur[k, a]) for a in range(m)]
+        A = [[A_all[i][j][k] for j in range(nh)] for i in range(nh)]
+        Bm = [[Bm_all[i][a][k] for a in range(m)] for i in range(nh)]
+        lx = [lx_all[i][k] for i in range(nh)]
+        lu = [lu_all[a][k] for a in range(m)]
 
         Qx = [lx[i] * inv_s + sum(A[j][i] * vx[j] for j in range(nh)) for i in range(nh)]
         Qu = [lu[a] * inv_s + sum(Bm[j][a] * vx[j] for j in range(nh)) for a in range(m)]
