@@ -9,21 +9,21 @@ K1, K2 and the generic and coupled variants K5, K6 of the sensitivity kernels).
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 
 1. device:   the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build:    nvcc builds the two kernel sources (eight kernel variants, float and
-             double; K1 and K2 once for each obstacle count, 1 to 8) from csrc/, in
+2. build:    nvcc builds the three kernel sources (eight kernel variants, float and
+             double, each once for each obstacle count, 1 to 8) from csrc/, in
              parallel, and prints each instantiation's registers and spills;
 3. kernels:  each kernel variant against its plain PyTorch version on the same
              inputs, at the main paths' shapes (B=16384, N=50, n̂=4, m=2, nα=7) in
              f64 and in f32. The inputs are those of a real closed-loop step (after
              three disturbed steps, so that the lanes differ): of the paper setup for
              K1-K4, of the coupled setup for K5/K6; some ancillary controls must lie
-             at a bound in each, so that the active set runs. K1 and K2 (at nα=7 and
-             at nα=1, the rollout's shape) are also held at a ragged shape, the first
+             at a bound in each, so that the active set runs. Every variant (K2 also
+             at nα=1, the rollout's shape) is also held at a ragged shape, the first
              1000 lanes and 37 steps of the same inputs, and there with 1 and with 8
-             obstacles (K1/K2 are built for each count), and with 8 obstacles at the
-             main shape too. Each variant is timed with CUDA events over 20 launches
-             back to back, in f64 and in f32 (its plain version, 5, in f32), and so
-             are K2 at nα=1 and K1/K2 with 8 obstacles at the main shape;
+             obstacles (each kernel is built for each count), and with 8 obstacles at
+             the main shape too. Each variant is timed with CUDA events over 20
+             launches back to back, in f64 and in f32 (its plain version, 5, in f32),
+             and so are K2 at nα=1 and every variant with 8 obstacles at the main shape;
 4. loop64:   a short f64 paper loop (B=256, N=50, H=5) through the kernels on the
              card and through the plain versions on the CPU, held at the tolerances
              of tests/test_lane_closed_loop.py:45-50;
@@ -69,28 +69,28 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 SEED = 0  # every random number here comes from torch.Generator seeded from it
 
 B, N, H = 16384, 50, 300  # the main paths: bench.py's paper and coupled workloads, full width and depth
-RAGGED_B, RAGGED_N = 1000, 37  # K1/K2 also here: B not a multiple of 32, N not of 3
+RAGGED_B, RAGGED_N = 1000, 37  # every kernel also here: B not a multiple of 32, N not of 3
 RUNS = 20                 # timed runs per kernel
 PLAIN_RUNS = 5            # timed runs per plain version (one small PyTorch kernel per operation)
 LOOP64_B, LOOP64_H = 256, 5
 PROFILE_H = 5
 
-SENS = "tube_mpc_tpu_torch/csrc/lane_sensitivity.cu"
+SBWD, SFWD = "tube_mpc_tpu_torch/csrc/lane_sbwd.cu", "tube_mpc_tpu_torch/csrc/lane_sfwd.cu"
 KERNELS = {
     # name: (source, the Pallas kernel it replaces, the CUDA kernel and its template flags)
     "ric": ("tube_mpc_tpu_torch/csrc/lane_solver.cu", "tube_mpc_tpu/ops/pallas/lane_solver.py:78",
             "ric_kernel", ""),
     "fwd": ("tube_mpc_tpu_torch/csrc/lane_solver.cu", "tube_mpc_tpu/ops/pallas/lane_solver.py:196",
             "fwd_kernel", ""),
-    "sbwd": (SENS, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:48", "sbwd_kernel", ", false, false"),
-    "sfwd": (SENS, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:172", "sfwd_kernel", ", false, false"),
-    "sbwd_generic": (SENS, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:48", "sbwd_kernel",
+    "sbwd": (SBWD, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:48", "sbwd_kernel", ", false, false"),
+    "sfwd": (SFWD, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:172", "sfwd_kernel", ", false, false"),
+    "sbwd_generic": (SBWD, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:48", "sbwd_kernel",
                      ", true, false"),
-    "sbwd_upper": (SENS, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:48", "sbwd_kernel",
+    "sbwd_upper": (SBWD, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:48", "sbwd_kernel",
                    ", true, true"),
-    "sfwd_generic": (SENS, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:172", "sfwd_kernel",
+    "sfwd_generic": (SFWD, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:172", "sfwd_kernel",
                      ", true, false"),
-    "sfwd_ref": (SENS, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:172", "sfwd_kernel",
+    "sfwd_ref": (SFWD, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:172", "sfwd_kernel",
                  ", true, true"),
 }
 # Rows of the const block C [13, B] that a kernel reads, where not all: K4 and the generic
@@ -225,6 +225,172 @@ def max_err(torch, got, ref, rtol, atol_frac):
     return worst, ok
 
 
+REG_SENS, ACTIVE_TOL = 1e-9, 1e-8   # the sensitivity's reg and active-set tolerance
+
+
+def coupled_setup(torch, H_, where, dtype):
+    """bench.py's BENCH_MODE=coupled configuration (bench.py:229-255): the paper
+    setup, the clipped adaptation, adapt_nominal, its raw parameters, eps=1e-4."""
+    from tube_mpc_tpu_torch.presets import dubins_paper_setup
+    from tube_mpc_tpu_torch.tube.params import AdaptConfig, RawAuxTheta, RawNominalTheta
+
+    s = dubins_paper_setup(N=N, H=H_, device=where, dtype=dtype)
+    cfg = dataclasses.replace(s.cfg, adapt=AdaptConfig(
+        lr=5e-2, momentum=0.9, steps=1, grad_clip_norm=1.0, project=True), adapt_nominal=True)
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=where)
+    raw_nom = RawNominalTheta(
+        Q_raw=t([1.0, 1.0, 0.0]), R_raw=t([1.0, 1.0]), Qf_raw=t([1000.0] * 3), qb_raw=t(1.0),
+        alpha_raw=t(0.0), gamma_raw=t(0.0), tight_raw=t(0.0))
+    raw_aux = RawAuxTheta(
+        Q_raw=t([1.0, 1.0, 0.0]), R_raw=t([1.0, 1.0]), Qf_raw=t([1000.0] * 3), qb_raw=t(1.0),
+        alpha_raw=t(0.0), gamma_raw=t(0.0))
+    return s, cfg, raw_nom, raw_aux
+
+
+def paper_step(torch, dev, dtype):
+    """The four paper kernels' inputs in one real closed-loop step of the paper setup
+    at full width: three disturbed steps first, then this step's nominal solve, the
+    first iteration of its ancillary solve, and the sensitivity of its solution.
+    Returns (the problem, its eps, make, {kernel: inputs}, the ancillary U rows, what):
+    make(q) gives {kernel: (its wrapper, its plain version)} on the problem q, and K2 at
+    the rollout's nα=1 as "fwd nα=1"."""
+    from tube_mpc_tpu_torch.ops.costs import CostWeights
+    from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
+    from tube_mpc_tpu_torch.ops.cuda.lane_sensitivity import sbwd_plain, sfwd_plain
+    from tube_mpc_tpu_torch.ops.cuda.lane_solver import fwd_plain, ric_plain, rollout
+    from tube_mpc_tpu_torch.presets import dubins_paper_setup
+    from tube_mpc_tpu_torch.tube.lane_closed_loop import make_paper_lane_step, paper_lane_init_state
+    from tube_mpc_tpu_torch.tube.lane_interface import (
+        _build_C, _rows, _with_barrier_row, make_lane_problem, tube_ilqr_solve_lanes)
+
+    s = dubins_paper_setup(N=N, H=4, device=dev, dtype=dtype)
+    pb = make_lane_problem(s.sys_c, eps=s.eps)
+    step = make_paper_lane_step(s.system, s.aug, pb, s.cfg, w_nominal=s.w_nominal, bp=s.bp,
+                                target=s.target, B=B, dtype=dtype, device=dev)
+    state = paper_lane_init_state(s.system, s.aug, s.cfg, aux_init=s.aux_init, bp=s.bp,
+                                  x0=s.x0, B=B, dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    w = s.system.sample_disturbance(gen, (B, 3), dtype=dtype)
+    for t in range(3):
+        state, _ = step(state, w[:, t])
+    x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
+    X_ref_nom = s.target[None, None].expand(B, N + 1, 3)
+    U_ref_nom = torch.zeros((B, N, 2), dtype=dtype, device=dev)
+    X_nom, U_nom = tube_ilqr_solve_lanes(
+        pb, s.cfg.nominal_ilqr(), w=s.w_nominal, bp=s.bp, x_hat0=x_hat_bar,
+        U_init=state.U_nom_ws, X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev)
+    x_hat = torch.cat([state.x, state.b[:, None]], dim=-1)
+    a = state.adapt
+    w_aux = CostWeights(Q=a.Q, R=a.R, Qf=a.Q, qb=a.qb)
+    C = _build_C(pb, w_aux, s.bp, B, dtype, dev)
+    x0 = _rows(x_hat)
+    U0 = _rows(s.system.clamp(state.U_aux_ws))
+    Xr = _rows(_with_barrier_row(X_nom[..., :3]))
+    Ur = _rows(U_nom)
+    X0 = rollout(pb, x0, U0, Xr, Ur, C)
+    nh, m = pb.n_hat, pb.m
+    phix = C[nh + m:2 * nh + m] * (X0[-1] - Xr[-1])   # terminal rows of C
+    k1 = (X0[:-1], U0, Xr[:-1], Ur, C, phix)
+    K, kff = WRAPPERS["ric"](pb, s.cfg.reg, *k1)
+    k2 = (x0, X0[:-1], U0, K, kff, Xr[:-1], Xr[-1], Ur, C)
+    X_aux, U_aux = tube_ilqr_solve_lanes(
+        pb, s.cfg.aux_ilqr(), w=w_aux, bp=s.bp, x_hat0=x_hat, U_init=state.U_aux_ws,
+        X_ref=X_nom[..., :3], U_ref=U_nom, device=dev)
+    Xa, Ua = _rows(X_aux), _rows(U_aux)
+    k3 = (Ua, Xa[:-1], Xr[:-1], C, Xa[-1], Xr[-1])
+    Ks, kffs = WRAPPERS["sbwd"](pb, REG_SENS, ACTIVE_TOL, *k3)
+    k4 = (Ks, kffs, Xa[:-1], Xr[:-1], Ua, Ur, C, Xa[-1], Xr[-1])
+    torch.cuda.synchronize()
+
+    def make(q):
+        """{kernel: (its wrapper, its plain version)} on the problem q."""
+        return {
+            "ric": (lambda *t: WRAPPERS["ric"](q, s.cfg.reg, *t),
+                    lambda *t: ric_plain(q, s.cfg.reg, *t)),
+            "fwd": (lambda *t: WRAPPERS["fwd"](q, s.cfg.alphas, *t),
+                    lambda *t: fwd_plain(q, s.cfg.alphas, *t)),
+            "sbwd": (lambda *t: WRAPPERS["sbwd"](q, REG_SENS, ACTIVE_TOL, *t),
+                     lambda *t: sbwd_plain(q, REG_SENS, ACTIVE_TOL, *t)),
+            "sfwd": (lambda *t: WRAPPERS["sfwd"](q, *t), lambda *t: sfwd_plain(q, *t)),
+            "fwd nα=1": (lambda *t: WRAPPERS["fwd"](q, (1.0,), *t),
+                         lambda *t: fwd_plain(q, (1.0,), *t)),
+        }
+
+    return (pb, s.eps, make, {"ric": k1, "fwd": k2, "sbwd": k3, "sfwd": k4}, Ua,
+            f"paper setup, {len(s.cfg.alphas)} alphas")
+
+
+def coupled_step(torch, dev, dtype):
+    """The four K5/K6 variants' inputs in one real step of the coupled setup at full
+    width: three disturbed steps first, then this step's two solves, the ancillary
+    sweeps (K5 generic, K6 with the reference cotangents) and the nominal sweeps fed
+    those cotangents (K5 with upper rows, K6 generic). Returns what paper_step does."""
+    from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
+    from tube_mpc_tpu_torch.ops.cuda.lane_sensitivity import sbwd_plain, sbwd_upper_plain, sfwd_plain
+    from tube_mpc_tpu_torch.tube.lane_closed_loop import (
+        _aux_params, _nom_params, generic_lane_init_state, make_generic_lane_step)
+    from tube_mpc_tpu_torch.tube.lane_interface import (
+        _build_C, _rows, _with_barrier_row, make_lane_problem, tube_ilqr_solve_lanes,
+        tube_sensitivity_grads_lanes_generic)
+
+    s, cfg, raw_nom, raw_aux = coupled_setup(torch, 4, dev, dtype)
+    pb = make_lane_problem(s.sys_c, eps=1e-4)
+    step = make_generic_lane_step(s.system, s.aug, pb, cfg, target=s.target, B=B,
+                                  dtype=dtype, device=dev)
+    state = generic_lane_init_state(s.system, s.aug, cfg, raw_nom=raw_nom,
+                                    raw_aux_init=raw_aux, x0=s.x0, B=B, dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    w = s.system.sample_disturbance(gen, (B, 3), dtype=dtype)
+    for t in range(3):
+        state, _ = step(state, w[:, t])
+    zero_t = torch.zeros((B,), dtype=dtype, device=dev)
+    w_aux, bp_aux = _aux_params(state.raw_aux, zero_t)
+    w_nom, bp_nom = _nom_params(state.raw_nom)
+    x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
+    X_ref_nom = s.target[None, None].expand(B, N + 1, 3)
+    U_ref_nom = torch.zeros((B, N, 2), dtype=dtype, device=dev)
+    X_nom, U_nom = tube_ilqr_solve_lanes(
+        pb, cfg.nominal_ilqr(), w=w_nom, bp=bp_nom, x_hat0=x_hat_bar,
+        U_init=state.U_nom_ws, X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev)
+    x_hat = torch.cat([state.x, state.b[:, None]], dim=-1)
+    X_aux, U_aux = tube_ilqr_solve_lanes(
+        pb, cfg.aux_ilqr(), w=w_aux, bp=bp_aux, x_hat0=x_hat, U_init=state.U_aux_ws,
+        X_ref=X_nom[..., :3], U_ref=U_nom, device=dev)
+    Xa, Ua = _rows(X_aux), _rows(U_aux)
+    Xr, Ur = _rows(_with_barrier_row(X_nom[..., :3])), _rows(U_nom)
+    Ca = _build_C(pb, w_aux, bp_aux, B, dtype, dev)
+    k5g = (Ua, Xa[:-1], Xr[:-1], Ca, Xa[-1], Xr[-1])
+    K, kff, tVx, Vxx, LogS = WRAPPERS["sbwd_generic"](pb, REG_SENS, ACTIVE_TOL, *k5g)
+    k6r = (K, kff, Xa[:-1], Xr[:-1], Ua, Ur, Ca, Xa[-1], Xr[-1], tVx, Vxx, LogS)
+    _, g_Xref, g_Uref = tube_sensitivity_grads_lanes_generic(
+        pb, w=w_aux, bp=bp_aux, X_hat=X_aux, U=U_aux, X_ref=X_nom[..., :3], U_ref=U_nom,
+        reg=REG_SENS, emit_ref_grads=True, device=dev)
+    gX, gU = _rows(g_Xref), _rows(g_Uref)
+    Xn, Un = _rows(X_nom), _rows(U_nom)
+    Xrn, Urn = _rows(_with_barrier_row(X_ref_nom)), _rows(U_ref_nom)
+    Cn = _build_C(pb, w_nom, bp_nom, B, dtype, dev)
+    k5u = (gX[:-1].contiguous(), gU, gX[-1], Un, Xn[:-1], Cn)
+    K2, kff2, tVx2, Vxx2, LogS2 = WRAPPERS["sbwd_upper"](pb, REG_SENS, ACTIVE_TOL, *k5u)
+    k6g = (K2, kff2, Xn[:-1], Xrn[:-1], Un, Urn, Cn, Xn[-1], Xrn[-1], tVx2, Vxx2, LogS2)
+    torch.cuda.synchronize()
+
+    def make(q):
+        """{kernel: (its wrapper, its plain version)} on the problem q."""
+        return {
+            "sbwd_generic": (lambda *t: WRAPPERS["sbwd_generic"](q, REG_SENS, ACTIVE_TOL, *t),
+                             lambda *t: sbwd_plain(q, REG_SENS, ACTIVE_TOL, *t, generic=True)),
+            "sbwd_upper": (lambda *t: WRAPPERS["sbwd_upper"](q, REG_SENS, ACTIVE_TOL, *t),
+                           lambda *t: sbwd_upper_plain(q, REG_SENS, ACTIVE_TOL, *t)),
+            "sfwd_generic": (lambda *t: WRAPPERS["sfwd_generic"](q, *t),
+                             lambda *t: sfwd_plain(q, *t[:9], value=t[9:])),
+            "sfwd_ref": (lambda *t: WRAPPERS["sfwd_ref"](q, *t),
+                         lambda *t: sfwd_plain(q, *t[:9], value=t[9:], emit_ref_grads=True)),
+        }
+
+    return (pb, 1e-4, make, {"sbwd_generic": k5g, "sbwd_upper": k5u, "sfwd_generic": k6g,
+                             "sfwd_ref": k6r}, Ua, "coupled setup")
+
+
 def main() -> int:
     import torch
 
@@ -232,57 +398,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
 
-    from tube_mpc_tpu_torch.ops.costs import CostWeights
-    from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
     from tube_mpc_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
-    from tube_mpc_tpu_torch.ops.cuda.lane_sensitivity import (
-        sbwd_plain,
-        sbwd_upper_plain,
-        sfwd_plain,
-    )
-    from tube_mpc_tpu_torch.ops.cuda.lane_solver import fwd_plain, ric_plain, rollout
     from tube_mpc_tpu_torch.ops.lanes import dubins_components
     from tube_mpc_tpu_torch.presets import dubins_paper_setup
     from tube_mpc_tpu_torch.tube.lane_closed_loop import (
-        _aux_params,
-        _nom_params,
-        generic_lane_init_state,
-        make_generic_lane_step,
-        make_paper_lane_step,
-        paper_lane_init_state,
         run_generic_closed_loop_lanes,
         run_paper_closed_loop_lanes,
     )
-    from tube_mpc_tpu_torch.tube.lane_interface import (
-        _build_C,
-        _rows,
-        _with_barrier_row,
-        make_lane_problem,
-        tube_ilqr_solve_lanes,
-        tube_sensitivity_grads_lanes_generic,
-    )
-    from tube_mpc_tpu_torch.tube.params import AdaptConfig, RawAuxTheta, RawNominalTheta
+    from tube_mpc_tpu_torch.tube.lane_interface import make_lane_problem
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
     t_start = time.perf_counter()
-
-    def coupled_setup(H_, where, dtype):
-        """bench.py's BENCH_MODE=coupled configuration (bench.py:229-255): the paper
-        setup, the clipped adaptation, adapt_nominal, its raw parameters, eps=1e-4."""
-        s = dubins_paper_setup(N=N, H=H_, device=where, dtype=dtype)
-        cfg = dataclasses.replace(s.cfg, adapt=AdaptConfig(
-            lr=5e-2, momentum=0.9, steps=1, grad_clip_norm=1.0, project=True), adapt_nominal=True)
-        t = lambda v: torch.as_tensor(v, dtype=dtype, device=where)
-        raw_nom = RawNominalTheta(
-            Q_raw=t([1.0, 1.0, 0.0]), R_raw=t([1.0, 1.0]), Qf_raw=t([1000.0] * 3), qb_raw=t(1.0),
-            alpha_raw=t(0.0), gamma_raw=t(0.0), tight_raw=t(0.0))
-        raw_aux = RawAuxTheta(
-            Q_raw=t([1.0, 1.0, 0.0]), R_raw=t([1.0, 1.0]), Qf_raw=t([1000.0] * 3), qb_raw=t(1.0),
-            alpha_raw=t(0.0), gamma_raw=t(0.0))
-        return s, cfg, raw_nom, raw_aux
 
     def run_coupled(s, cfg, raw_nom, raw_aux, w, where):
         return run_generic_closed_loop_lanes(
@@ -310,156 +439,53 @@ def main() -> int:
                 log(f"[build] {name}: {kernel_label(line.strip())}")
 
     # ---- 3. kernels against their plain versions --------------------------------
-    reg_sens, active_tol = 1e-9, 1e-8
+    RAGGED_AT = f"B={RAGGED_B}, N={RAGGED_N}"
 
     def at_bound(pb, U_rows):
         lo = torch.as_tensor(pb.u_min, dtype=U_rows.dtype, device=U_rows.device)[:, None]
         hi = torch.as_tensor(pb.u_max, dtype=U_rows.dtype, device=U_rows.device)[:, None]
-        return int(((U_rows <= lo + active_tol) | (U_rows >= hi - active_tol)).sum())
+        return int(((U_rows <= lo + ACTIVE_TOL) | (U_rows >= hi - ACTIVE_TOL)).sum())
 
-    def step_inputs(dtype):
-        """The four paper kernels' inputs in one real closed-loop step of the paper setup
-        at full width: three disturbed steps first, then this step's nominal solve, the
-        first iteration of its ancillary solve, and the sensitivity of its solution."""
-        s = dubins_paper_setup(N=N, H=4, device=dev, dtype=dtype)
-        pb = make_lane_problem(s.sys_c, eps=s.eps)
-        step = make_paper_lane_step(s.system, s.aug, pb, s.cfg, w_nominal=s.w_nominal, bp=s.bp,
-                                    target=s.target, B=B, dtype=dtype, device=dev)
-        state = paper_lane_init_state(s.system, s.aug, s.cfg, aux_init=s.aux_init, bp=s.bp,
-                                      x0=s.x0, B=B, dtype=dtype)
-        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-        w = s.system.sample_disturbance(gen, (B, 3), dtype=dtype)
-        for t in range(3):
-            state, _ = step(state, w[:, t])
-        x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
-        X_ref_nom = s.target[None, None].expand(B, N + 1, 3)
-        U_ref_nom = torch.zeros((B, N, 2), dtype=dtype, device=dev)
-        X_nom, U_nom = tube_ilqr_solve_lanes(
-            pb, s.cfg.nominal_ilqr(), w=s.w_nominal, bp=s.bp, x_hat0=x_hat_bar,
-            U_init=state.U_nom_ws, X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev)
-        x_hat = torch.cat([state.x, state.b[:, None]], dim=-1)
-        a = state.adapt
-        w_aux = CostWeights(Q=a.Q, R=a.R, Qf=a.Q, qb=a.qb)
-        C = _build_C(pb, w_aux, s.bp, B, dtype, dev)
-        x0 = _rows(x_hat)
-        U0 = _rows(s.system.clamp(state.U_aux_ws))
-        Xr = _rows(_with_barrier_row(X_nom[..., :3]))
-        Ur = _rows(U_nom)
-        X0 = rollout(pb, x0, U0, Xr, Ur, C)
-        nh, m = pb.n_hat, pb.m
-        phix = C[nh + m:2 * nh + m] * (X0[-1] - Xr[-1])   # terminal rows of C
-        k1 = (X0[:-1], U0, Xr[:-1], Ur, C, phix)
-        K, kff = WRAPPERS["ric"](pb, s.cfg.reg, *k1)
-        k2 = (x0, X0[:-1], U0, K, kff, Xr[:-1], Xr[-1], Ur, C)
-        X_aux, U_aux = tube_ilqr_solve_lanes(
-            pb, s.cfg.aux_ilqr(), w=w_aux, bp=s.bp, x_hat0=x_hat, U_init=state.U_aux_ws,
-            X_ref=X_nom[..., :3], U_ref=U_nom, device=dev)
-        Xa, Ua = _rows(X_aux), _rows(U_aux)
-        k3 = (Ua, Xa[:-1], Xr[:-1], C, Xa[-1], Xr[-1])
-        Ks, kffs = WRAPPERS["sbwd"](pb, reg_sens, active_tol, *k3)
-        k4 = (Ks, kffs, Xa[:-1], Xr[:-1], Ua, Ur, C, Xa[-1], Xr[-1])
-        torch.cuda.synchronize()
-        calls = {
-            "ric": (lambda *t: WRAPPERS["ric"](pb, s.cfg.reg, *t),
-                    lambda *t: ric_plain(pb, s.cfg.reg, *t), k1),
-            "fwd": (lambda *t: WRAPPERS["fwd"](pb, s.cfg.alphas, *t),
-                    lambda *t: fwd_plain(pb, s.cfg.alphas, *t), k2),
-            "sbwd": (lambda *t: WRAPPERS["sbwd"](pb, reg_sens, active_tol, *t),
-                     lambda *t: sbwd_plain(pb, reg_sens, active_tol, *t), k3),
-            "sfwd": (lambda *t: WRAPPERS["sfwd"](pb, *t), lambda *t: sfwd_plain(pb, *t), k4),
-        }
+    def ragged(t):
+        """The first RAGGED_N steps and RAGGED_B lanes of a [N, rows, B] or [rows, B] input."""
+        return (t[:RAGGED_N, :, :RAGGED_B] if t.ndim == 3 else t[:, :RAGGED_B]).contiguous()
 
-        def ragged(t):
-            """The first RAGGED_N steps and RAGGED_B lanes of a [N, rows, B] or [rows, B] input."""
-            return (t[:RAGGED_N, :, :RAGGED_B] if t.ndim == 3 else t[:, :RAGGED_B]).contiguous()
-
-        fwd1 = (lambda *t: WRAPPERS["fwd"](pb, (1.0,), *t), lambda *t: fwd_plain(pb, (1.0,), *t))
-        at = f"B={RAGGED_B}, N={RAGGED_N}"
-        extra = [  # (label, its entry of TOL and results, kernel, plain, inputs, timed)
-            ("fwd nα=1", "fwd", *fwd1, k2, True),
-            (f"ric at {at}", "ric", *calls["ric"][:2], tuple(map(ragged, k1)), False),
-            (f"fwd at {at}", "fwd", *calls["fwd"][:2], tuple(map(ragged, k2)), False),
-            (f"fwd nα=1 at {at}", "fwd", *fwd1, tuple(map(ragged, k2)), False),
-        ]
-        # K1/K2 are built for each obstacle count (the paper has 5): also the first and the
-        # last instantiation, with the paper's first obstacle alone and with three more; the
-        # last, whose f64 K1 spills, also at the main shape, timed.
+    def held(make, pb, eps, inputs):
+        """The checks of the kernels of `inputs` ({kernel: its inputs}) on one step's inputs:
+        (calls {kernel: (wrapper, plain version, inputs)} at the main shape, extra [(label,
+        kernel, wrapper, plain version, inputs, timed)]). Every kernel is built for each
+        obstacle count (the paper has 5), so the extra checks also take the first and the
+        last instantiation, with the paper's first obstacle alone and with three more, at
+        the ragged shape; the last also at the main shape, timed."""
+        main = make(pb)
+        calls = {k: (*main[k], t) for k, t in inputs.items()}
+        extra = [(f"{k} at {RAGGED_AT}", k, *main[k], tuple(map(ragged, t)), False)
+                 for k, t in inputs.items()]
         sp = pb.spec
         for centers in (sp.centers[:1], sp.centers + ((2.0, 8.0), (8.0, 2.0), (5.0, 9.0))):
             pbn = make_lane_problem(dubins_components(
                 dt=sp.dt, v_min=pb.u_min[0], v_max=pb.u_max[0], omega_max=pb.u_max[1],
-                centers=centers, radii=[1.0] * len(centers), beta=sp.beta), eps=s.eps)
-            n = f"{len(centers)} obstacles"
-            shapes = [(f" at {at}", ragged, False)]
+                centers=centers, radii=[1.0] * len(centers), beta=sp.beta), eps=eps)
+            n, fns = f"{len(centers)} obstacles", make(pbn)
+            shapes = [(f" at {RAGGED_AT}", ragged, False)]
             if len(centers) == 8:
                 shapes.append((" at the main shape", lambda t: t, True))
             for where, cut, timed in shapes:
-                extra += [
-                    (f"ric, {n}{where}", "ric", lambda *t, q=pbn: WRAPPERS["ric"](q, s.cfg.reg, *t),
-                     lambda *t, q=pbn: ric_plain(q, s.cfg.reg, *t), tuple(map(cut, k1)), timed),
-                    (f"fwd, {n}{where}", "fwd", lambda *t, q=pbn: WRAPPERS["fwd"](q, s.cfg.alphas, *t),
-                     lambda *t, q=pbn: fwd_plain(q, s.cfg.alphas, *t), tuple(map(cut, k2)), timed),
-                ]
-        return calls, extra, at_bound(pb, Ua), f"paper setup, {len(s.cfg.alphas)} alphas"
+                extra += [(f"{k}, {n}{where}", k, *fns[k], tuple(map(cut, t)), timed)
+                          for k, t in inputs.items()]
+        return calls, extra
 
-    def coupled_step_inputs(dtype):
-        """The four K5/K6 variants' inputs in one real step of the coupled setup at full
-        width: three disturbed steps first, then this step's two solves, the ancillary
-        sweeps (K5 generic, K6 with the reference cotangents) and the nominal sweeps fed
-        those cotangents (K5 with upper rows, K6 generic)."""
-        s, cfg, raw_nom, raw_aux = coupled_setup(4, dev, dtype)
-        pb = make_lane_problem(s.sys_c, eps=1e-4)
-        step = make_generic_lane_step(s.system, s.aug, pb, cfg, target=s.target, B=B,
-                                      dtype=dtype, device=dev)
-        state = generic_lane_init_state(s.system, s.aug, cfg, raw_nom=raw_nom,
-                                        raw_aux_init=raw_aux, x0=s.x0, B=B, dtype=dtype)
-        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-        w = s.system.sample_disturbance(gen, (B, 3), dtype=dtype)
-        for t in range(3):
-            state, _ = step(state, w[:, t])
-        zero_t = torch.zeros((B,), dtype=dtype, device=dev)
-        w_aux, bp_aux = _aux_params(state.raw_aux, zero_t)
-        w_nom, bp_nom = _nom_params(state.raw_nom)
-        x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
-        X_ref_nom = s.target[None, None].expand(B, N + 1, 3)
-        U_ref_nom = torch.zeros((B, N, 2), dtype=dtype, device=dev)
-        X_nom, U_nom = tube_ilqr_solve_lanes(
-            pb, cfg.nominal_ilqr(), w=w_nom, bp=bp_nom, x_hat0=x_hat_bar,
-            U_init=state.U_nom_ws, X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev)
-        x_hat = torch.cat([state.x, state.b[:, None]], dim=-1)
-        X_aux, U_aux = tube_ilqr_solve_lanes(
-            pb, cfg.aux_ilqr(), w=w_aux, bp=bp_aux, x_hat0=x_hat, U_init=state.U_aux_ws,
-            X_ref=X_nom[..., :3], U_ref=U_nom, device=dev)
-        Xa, Ua = _rows(X_aux), _rows(U_aux)
-        Xr, Ur = _rows(_with_barrier_row(X_nom[..., :3])), _rows(U_nom)
-        Ca = _build_C(pb, w_aux, bp_aux, B, dtype, dev)
-        k5g = (Ua, Xa[:-1], Xr[:-1], Ca, Xa[-1], Xr[-1])
-        K, kff, tVx, Vxx, LogS = WRAPPERS["sbwd_generic"](pb, reg_sens, active_tol, *k5g)
-        k6r = (K, kff, Xa[:-1], Xr[:-1], Ua, Ur, Ca, Xa[-1], Xr[-1], tVx, Vxx, LogS)
-        _, g_Xref, g_Uref = tube_sensitivity_grads_lanes_generic(
-            pb, w=w_aux, bp=bp_aux, X_hat=X_aux, U=U_aux, X_ref=X_nom[..., :3], U_ref=U_nom,
-            reg=reg_sens, emit_ref_grads=True, device=dev)
-        gX, gU = _rows(g_Xref), _rows(g_Uref)
-        Xn, Un = _rows(X_nom), _rows(U_nom)
-        Xrn, Urn = _rows(_with_barrier_row(X_ref_nom)), _rows(U_ref_nom)
-        Cn = _build_C(pb, w_nom, bp_nom, B, dtype, dev)
-        k5u = (gX[:-1].contiguous(), gU, gX[-1], Un, Xn[:-1], Cn)
-        K2, kff2, tVx2, Vxx2, LogS2 = WRAPPERS["sbwd_upper"](pb, reg_sens, active_tol, *k5u)
-        k6g = (K2, kff2, Xn[:-1], Xrn[:-1], Un, Urn, Cn, Xn[-1], Xrn[-1], tVx2, Vxx2, LogS2)
-        torch.cuda.synchronize()
-        calls = {
-            "sbwd_generic": (lambda *t: WRAPPERS["sbwd_generic"](pb, reg_sens, active_tol, *t),
-                             lambda *t: sbwd_plain(pb, reg_sens, active_tol, *t, generic=True),
-                             k5g),
-            "sbwd_upper": (lambda *t: WRAPPERS["sbwd_upper"](pb, reg_sens, active_tol, *t),
-                           lambda *t: sbwd_upper_plain(pb, reg_sens, active_tol, *t), k5u),
-            "sfwd_generic": (lambda *t: WRAPPERS["sfwd_generic"](pb, *t),
-                             lambda *t: sfwd_plain(pb, *t[:9], value=t[9:]), k6g),
-            "sfwd_ref": (lambda *t: WRAPPERS["sfwd_ref"](pb, *t),
-                         lambda *t: sfwd_plain(pb, *t[:9], value=t[9:], emit_ref_grads=True),
-                         k6r),
-        }
-        return calls, [], at_bound(pb, Ua), "coupled setup"
+    def checks(step_of, dtype):
+        """(calls, extra, controls at a bound, what) of one step's inputs (paper_step or
+        coupled_step); K2 also at the rollout's nα=1."""
+        pb, eps, make, inputs, Ua, what = step_of(torch, dev, dtype)
+        calls, extra = held(make, pb, eps, inputs)
+        if "fwd" in inputs:
+            fwd1 = make(pb)["fwd nα=1"]
+            extra = [("fwd nα=1", "fwd", *fwd1, inputs["fwd"], True),
+                     (f"fwd nα=1 at {RAGGED_AT}", "fwd", *fwd1, tuple(map(ragged, inputs["fwd"])),
+                      False)] + extra
+        return calls, extra, at_bound(pb, Ua), what
 
     results = {}
     main_ms = {}   # (type, kernel): ms per launch at the main shape
@@ -483,8 +509,8 @@ def main() -> int:
 
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).replace("torch.", "")
-        for inputs_of in (step_inputs, coupled_step_inputs):
-            calls, extra, n_bound, what = inputs_of(dtype)
+        for step_of in (paper_step, coupled_step):
+            calls, extra, n_bound, what = checks(step_of, dtype)
             log(f"[kernels] {dname}: inputs from a closed-loop step of the {what} at B={B}, "
                 f"N={N}; {n_bound} ancillary controls at a bound")
             if n_bound == 0:
@@ -552,7 +578,7 @@ def main() -> int:
     # ---- 5. short f64 coupled loop: the same for the coupled path ----------------------
     logs = {}
     for where in ("cpu", dev):
-        s, cfg, raw_nom, raw_aux = coupled_setup(LOOP64_H, where, torch.float64)
+        s, cfg, raw_nom, raw_aux = coupled_setup(torch, LOOP64_H, where, torch.float64)
         w = s.system.sample_disturbance(torch.Generator().manual_seed(SEED + 5),
                                         (LOOP64_B, LOOP64_H), dtype=torch.float64).to(where)
         t0 = time.perf_counter()
@@ -614,7 +640,7 @@ def main() -> int:
     del out
 
     # ---- 7. the full-width coupled path ---------------------------------------------
-    s, cfg, raw_nom, raw_aux = coupled_setup(H, dev, torch.float32)
+    s, cfg, raw_nom, raw_aux = coupled_setup(torch, H, dev, torch.float32)
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     w = s.system.sample_disturbance(gen, (B, H), dtype=torch.float32)
     torch.cuda.synchronize()
@@ -698,7 +724,7 @@ def main() -> int:
         torch.cuda.synchronize()
 
     profile_phase("paper", paper_steps)
-    sc, cfg, raw_nom, raw_aux = coupled_setup(PROFILE_H, dev, torch.float32)
+    sc, cfg, raw_nom, raw_aux = coupled_setup(torch, PROFILE_H, dev, torch.float32)
     wc = sc.system.sample_disturbance(torch.Generator(device=dev).manual_seed(SEED + 7),
                                       (B, PROFILE_H), dtype=torch.float32)
 

@@ -168,9 +168,9 @@ def test_wrappers_take_cpu_or_cuda_tensors_only():
 
 
 def _c_entry_tensor_counts():
-    """{entry point: number of tensor pointers} of csrc/lane_sensitivity.cu's C entry
-    points (each ends with N, B, the constants and the stream)."""
-    src = (PKG / "csrc" / "lane_sensitivity.cu").read_text()
+    """{entry point: number of tensor pointers} of the C entry points of csrc/lane_sbwd.cu
+    and lane_sfwd.cu (each ends with N, B, the constants and the stream)."""
+    src = "".join((PKG / "csrc" / f"{name}.cu").read_text() for name in ("lane_sbwd", "lane_sfwd"))
     out = {}
     for name, params in re.findall(r"int (lane_\w+?)_##SUFFIX\((.*?)\)", src, flags=re.S):
         out[name] = params.count("void*") - 1
@@ -210,7 +210,7 @@ def test_sensitivity_variants_launch_their_own_entry_points(monkeypatch):
     launched = []
 
     def fake_launch(lib, fn, dtype, device, tensors, n, b, consts):
-        assert lib == "lane_sensitivity" and (n, b) == (N, B)
+        assert lib == "lane_" + fn.split("_")[1] and lib in _build.SOURCES and (n, b) == (N, B)
         launched.append((fn, len(tensors)))
 
     monkeypatch.setattr(sens, "on_cpu", lambda *ts: False)
@@ -272,7 +272,7 @@ def test_kernel_constants_refuse_what_the_kernels_do_not_take():
 
 
 def test_build_needs_no_work_at_import_and_names_its_sources():
-    assert _build.SOURCES == ("lane_solver", "lane_sensitivity")
+    assert _build.SOURCES == ("lane_solver", "lane_sbwd", "lane_sfwd")
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").exists()
         assert _build.library_path(name).parent == PKG / "_build"

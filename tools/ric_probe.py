@@ -1,32 +1,37 @@
 #!/usr/bin/env python3
-"""Where K1's (`ric_kernel`, csrc/lane_solver.cu) time and register spills go, on one
-NVIDIA card, in one process.
+"""Where the chunked sweeps' time and register spills go (K1 `ric_kernel`, K3/K5
+`sbwd_kernel`, K4/K6 `sfwd_kernel`, all on lane_common.cuh's `sweep`), on one NVIDIA
+card, in one process.
 
     python3 tools/ric_probe.py     # from the repository root
 
-1. Builds variants of this tree's `tube_mpc_tpu_torch/csrc/lane_solver.cu`, each one
-   textual edit of the source (VARIANTS), all in parallel with the package's nvcc flags,
-   and prints each variant's ptxas registers and spills of ric_kernel<float, 5>:
-   - kept:   the source as it is;
-   - A only: warp 0 skips the recursion, so phase A and the barriers remain;
-   - B only: the linearising warps skip phase A, so the recursion (over whatever
-             shared memory holds) and the barriers remain;
-   - kc2, kc4, kc6: RIC_KC steps per chunk, not 3 (f32 only: the f64 buffers pass
-             48 KB from 4 steps up, so these drop the launcher's static_assert);
+1. Builds variants of this tree's kernel sources (`tube_mpc_tpu_torch/csrc/`), each a
+   copy of the sources with textual edits (VARIANTS), all at once with the package's
+   nvcc flags, and prints each variant's ptxas registers and spills of the paper's
+   f32 instantiations (PROBED):
+   - kept:   the sources as they are;
+   - A only: warp 0 skips phase B (the recursion), so phase A and the barriers remain;
+   - B only: the phase-A warps skip phase A, so phase B (over whatever shared memory
+             holds) and the barriers remain;
+   - kc2, kc4, kc6: SWEEP_KC steps per chunk, not 3 (f32 only: K1's and K3's f64
+             buffers pass 48 KB from 4 steps up, so these drop their launchers'
+             static_assert);
    - cap3, cap2: 3 or 2 f32 blocks per SM in __launch_bounds__ (at most 168 or 255
              registers a thread), not 4 (128).
-2. Times lane_ric_f32 of every variant on the paper step's inputs of
-   tools/port_kernel_ab.py (B=16384, N=50), in turns (every variant, then every
-   variant in reverse order), each the device time per launch of RUNS launches back
-   to back, and says whether each variant's K and kff are bitwise those of `kept`.
-3. Compiles `kept` once more to a cubin with -lineinfo (which leaves the code as it
-   is; the script prints that cubin's ptxas spills beside the library's), disassembles
-   it with nvdisasm -gi, and counts each instantiation's local-memory stores and loads
-   (STL, LDL: the register spills) by where their source line lies: phase A
-   (`lin_step`, the `linearise` lambda and its first call, in every warp, for the
-   first chunk; the linearising warps' loop), phase B (`ric_step`, warp 0's loop),
-   or else by that line. The stack frame of the math library's out-of-line paths,
-   which every f64 instantiation has, shows at the kernel's last line.
+   The edits are to the shared sweep, so each variant changes K1, K3-K6 alike.
+2. Times every f32 kernel of tools/port_kernel_ab.py's cases (the paper step's K1-K4,
+   the coupled step's K5/K6 at B=16384, N=50) through its wrapper on every variant's
+   build, in turns (every variant, then every variant in reverse order), each the
+   device time per launch of RUNS launches back to back, and says whether each
+   variant's outputs are bitwise those of `kept`.
+3. Compiles `kept` once more to cubins with -lineinfo (which leaves the code as it
+   is), disassembles them with nvdisasm -gi, and counts each instantiation's
+   local-memory stores and loads (STL, LDL: the register spills) by the source line
+   of the innermost frame of their line info. The register allocator's spills in a
+   kernel on the shared sweep carry the line of the kernel's `sweep(` call, whichever
+   phase they serve: the phase shows in the `A only` and `B only` variants' ptxas
+   lines instead. The stack frame of the math library's out-of-line paths, which every
+   f64 instantiation has, shows at the kernel's last line.
 
 The last line is one JSON object with the times and the counts.
 """
@@ -48,24 +53,34 @@ sys.path.insert(0, str(TOOLS.parent))
 import port_kernel_ab as ab  # noqa: E402
 
 RUNS = 50
-KC_ASSERT = (r"static_assert\(smem[^;]*;", "")
-VARIANTS = {  # name: [(regex, replacement)], each regex matching exactly once
+SWEEP = "lane_common.cuh"
+KC_ASSERTS = [(src, r"static_assert\(smem <= 48 \* 1024[^;]*;", "", 1)
+              for src in ("lane_solver.cu", "lane_sbwd.cu")]
+VARIANTS = {  # name: [(file, regex, replacement, matches)]
     "kept": [],
-    "A only": [(r"ric_step\(buf[^;]*;", "(void)buf;")],
-    "B only": [(r"lin_step<NOBS>\([^;]*;", "(void)buf;")],
-    **{f"kc{kc}": [(r"constexpr int RIC_KC = 3;", f"constexpr int RIC_KC = {kc};"), KC_ASSERT]
-       for kc in (2, 4, 6)},
-    **{f"cap{n}": [(r"sizeof\(T\) == 4 \? 4 : 1", f"sizeof(T) == 4 ? {n} : 1")] for n in (3, 2)},
+    "A only": [(SWEEP, r"rec_step\(k, buf \+ \(k - lo\) \* STEP\);", "(void)buf;", 2)],
+    "B only": [(SWEEP, r"lin_step\(k, buf \+ \(k - lo\) \* STEP\);", "(void)buf;", 1)],
+    **{f"kc{kc}": [(SWEEP, r"constexpr int SWEEP_KC = 3;", f"constexpr int SWEEP_KC = {kc};", 1),
+                   *KC_ASSERTS] for kc in (2, 4, 6)},
+    **{f"cap{n}": [(SWEEP, r"sizeof\(T\) == 4 \? 4 : 1", f"sizeof(T) == 4 ? {n} : 1", 1)]
+       for n in (3, 2)},
 }
-PROBED = "ric_kernel<float, 5>"   # the paper's instantiation, whose ptxas lines are printed
+PROBED = ("ric_kernel<float, 5>", "sbwd_kernel<float, false, false, 5>",
+          "sfwd_kernel<float, false, false, 5>")   # the paper's instantiations
 
 
-def variant_source(text: str, edits) -> str:
-    for pattern, repl in edits:
-        text, n = re.subn(pattern, repl, text)
-        if n != 1:
-            raise SystemExit(f"ric_probe: {pattern!r} matched {n} times in lane_solver.cu")
-    return text
+def variant_sources(csrc: Path, edits, out: Path):
+    """Copy csrc's sources into out with the edits applied; fail unless each edit matches
+    as often as it says."""
+    out.mkdir(parents=True, exist_ok=True)
+    for src in sorted(csrc.glob("*.cu*")):
+        text = src.read_text()
+        for name, pattern, repl, count in edits:
+            if name == src.name:
+                text, n = re.subn(pattern, repl, text)
+                if n != count:
+                    raise SystemExit(f"ric_probe: {pattern!r} matched {n} times in {name}")
+        (out / src.name).write_text(text)
 
 
 def ptxas_lines(log: str, label, kernel: str):
@@ -77,25 +92,10 @@ def ptxas_lines(log: str, label, kernel: str):
     return []
 
 
-def line_ranges(src_lines):
-    """{part: (first, last) source line, 1-based} of K1's parts in lane_solver.cu."""
-    def span(start, end):
-        lo = next(i for i, x in enumerate(src_lines) if start(x))
-        hi = next(i for i in range(lo + 1, len(src_lines)) if end(src_lines[i]))
-        return lo + 1, hi + 1
-    return {
-        "A": [span(lambda x: "void lin_step(" in x, lambda x: x == "}"),
-              span(lambda x: "auto linearise" in x, lambda x: "linearise(0, " in x),
-              span(lambda x: x.strip() == "} else {", lambda x: x == "  }")],
-        "B": [span(lambda x: "void ric_step(" in x, lambda x: x == "}"),
-              span(lambda x: "if (warp == 0) {" in x, lambda x: x.strip() == "} else {")],
-    }
-
-
-def spill_sites(sass: str, src_name: str, ranges):
-    """{kernel symbol: Counter((STL or LDL, part))}: each local-memory instruction is
-    placed by the innermost frame of its line-info chain that lies in `src_name`, in
-    phase A or B by `ranges`, or else as "line N"."""
+def spill_sites(sass: str, sources):
+    """{kernel symbol: Counter((STL or LDL, "<source> line N"))}: each local-memory
+    instruction at the innermost frame of its line-info chain that lies in one of
+    `sources` (file names)."""
     counts, fn, chain = {}, None, []
     for line in sass.splitlines():
         if "/*" not in line:
@@ -104,19 +104,14 @@ def spill_sites(sass: str, src_name: str, ranges):
                 fn = m.group(1)
                 continue
         if "//##" in line:
-            chain = re.findall(r'"([^"]+)", line (\d+)', line)
+            chain = [(Path(f).name, int(n)) for f, n in re.findall(r'"([^"]+)", line (\d+)', line)]
             continue
         m = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?(STL|LDL)\b", line)
         if not (m and fn):
             continue
-        part = "unplaced"
-        for f, ln in chain:
-            if Path(f).name == src_name:
-                ln = int(ln)
-                part = next((p for p, spans in ranges.items()
-                             if any(lo <= ln <= hi for lo, hi in spans)), f"line {ln}")
-                break
-        counts.setdefault(fn, Counter())[(m.group(1), part)] += 1
+        ours = [(f, ln) for f, ln in chain if f in sources]
+        site = f"{ours[0][0]} line {ours[0][1]}" if ours else "unplaced"
+        counts.setdefault(fn, Counter())[(m.group(1), site)] += 1
     return counts
 
 
@@ -137,65 +132,59 @@ def main() -> int:
     card = chip_smoke.nvidia_smi()
     print(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     out_dir = _build.BUILD_DIR / "probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = _build.CSRC / "lane_solver.cu"
-    text = src.read_text()
-    nvcc = _build.nvcc_path()
-    include = ["-I", str(_build.CSRC)]
-    procs = {}
-    for name, edits in VARIANTS.items():
-        path = out_dir / f"{name.replace(' ', '_')}.cu"
-        path.write_text(variant_source(text, edits))
-        procs[name] = ab.build(nvcc, [*_build.NVCC_FLAGS, *include], path,
-                               path.with_suffix(".so"))
+    names = list(_build.SOURCES)
+    jobs, keys = [], []
+    for variant, edits in VARIANTS.items():
+        vdir = out_dir / variant.replace(" ", "_")
+        variant_sources(_build.CSRC, edits, vdir)
+        for name in names:
+            keys.append((variant, name))
+            jobs.append((_build.NVCC_FLAGS, vdir / f"{name}.cu", vdir / f"lib{name}.so"))
     cubin_flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    cubin = out_dir / "kept_lineinfo.cubin"
-    procs["kept, -lineinfo cubin"] = ab.build(nvcc, ["-cubin", "-lineinfo", *cubin_flags], src,
-                                              cubin)
+    for name in names:
+        keys.append(("kept, -lineinfo cubin", name))
+        jobs.append((["-cubin", "-lineinfo", *cubin_flags], _build.CSRC / f"{name}.cu",
+                     out_dir / f"{name}_lineinfo.cubin"))
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"ric_probe: nvcc failed on {name}:\n{log}")
-        print(f"[build] {name}: {PROBED}: {' | '.join(ptxas_lines(log, label, PROBED))}",
-              flush=True)
-        if name in VARIANTS:
-            libs[name] = ctypes.CDLL(str(out_dir / f"{name.replace(' ', '_')}.so"))
+    for (variant, name), job, (rc, log) in zip(keys, jobs, ab.build_all(_build.nvcc_path(), jobs)):
+        if rc != 0:
+            raise SystemExit(f"ric_probe: nvcc failed on {variant} {name}:\n{log}")
+        for kernel in PROBED:
+            found = ptxas_lines(log, label, kernel)
+            if found:
+                print(f"[build] {variant}: {kernel}: {' | '.join(found)}", flush=True)
+        if variant in VARIANTS:
+            libs.setdefault(variant, []).append(ctypes.CDLL(str(job[2])))
+    builds = {variant: ab.TreeLib(found) for variant, found in libs.items()}
 
-    result = {"card": card, "B": ab.B, "N": ab.N, "runs": RUNS, "ms": {}, "bitwise": {},
-              "spills": {}}
+    result = {"card": card, "B": chip_smoke.B, "N": chip_smoke.N, "runs": RUNS, "ms": {},
+              "bitwise": {}, "spills": {}}
     dev = torch.device("cuda", 0)
-    _, fn, ins, outs_of, consts = ab.paper_step_cases(torch, dev)["lane_ric_f32"]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    outs = {name: outs_of() for name in libs}
-    runs = {name: ab.entry_call(lib, fn, ins, outs[name], consts, stream)
-            for name, lib in libs.items()}
-    for run in runs.values():
-        run()
-    torch.cuda.synchronize()
-    for name in libs:
-        result["bitwise"][name] = ab.bitwise_equal(torch, outs[name], outs["kept"])
-        result["ms"][name] = []
-    for order in (list(libs), list(libs)[::-1]):
-        for name in order:
-            result["ms"][name].append(chip_smoke.device_time_ms(torch, runs[name], RUNS))
-    for name in libs:
-        print(f"[time] {name}: {', '.join(f'{t!r}' for t in result['ms'][name])} ms (mean of "
-              f"{RUNS} back to back, twice); K, kff bitwise those of kept: "
-              f"{result['bitwise'][name]}", flush=True)
+    cases = ab.on_build(builds["kept"], lambda: ab.step_cases(torch, dev))()
+    for case, (call, ins) in cases.items():
+        runs = {v: ab.on_build(lib, lambda: call(*ins)) for v, lib in builds.items()}
+        outs = {v: run() for v, run in runs.items()}
+        torch.cuda.synchronize()
+        times = {v: [] for v in builds}
+        for order in (list(builds), list(builds)[::-1]):
+            for v in order:
+                times[v].append(chip_smoke.device_time_ms(torch, runs[v], RUNS))
+        result["ms"][case] = times
+        result["bitwise"][case] = {v: ab.bitwise_equal(torch, outs[v], outs["kept"]) for v in builds}
+        for v in builds:
+            print(f"[time] {case} {v}: {', '.join(f'{t!r}' for t in times[v])} ms (mean of "
+                  f"{RUNS} back to back, twice); outputs bitwise those of kept: "
+                  f"{result['bitwise'][case][v]}", flush=True)
 
     tool = shutil.which("nvdisasm") or "/usr/local/cuda/bin/nvdisasm"
-    sass = subprocess.run([tool, "-gi", "-c", str(cubin)], capture_output=True, text=True,
-                          timeout=600, check=True).stdout
-    ranges = line_ranges(text.splitlines())
-    print(f"[sass] lane_solver.cu lines of phase A {ranges['A']}, of phase B {ranges['B']}",
-          flush=True)
-    for sym, c in sorted(spill_sites(sass, src.name, ranges).items(), key=lambda kv: label(kv[0])):
-        if "ric_kernel" not in sym and "fwd_kernel" not in sym:
-            continue
-        by = {f"{op} {part}": n for (op, part), n in sorted(c.items())}
-        result["spills"][label(sym)] = by
-        print(f"[sass] {label(sym)}: local-memory instructions {json.dumps(by)}", flush=True)
+    sources = [f"{name}.cu" for name in names] + list(_build.HEADERS)
+    for name in names:
+        sass = subprocess.run([tool, "-gi", "-c", str(out_dir / f"{name}_lineinfo.cubin")],
+                              capture_output=True, text=True, timeout=600, check=True).stdout
+        for sym, c in sorted(spill_sites(sass, sources).items(), key=lambda kv: label(kv[0])):
+            by = {f"{op} {part}": n for (op, part), n in sorted(c.items())}
+            result["spills"][label(sym)] = by
+            print(f"[sass] {label(sym)}: local-memory instructions {json.dumps(by)}", flush=True)
     print(json.dumps(result))
     return 0
 

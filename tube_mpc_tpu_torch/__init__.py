@@ -4,7 +4,7 @@ Two lane closed loops (``tube.lane_closed_loop``): the Dubins paper loop
 (``run_paper_closed_loop_lanes``) and the generic and coupled loop
 (``run_generic_closed_loop_lanes``), each two lane iLQR solves and the lane
 sensitivity per step, on hand-written CUDA kernels (``csrc/lane_solver.cu``,
-``csrc/lane_sensitivity.cu``) built at first use by ``ops.cuda._build``. Each
+``csrc/lane_sbwd.cu``, ``csrc/lane_sfwd.cu``) built at first use by ``ops.cuda._build``. Each
 kernel has a plain PyTorch version beside its wrapper, which runs for CPU
 tensors; the tests hold those against the JAX package.
 """

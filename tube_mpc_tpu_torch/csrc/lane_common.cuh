@@ -2,7 +2,9 @@
 // smooth-min obstacle value h, the relaxed inverse barrier, the DBaS-augmented
 // step f̂, its hand-written tangent map (the counterpart of jax.jvp in
 // tube_mpc_tpu/ops/lanes.py::jac_rows) and its derivatives in the barrier
-// parameters (the three jax.jvp calls of the generic _sfwd_kernel).
+// parameters (the three jax.jvp calls of the generic _sfwd_kernel); the chunked
+// sweep that K1 and K3-K6 share (sweep), and with_obs, which launches a kernel
+// for the problem's obstacle count.
 //
 // Layout: every array is [.., component, B] with the lane index fastest, so
 // neighbouring threads of a warp, which own neighbouring lanes, read neighbouring
@@ -18,6 +20,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace lane {
 
 constexpr int NH = 4;                 // augmented state (px, py, theta, b)
@@ -26,7 +30,6 @@ constexpr int NC = 2 * NH + M + 3;    // const rows, see tube/lane_interface.py:
 constexpr int ROW_ALPHA = 2 * NH + M;
 constexpr int MAX_OBS = 8;
 constexpr int MAX_ALPHAS = 8;
-constexpr int THREADS = 128;          // block of the one-thread-per-lane kernels (K3-K6)
 
 // Runtime constants, passed by value to every kernel. Mirrors
 // ops/cuda/lane_solver.py::LaneConsts field by field. Sums such as
@@ -82,25 +85,23 @@ template <typename T> __device__ __forceinline__ T scrub(T v) {
 // Smooth-min obstacle value in component form (ops/lanes.py::dubins_components):
 //   h = z - (1/beta) log sum_i exp(-beta (h_i - z)),  z = min_i h_i.
 //
-// NOBS is the obstacle count when it is fixed at compile time (NOBS > 0, equal to
-// p.n_obs), so that every obstacle loop unrolls into straight-line code. NOBS = 0
-// loops over MAX_OBS slots and guards each with a branch on p.n_obs; the branches
-// cut the code into blocks the compiler cannot schedule across, which makes a
-// linearisation several times slower on an H100 (PERF.md). Both do the same
-// operations on the first p.n_obs slots. K1 and K2 launch the instantiation for the
-// problem's count; K3-K6 take NOBS = 0.
+// NOBS is the obstacle count (p.n_obs), fixed at compile time so that every
+// obstacle loop unrolls into straight-line code the compiler can schedule; every
+// kernel is instantiated for 1 to MAX_OBS and launched through with_obs.
+// Runtime-guarded loops over MAX_OBS slots cut a linearisation into blocks the
+// compiler could not schedule across, several times slower on an H100 (PERF.md).
+//
+// h_lin also computes what h_tan needs that depends on the point alone: the
+// weights of the min chain, so that a tangent from stored fields (lane_sfwd.cu)
+// does no more than the carry needs.
 // ---------------------------------------------------------------------------
-template <int NOBS> constexpr int OBS_SLOTS = NOBS > 0 ? NOBS : MAX_OBS;
-template <int NOBS> __device__ __forceinline__ bool obs_on(const Consts& p, int i) {
-  return NOBS > 0 || i < p.n_obs;
-}
-
-template <typename T, int NOBS = 0> struct HLin {
+template <typename T, int NOBS> struct HLin {
   T px, py;
-  T hs[OBS_SLOTS<NOBS>];
-  T e[OBS_SLOTS<NOBS>];
+  T hs[NOBS];
+  T e[NOBS];
   T acc;
   T value;
+  T wz[NOBS], wv[NOBS];   // the min chain's tangent weights at obstacles 1..NOBS-1
 };
 
 template <typename T, int NOBS>
@@ -108,24 +109,26 @@ __device__ __forceinline__ void h_lin(const Consts& p, T px, T py, HLin<T, NOBS>
   L.px = px;
   L.py = py;
 #pragma unroll
-  for (int i = 0; i < OBS_SLOTS<NOBS>; ++i) {
-    if (obs_on<NOBS>(p, i)) {
-      const T dx = px - T(p.cx[i]);
-      const T dy = py - T(p.cy[i]);
-      L.hs[i] = (dx * dx + dy * dy) - T(p.r2[i]);
-    }
+  for (int i = 0; i < NOBS; ++i) {
+    const T dx = px - T(p.cx[i]);
+    const T dy = py - T(p.cy[i]);
+    L.hs[i] = (dx * dx + dy * dy) - T(p.r2[i]);
   }
+  // The balanced-equality factors of lax.min along the chain z = min(z, h_i).
   T z = L.hs[0];
 #pragma unroll
-  for (int i = 1; i < OBS_SLOTS<NOBS>; ++i)
-    if (obs_on<NOBS>(p, i)) z = jmin(z, L.hs[i]);
+  for (int i = 1; i < NOBS; ++i) {
+    const T v = L.hs[i];
+    const T zn = jmin(z, v);
+    L.wz[i] = (z == zn ? T(1) : T(0)) / (v == zn ? T(2) : T(1));
+    L.wv[i] = (v == zn ? T(1) : T(0)) / (z == zn ? T(2) : T(1));
+    z = zn;
+  }
   const T nb = T(p.neg_beta);
 #pragma unroll
-  for (int i = 0; i < OBS_SLOTS<NOBS>; ++i) {
-    if (obs_on<NOBS>(p, i)) {
-      L.e[i] = m_exp(nb * (L.hs[i] - z));
-      L.acc = (i == 0) ? L.e[0] : L.acc + L.e[i];
-    }
+  for (int i = 0; i < NOBS; ++i) {
+    L.e[i] = m_exp(nb * (L.hs[i] - z));
+    L.acc = (i == 0) ? L.e[0] : L.acc + L.e[i];
   }
   L.value = z - T(p.inv_beta) * m_log(L.acc);
 }
@@ -135,46 +138,34 @@ __device__ __forceinline__ void h_lin(const Consts& p, T px, T py, HLin<T, NOBS>
 // g * ans; d log = g / x.
 template <typename T, int NOBS>
 __device__ __forceinline__ T h_tan(const Consts& p, const HLin<T, NOBS>& L, T dpx, T dpy) {
-  T dh[OBS_SLOTS<NOBS>];
+  T dh[NOBS];
 #pragma unroll
-  for (int i = 0; i < OBS_SLOTS<NOBS>; ++i) {
-    if (obs_on<NOBS>(p, i)) {
-      const T ax = T(2) * (L.px - T(p.cx[i]));
-      const T ay = T(2) * (L.py - T(p.cy[i]));
-      dh[i] = dpx * ax + dpy * ay;
-    }
+  for (int i = 0; i < NOBS; ++i) {
+    const T ax = T(2) * (L.px - T(p.cx[i]));
+    const T ay = T(2) * (L.py - T(p.cy[i]));
+    dh[i] = dpx * ax + dpy * ay;
   }
-  T z = L.hs[0];
   T dz = dh[0];
 #pragma unroll
-  for (int i = 1; i < OBS_SLOTS<NOBS>; ++i) {
-    if (obs_on<NOBS>(p, i)) {
-      const T v = L.hs[i];
-      const T zn = jmin(z, v);
-      const T wz = (z == zn ? T(1) : T(0)) / (v == zn ? T(2) : T(1));
-      const T wv = (v == zn ? T(1) : T(0)) / (z == zn ? T(2) : T(1));
-      dz = dz * wz + dh[i] * wv;
-      z = zn;
-    }
-  }
+  for (int i = 1; i < NOBS; ++i) dz = dz * L.wz[i] + dh[i] * L.wv[i];
   const T nb = T(p.neg_beta);
   T dacc = T(0);
 #pragma unroll
-  for (int i = 0; i < OBS_SLOTS<NOBS>; ++i) {
-    if (obs_on<NOBS>(p, i)) {
-      const T de = (nb * (dh[i] - dz)) * L.e[i];
-      dacc = (i == 0) ? de : dacc + de;
-    }
+  for (int i = 0; i < NOBS; ++i) {
+    const T de = (nb * (dh[i] - dz)) * L.e[i];
+    dacc = (i == 0) ? de : dacc + de;
   }
   return dz - T(p.inv_beta) * (dacc / L.acc);
 }
 
 // ---------------------------------------------------------------------------
 // Relaxed inverse barrier (ops/barrier.py::relaxed_inverse_barrier) and its
-// tangent by JAX's rules for max, div and integer_pow.
+// tangent by JAX's rules for max, div and integer_pow. barrier_lin also forms the
+// tangent's factors that depend on the point alone (inv_mm, aa, a3, d2).
 // ---------------------------------------------------------------------------
 template <typename T> struct BLin {
   T value, m, a, diff, beq;
+  T inv_mm, aa, a3, d2;   // 1 / m^2 (safe); a^2, a^3, 2 diff (unsafe)
   bool safe;
 };
 
@@ -186,20 +177,22 @@ __device__ __forceinline__ void barrier_lin(const Consts& p, T zeta, T alpha, BL
   L.m = jmax(zeta, eps);
   const T b_safe = T(1) / L.m;
   L.diff = zeta - L.a;
-  const T aa = L.a * L.a;
-  const T b_unsafe = (T(1) / L.a - L.diff / aa) + (L.diff * L.diff) / (aa * L.a);
+  L.aa = L.a * L.a;
+  L.a3 = L.aa * L.a;
+  const T b_unsafe = (T(1) / L.a - L.diff / L.aa) + (L.diff * L.diff) / L.a3;
   L.value = L.safe ? b_safe : b_unsafe;
   L.beq = (zeta == L.m ? T(1) : T(0)) / (eps == L.m ? T(2) : T(1));
+  L.inv_mm = T(1) / (L.m * L.m);
+  L.d2 = T(2) * L.diff;
 }
 
 template <typename T>
 __device__ __forceinline__ T barrier_tan(const BLin<T>& L, T dzeta) {
   if (L.safe) {
     const T dm = dzeta * L.beq;
-    return (-dm) * (T(1) / (L.m * L.m));
+    return (-dm) * L.inv_mm;
   }
-  const T aa = L.a * L.a;
-  return -(dzeta / aa) + (dzeta * (T(2) * L.diff)) / (aa * L.a);
+  return -(dzeta / L.aa) + (dzeta * L.d2) / L.a3;
 }
 
 // dB/dalpha (tangent 1 in alpha), as jax.jvp computes it (ops/barrier.py::
@@ -226,7 +219,7 @@ __device__ __forceinline__ T barrier_dalpha(const Consts& p, const BLin<T>& L, T
 // Augmented step f̂(x̂, u) = [f(x, u), B(h(f) - s) - gamma (B(h(x) - s) - b)]
 // (ops/lanes.py::augmented_step_fn) and its tangent map.
 // ---------------------------------------------------------------------------
-template <typename T, int NOBS = 0> struct FLin {
+template <typename T, int NOBS> struct FLin {
   T c, s, dtv, dt, gamma;
   HLin<T, NOBS> hc, hn;
   BLin<T> bc, bn;
@@ -375,6 +368,126 @@ __device__ __forceinline__ void rescale_carry(const T vx_new[NH], const T vxx_ne
     for (int j = 0; j < NH; ++j) vxx[i][j] = scrub(vxx_new[i][j] * scale_inv);
   }
   logs = logs - m_log(jmax(scale_inv, tiny<T>()));
+}
+
+// ---------------------------------------------------------------------------
+// The chunked sweep of K1 (lane_solver.cu), K3/K5 (lane_sbwd.cu) and K4/K6
+// (lane_sfwd.cu). A block owns 32 lanes and has SWEEP_WARPS warps, and walks the
+// steps in chunks of SWEEP_KC, from the end (a backward sweep) or from the start.
+// Phase A writes each (step, lane)'s rows, which depend on the step's inputs alone,
+// into shared memory laid out [2][SWEEP_KC][ROWS][32]: a warp's stores and the
+// recursion warp's loads are 32 consecutive words, free of bank conflicts. Phase B,
+// in warp 0, runs the chain that needs the carry over the chunk's steps in sweep
+// order. Warps 1..SWEEP_WARPS-1 write chunk j+1 into one buffer while warp 0 reads
+// chunk j from the other; a named barrier closes each chunk, and all warps write
+// chunk 0 first. Lanes past B do no work but reach every barrier.
+// ---------------------------------------------------------------------------
+constexpr int SWEEP_WARPS = 4;
+constexpr int SWEEP_THREADS = 32 * SWEEP_WARPS;
+constexpr int SWEEP_KC = 3;            // steps per chunk, one per phase-A warp
+
+// Blocks each SM must hold at once: four f32 blocks (at most 128 registers a thread)
+// hold all 512 blocks of B=16384 on the 132 SMs. f64 is not capped.
+template <typename T> struct SweepBlocksPerSM {
+  static constexpr int value = sizeof(T) == 4 ? 4 : 1;
+};
+
+// Barrier 1 over the block's threads, which warp 0 and the phase-A warps reach from
+// loops of their own.
+__device__ __forceinline__ void sweep_sync() {
+  asm volatile("bar.sync 1, %0;" :: "n"(SWEEP_THREADS) : "memory");
+}
+
+// Dynamic shared memory of a sweep with ROWS rows a step.
+template <typename T, int ROWS> constexpr int sweep_smem() {
+  return 2 * SWEEP_KC * ROWS * 32 * static_cast<int>(sizeof(T));
+}
+
+// lin(k, row) writes step k's rows at row[r * 32] (phase A); rec(k, row) reads them
+// (phase B, warp 0, k = N-1..0 when BACKWARD, else 0..N-1).
+template <bool BACKWARD, int ROWS, typename T, typename Lin, typename Rec>
+__device__ __forceinline__ void sweep(int N, bool live, T* lin, Lin&& lin_step, Rec&& rec_step) {
+  constexpr int STEP = ROWS * 32, CHUNK = SWEEP_KC * STEP;
+  const int l = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int chunks = (N + SWEEP_KC - 1) / SWEEP_KC;
+  // Chunk j holds the steps [lo, hi): BACKWARD hi = N - j SWEEP_KC, lo = max(hi -
+  // SWEEP_KC, 0); else lo = j SWEEP_KC, hi = min(lo + SWEEP_KC, N). The last chunk is
+  // ragged when SWEEP_KC does not divide N.
+  auto lo_of = [&](int j) {
+    const int hi = N - j * SWEEP_KC;
+    return BACKWARD ? (hi > SWEEP_KC ? hi - SWEEP_KC : 0) : j * SWEEP_KC;
+  };
+  auto hi_of = [&](int j) {
+    const int lo = j * SWEEP_KC;
+    return BACKWARD ? N - j * SWEEP_KC : (lo + SWEEP_KC < N ? lo + SWEEP_KC : N);
+  };
+  auto linearise = [&](int j, int first, int stride) {   // steps lo + first, + stride, ...
+    const int lo = lo_of(j), hi = hi_of(j);
+    T* buf = lin + (j & 1) * CHUNK + l;
+    if (live)
+      for (int k = lo + first; k < hi; k += stride) lin_step(k, buf + (k - lo) * STEP);
+  };
+
+  linearise(0, warp, SWEEP_WARPS);
+  sweep_sync();
+  if (warp == 0) {
+    for (int j = 0; j < chunks; ++j) {
+      const int lo = lo_of(j), hi = hi_of(j);
+      const T* buf = lin + (j & 1) * CHUNK + l;
+      if (live) {
+        if constexpr (BACKWARD) {
+          for (int k = hi - 1; k >= lo; --k) rec_step(k, buf + (k - lo) * STEP);
+        } else {
+          for (int k = lo; k < hi; ++k) rec_step(k, buf + (k - lo) * STEP);
+        }
+      }
+      sweep_sync();
+    }
+  } else {
+    for (int j = 0; j < chunks; ++j) {
+      if (j + 1 < chunks) linearise(j + 1, warp - 1, SWEEP_WARPS - 1);
+      sweep_sync();
+    }
+  }
+}
+
+// Rows of f̂'s Jacobians in a step's phase-A rows (K1, K3/K5): A [0, 16), Bm [16, 24).
+constexpr int ROW_BM = NH * NH;
+constexpr int JAC_ROWS = ROW_BM + NH * M;
+
+template <typename T>
+__device__ __forceinline__ void store_jac(const T A[NH][NH], const T Bm[NH][M], T* row) {
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+#pragma unroll
+    for (int j = 0; j < NH; ++j) row[(i * NH + j) * 32] = A[i][j];
+#pragma unroll
+    for (int a = 0; a < M; ++a) row[(ROW_BM + i * M + a) * 32] = Bm[i][a];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void load_jac(const T* row, T A[NH][NH], T Bm[NH][M]) {
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+#pragma unroll
+    for (int j = 0; j < NH; ++j) A[i][j] = row[(i * NH + j) * 32];
+#pragma unroll
+    for (int a = 0; a < M; ++a) Bm[i][a] = row[(ROW_BM + i * M + a) * 32];
+  }
+}
+
+// Calls f(std::integral_constant<int, NOBS>{}) for NOBS = n_obs, so that the kernel it
+// launches has the obstacle loops unrolled (HLin).
+template <int NOBS = 1, typename F>
+int with_obs(int n_obs, F&& f) {
+  if constexpr (NOBS > MAX_OBS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (n_obs == NOBS) return f(std::integral_constant<int, NOBS>{});
+    return with_obs<NOBS + 1>(n_obs, f);
+  }
 }
 
 }  // namespace lane

@@ -1,0 +1,350 @@
+// K4/K6 of the lane sensitivity on Hopper: the forward delta rollout fused with the
+// weight gradients.
+//
+// sfwd_kernel<T, GENERIC, EMIT, NOBS> replaces
+// tube_mpc_tpu/ops/pallas/lane_sensitivity.py::_sfwd_kernel: the rollout
+// dv = kff + K dx, dx+ = the tangent of f̂ along (dx, dv), with the closed-form
+// gradients gQ/gqb = sum 2 (x - x_ref) dx and gR = sum 2 (u - u_ref) dv. GENERIC=true
+// adds the terminal term to gxt (not gx) and accumulates gdyn = sum_k dlam_{k+1} .
+// d f̂/d(alpha, gamma, tight) with dlam_{k+1} = exp(LogS) (tV_x + V_xx dx+), from the
+// rows the generic K5 wrote; the parameter derivatives come from the step's FLin
+// (lane_common.cuh::fhat_dparams). EMIT=true (emit_ref_grads) also writes the
+// reference cotangents -C dx, -C dv at each k and -C_N dx_N. Instantiated:
+// <false, false> (K4, paper), <true, false> (K6, the nominal sweep), <true, true>
+// (K6, the ancillary sweep of the coupled chain), each for 1 to 8 obstacles (NOBS,
+// launched through with_obs).
+//
+// What bounds it on an H100 (B=16384, N=50, f32): per lane and step K4 reads 22
+// values, 72 MB a sweep; K6 reads the 21 carry rows K5 wrote and, with EMIT, writes 6
+// more values. Its operations, one tangent of f̂ a step, take less time than those
+// bytes, so every variant is bound by bytes (chip_smoke.py prints both bounds; PERF.md
+// keeps the numbers with the card they came from).
+//
+// Design: the chunked sweep of lane_common.cuh, forwards. Only dx is carried from step
+// to step. fhat_lin, which holds all the transcendentals (sin, cos, an exp per
+// obstacle and a log in each of the two smooth-mins, the barriers' divisions), and
+// fhat_dparams depend on X, U and C alone.
+// - Phase A writes, for each (step, lane), the fields of FLin that fhat_tan reads
+//   (tan_rows: 6 NOBS + 17 rows, the min chain's weights and the barriers' factors
+//   already formed), 2 (x - x_ref) (4 rows), 2 (u - u_ref) (2) and, with GENERIC, the
+//   barrier rows of the three parameter derivatives (3).
+// - Phase B, in warp 0, runs fhat_tan on those fields with the same operations in the
+//   same order, and the sums. It loads step k+1's K and kff while it computes step k,
+//   as K2 does, and with GENERIC the step's carry rows before its tangent, though they
+//   are used after it: a warp runs in program order, so a load whose value the step waits for
+//   stalls every later step (PERF.md).
+// At 5 obstacles a step has 53-56 rows: 41-43 KB of shared memory in f32 (four
+// blocks an SM hold all 512 blocks of B=16384 in one wave); above 48 KB (f64, or 8
+// obstacles with GENERIC) the launcher raises the block's dynamic shared memory limit.
+// Longer chunks would cost that wave. Where the time goes (tools/ric_probe.py): K4's
+// two phases take about as long each and overlap well; with GENERIC, phase B (the
+// carry rows, dlam and the gdyn sums on top of the tangent) sets the time.
+// The arithmetic and its order are those of the plain version
+// (ops/cuda/lane_sensitivity.py::sfwd_plain); only where each value is computed differs.
+#include "lane_common.cuh"
+
+namespace lane {
+
+// Rows of a step in shared memory: the tangent's fields [0, TAN_ROWS), 2 (x - x_ref),
+// 2 (u - u_ref), and with GENERIC the barrier rows of d f̂/d(alpha, gamma, tight).
+template <int NOBS> constexpr int TAN_ROWS = 3 + 2 * (3 * NOBS + 1) + 2 * 6;
+template <int NOBS> constexpr int ROW_G2X = TAN_ROWS<NOBS>;
+template <int NOBS> constexpr int ROW_G2U = ROW_G2X<NOBS> + NH;
+template <int NOBS> constexpr int ROW_DP = ROW_G2U<NOBS> + M;
+template <int NOBS, bool GENERIC> constexpr int SFWD_ROWS = ROW_DP<NOBS> + (GENERIC ? 3 : 0);
+
+// Stores (STORE) or loads the fields of L that fhat_tan reads, but dt and gamma:
+// row[r * 32] for row r.
+template <bool STORE, int NOBS, typename T, typename P>
+__device__ __forceinline__ void tan_rows(FLin<T, NOBS>& L, P row) {
+  int r = 0;
+  auto f = [&](T& v) {
+    if constexpr (STORE) {
+      row[r * 32] = v;
+    } else {
+      v = row[r * 32];
+    }
+    ++r;
+  };
+  f(L.c);
+  f(L.s);
+  f(L.dtv);
+  auto h = [&](HLin<T, NOBS>& H) {
+    f(H.px);
+    f(H.py);
+    f(H.acc);
+#pragma unroll
+    for (int i = 0; i < NOBS; ++i) f(H.e[i]);
+#pragma unroll
+    for (int i = 1; i < NOBS; ++i) {
+      f(H.wz[i]);
+      f(H.wv[i]);
+    }
+  };
+  h(L.hc);
+  h(L.hn);
+  auto b = [&](BLin<T>& Bl) {
+    if constexpr (STORE) {
+      row[r * 32] = Bl.safe ? T(1) : T(0);
+    } else {
+      Bl.safe = row[r * 32] != T(0);
+    }
+    ++r;
+    f(Bl.beq);
+    f(Bl.inv_mm);
+    f(Bl.aa);
+    f(Bl.a3);
+    f(Bl.d2);
+  };
+  b(L.bc);
+  b(L.bn);
+}
+
+// Phase A for step k of one lane.
+template <bool GENERIC, int NOBS, typename T>
+__device__ __forceinline__ void sfwd_lin(const Consts& p, const T* __restrict__ X,
+                                         const T* __restrict__ Xr, const T* __restrict__ U,
+                                         const T* __restrict__ Ur, T alpha, T gamma, T tight,
+                                         int k, size_t Bs, int lane, T* row) {
+  T xs[NH], us[M];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) xs[i] = X[(static_cast<size_t>(k) * NH + i) * Bs + lane];
+#pragma unroll
+  for (int a = 0; a < M; ++a) us[a] = U[(static_cast<size_t>(k) * M + a) * Bs + lane];
+  FLin<T, NOBS> L;
+  fhat_lin(p, xs, us, alpha, gamma, tight, L);
+  tan_rows<true>(L, row);
+#pragma unroll
+  for (int i = 0; i < NH; ++i)
+    row[(ROW_G2X<NOBS> + i) * 32] =
+        T(2) * (xs[i] - Xr[(static_cast<size_t>(k) * NH + i) * Bs + lane]);
+#pragma unroll
+  for (int a = 0; a < M; ++a)
+    row[(ROW_G2U<NOBS> + a) * 32] =
+        T(2) * (us[a] - Ur[(static_cast<size_t>(k) * M + a) * Bs + lane]);
+  if constexpr (GENERIC) {
+    // Only the barrier row of d f̂/d(alpha, gamma, tight) depends on the point; phase
+    // B puts the zeros of the other rows back into its sums.
+    T fp[3][NH];
+    fhat_dparams(p, L, alpha, xs[NH - 1], fp[0], fp[1], fp[2]);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) row[(ROW_DP<NOBS> + r) * 32] = fp[r][NH - 1];
+  }
+}
+
+// The gains of step k.
+template <typename T> struct Gains {
+  T K[M][NH], kf[M];
+};
+
+template <typename T>
+__device__ __forceinline__ void load_gains(Gains<T>& g, const T* __restrict__ Kg,
+                                           const T* __restrict__ kff, int k, size_t Bs,
+                                           int lane) {
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+    g.kf[a] = kff[(static_cast<size_t>(k) * M + a) * Bs + lane];
+#pragma unroll
+    for (int i = 0; i < NH; ++i)
+      g.K[a][i] = Kg[(static_cast<size_t>(k) * (M * NH) + a * NH + i) * Bs + lane];
+  }
+}
+
+template <typename T, bool GENERIC, bool EMIT, int NOBS>
+__global__ void __launch_bounds__(SWEEP_THREADS, SweepBlocksPerSM<T>::value)
+sfwd_kernel(const T* __restrict__ Kg, const T* __restrict__ kff, const T* __restrict__ X,
+            const T* __restrict__ Xr, const T* __restrict__ U, const T* __restrict__ Ur,
+            const T* __restrict__ C, const T* __restrict__ XN, const T* __restrict__ XrN,
+            const T* __restrict__ tVx, const T* __restrict__ Vxx, const T* __restrict__ LogS,
+            T* __restrict__ gx_out, T* __restrict__ gr_out, T* __restrict__ gxt_out,
+            T* __restrict__ gdyn_out, T* __restrict__ gxr_out, T* __restrict__ gur_out,
+            T* __restrict__ gxrN_out, int N, int B, Consts p) {
+  static_assert(GENERIC || !EMIT, "the reference cotangents come with the generic sweep only");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = blockIdx.x * 32 + (threadIdx.x & 31);
+  const bool live = lane < B;
+  const size_t Bs = static_cast<size_t>(B);
+
+  const T alpha = live ? C[ROW_ALPHA * Bs + lane] : T(0);
+  const T gamma = live ? C[(ROW_ALPHA + 1) * Bs + lane] : T(0);
+  const T tight = live ? C[(ROW_ALPHA + 2) * Bs + lane] : T(0);
+
+  T dx[NH], gx[NH], gr[M];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    dx[i] = T(0);
+    gx[i] = T(0);
+  }
+#pragma unroll
+  for (int a = 0; a < M; ++a) gr[a] = T(0);
+  T gdyn[3] = {T(0), T(0), T(0)};
+  Gains<T> next;   // step k+1's gains, loaded while step k runs
+  if (live) load_gains(next, Kg, kff, 0, Bs, lane);
+
+  sweep<false, SFWD_ROWS<NOBS, GENERIC>>(
+      N, live, reinterpret_cast<T*>(smem),
+      [&](int k, T* row) {
+        sfwd_lin<GENERIC, NOBS>(p, X, Xr, U, Ur, alpha, gamma, tight, k, Bs, lane, row);
+      },
+      [&](int k, const T* row) {
+        const Gains<T> g = next;
+        load_gains(next, Kg, kff, k + 1 < N ? k + 1 : k, Bs, lane);
+        T tv_k[NH], vxx_k[NH][NH], logs_k;   // the carry rows, used after the tangent
+        if constexpr (GENERIC) {
+#pragma unroll
+          for (int i = 0; i < NH; ++i) {
+            tv_k[i] = tVx[(static_cast<size_t>(k) * NH + i) * Bs + lane];
+#pragma unroll
+            for (int j = 0; j < NH; ++j)
+              vxx_k[i][j] = Vxx[(static_cast<size_t>(k) * (NH * NH) + i * NH + j) * Bs + lane];
+          }
+          logs_k = LogS[static_cast<size_t>(k) * Bs + lane];
+        }
+        T dv[M];
+#pragma unroll
+        for (int a = 0; a < M; ++a) {
+          T s = g.K[a][0] * dx[0];
+#pragma unroll
+          for (int i = 1; i < NH; ++i) s = s + g.K[a][i] * dx[i];
+          dv[a] = g.kf[a] + s;
+        }
+#pragma unroll
+        for (int i = 0; i < NH; ++i) gx[i] = gx[i] + row[(ROW_G2X<NOBS> + i) * 32] * dx[i];
+#pragma unroll
+        for (int a = 0; a < M; ++a) gr[a] = gr[a] + row[(ROW_G2U<NOBS> + a) * 32] * dv[a];
+        if constexpr (EMIT) {
+          // C holds the doubled weights (2Q.., 2qb | 2R): g_Xref = -2Q dx, g_Uref = -2R dv
+#pragma unroll
+          for (int i = 0; i < NH; ++i)
+            gxr_out[(static_cast<size_t>(k) * NH + i) * Bs + lane] = (-C[i * Bs + lane]) * dx[i];
+#pragma unroll
+          for (int a = 0; a < M; ++a)
+            gur_out[(static_cast<size_t>(k) * M + a) * Bs + lane] =
+                (-C[(NH + a) * Bs + lane]) * dv[a];
+        }
+
+        FLin<T, NOBS> L;
+        L.dt = T(p.dt);
+        L.gamma = gamma;
+        tan_rows<false>(L, row);
+        T dxn[NH];
+        fhat_tan(p, L, dx, dv, dxn);
+#pragma unroll
+        for (int i = 0; i < NH; ++i) dx[i] = dxn[i];
+        if (k == N - 1) {
+          // Terminal term: into gx (paper), into its own rows gxt (generic).
+#pragma unroll
+          for (int i = 0; i < NH; ++i) {
+            const T term = (T(2) * (XN[i * Bs + lane] - XrN[i * Bs + lane])) * dxn[i];
+            if constexpr (GENERIC) {
+              gxt_out[i * Bs + lane] = T(0) + term;
+            } else {
+              gx[i] = gx[i] + term;
+            }
+            if constexpr (EMIT) {
+              gxrN_out[i * Bs + lane] = T(0) + (-C[(NH + M + i) * Bs + lane]) * dxn[i];
+            }
+          }
+        }
+
+        if constexpr (GENERIC) {
+          const T s_k1 = m_exp(logs_k);
+          T dlam[NH];
+#pragma unroll
+          for (int i = 0; i < NH; ++i) {
+            T s = vxx_k[i][0] * dxn[0];
+#pragma unroll
+            for (int j = 1; j < NH; ++j) s = s + vxx_k[i][j] * dxn[j];
+            dlam[i] = s_k1 * (tv_k[i] + s);
+          }
+#pragma unroll
+          for (int r = 0; r < 3; ++r) {
+            T fp[NH];
+#pragma unroll
+            for (int i = 0; i < NH - 1; ++i) fp[i] = T(0);
+            fp[NH - 1] = row[(ROW_DP<NOBS> + r) * 32];
+            T s = dlam[0] * fp[0];
+#pragma unroll
+            for (int i = 1; i < NH; ++i) s = s + dlam[i] * fp[i];
+            gdyn[r] = gdyn[r] + s;
+          }
+        }
+      });
+
+  if (live && threadIdx.x < 32) {   // warp 0 holds the sums
+#pragma unroll
+    for (int i = 0; i < NH; ++i) gx_out[i * Bs + lane] = gx[i];
+#pragma unroll
+    for (int a = 0; a < M; ++a) gr_out[a * Bs + lane] = gr[a];
+    if constexpr (GENERIC) {
+#pragma unroll
+      for (int r = 0; r < 3; ++r) gdyn_out[r * Bs + lane] = gdyn[r];
+    }
+  }
+}
+
+template <typename T, bool GENERIC, bool EMIT>
+int launch_sfwd(const void* K, const void* kff, const void* X, const void* Xr, const void* U,
+                const void* Ur, const void* C, const void* XN, const void* XrN, const void* tVx,
+                const void* Vxx, const void* LogS, void* gx, void* gr, void* gxt, void* gdyn,
+                void* gxr, void* gur, void* gxrN, int N, int B, const Consts* p, void* stream) {
+  const dim3 grid((B + 31) / 32);
+  return with_obs(p->n_obs, [&](auto nobs) {
+    constexpr int NOBS = decltype(nobs)::value;
+    constexpr int smem = sweep_smem<T, SFWD_ROWS<NOBS, GENERIC>>();
+    const auto kernel = sfwd_kernel<T, GENERIC, EMIT, NOBS>;
+    if constexpr (smem > 48 * 1024) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<grid, SWEEP_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(K), static_cast<const T*>(kff), static_cast<const T*>(X),
+        static_cast<const T*>(Xr), static_cast<const T*>(U), static_cast<const T*>(Ur),
+        static_cast<const T*>(C), static_cast<const T*>(XN), static_cast<const T*>(XrN),
+        static_cast<const T*>(tVx), static_cast<const T*>(Vxx), static_cast<const T*>(LogS),
+        static_cast<T*>(gx), static_cast<T*>(gr), static_cast<T*>(gxt), static_cast<T*>(gdyn),
+        static_cast<T*>(gxr), static_cast<T*>(gur), static_cast<T*>(gxrN), N, B, *p);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+}  // namespace lane
+
+// C entry points, one per variant and type: the tensors in the order of the
+// Python wrapper (ops/cuda/lane_sensitivity.py), then N, B, the constants and
+// the stream. Each returns cudaGetLastError() after the launch.
+#define LANE_SFWD_ENTRIES(T, SUFFIX)                                                          \
+  int lane_sfwd_##SUFFIX(const void* K, const void* kff, const void* X, const void* Xr,       \
+                         const void* U, const void* Ur, const void* C, const void* XN,        \
+                         const void* XrN, void* gx, void* gr, int N, int B,                   \
+                         const lane::Consts* p, void* stream) {                               \
+    return lane::launch_sfwd<T, false, false>(K, kff, X, Xr, U, Ur, C, XN, XrN, nullptr,      \
+                                              nullptr, nullptr, gx, gr, nullptr, nullptr,     \
+                                              nullptr, nullptr, nullptr, N, B, p, stream);    \
+  }                                                                                           \
+  int lane_sfwd_generic_##SUFFIX(const void* K, const void* kff, const void* X,               \
+                                 const void* Xr, const void* U, const void* Ur,               \
+                                 const void* C, const void* XN, const void* XrN,              \
+                                 const void* tVx, const void* Vxx, const void* LogS,          \
+                                 void* gx, void* gr, void* gxt, void* gdyn, int N, int B,     \
+                                 const lane::Consts* p, void* stream) {                       \
+    return lane::launch_sfwd<T, true, false>(K, kff, X, Xr, U, Ur, C, XN, XrN, tVx, Vxx,      \
+                                             LogS, gx, gr, gxt, gdyn, nullptr, nullptr,       \
+                                             nullptr, N, B, p, stream);                       \
+  }                                                                                           \
+  int lane_sfwd_ref_##SUFFIX(const void* K, const void* kff, const void* X, const void* Xr,   \
+                             const void* U, const void* Ur, const void* C, const void* XN,    \
+                             const void* XrN, const void* tVx, const void* Vxx,               \
+                             const void* LogS, void* gx, void* gr, void* gxt, void* gdyn,     \
+                             void* gxr, void* gur, void* gxrN, int N, int B,                  \
+                             const lane::Consts* p, void* stream) {                           \
+    return lane::launch_sfwd<T, true, true>(K, kff, X, Xr, U, Ur, C, XN, XrN, tVx, Vxx, LogS, \
+                                            gx, gr, gxt, gdyn, gxr, gur, gxrN, N, B, p,       \
+                                            stream);                                          \
+  }
+
+extern "C" {
+LANE_SFWD_ENTRIES(float, f32)
+LANE_SFWD_ENTRIES(double, f64)
+}  // extern "C"

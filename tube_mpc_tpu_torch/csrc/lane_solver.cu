@@ -17,31 +17,26 @@
 // its operations take less, so K2 is bound by bytes. Both are sequential in k per
 // lane, so the chain of one lane's N steps also bounds each from below.
 //
-// K1: linearise in parallel, recurse in one warp, the two overlapped. A block owns
-// 32 lanes and has RIC_WARPS warps, and walks k = N-1..0 in chunks of RIC_KC steps
-// (the last chunk, which ends at k = 0, is ragged when RIC_KC does not divide N).
-// - Phase A linearises a chunk: for each (step, lane) it writes A (16 rows), Bm
-//   (8), lx (4) and lu (2) into shared memory laid out [RIC_KC][LIN_ROWS][32], so a
-//   warp's stores and the recursion warp's loads are 32 consecutive words, free of
-//   bank conflicts. These rows depend on the step's X, U, Xr, Ur and C alone, so the
-//   serial chain loses the linearisation, nearly all of the operations.
+// K1: linearise in parallel, recurse in one warp, the two overlapped: the chunked
+// sweep of lane_common.cuh (sweep), backwards from k = N-1.
+// - Phase A linearises a chunk: for each (step, lane) it writes A (16 rows), Bm (8),
+//   lx (4) and lu (2). These rows depend on the step's X, U, Xr, Ur and C alone, so
+//   the serial chain loses the linearisation, nearly all of the operations.
 // - Phase B, in warp 0, runs the recursion over a chunk with its carry (V_x, V_xx,
 //   LogS) in registers, and writes K and kff.
-// - Warps 1..RIC_WARPS-1 linearise chunk j+1 into one of two buffers while warp 0
-//   recurses over chunk j from the other; a named barrier closes each chunk. All
-//   warps linearise chunk 0 first. Without the overlap (phase A in every warp, then
-//   phase B) the blocks, which all do the same work, run in lockstep: while warp 0
-//   recurses, the other warps of every block on the SM wait.
+// - Without the overlap (phase A in every warp, then phase B) the blocks, which all
+//   do the same work, run in lockstep: while warp 0 recurses, the other warps of
+//   every block on the SM wait.
 // - The obstacle count is a template parameter (lane_common.cuh, HLin), so phase A
 //   is straight-line code the compiler can schedule; the launcher instantiates the
 //   kernel for the problem's count.
 // - Phase A takes most of the time, and the overlap hides little of phase B: the
-//   warps of both share each SM's issue slots. The f32 register cap (RicBlocksPerSM)
+//   warps of both share each SM's dispatch slots. The f32 register cap (SweepBlocksPerSM)
 //   costs 36 bytes of spill at 5 obstacles, nearly all in phase A. tools/ric_probe.py
 //   times each phase alone, other chunk sizes and caps, and places the spills.
-// Lanes past B do no work but reach every barrier. The arithmetic and its order are
-// those of the plain version (ops/cuda/lane_solver.py::ric_plain, whose two phases
-// are these); only where each value is computed differs.
+// The arithmetic and its order are those of the plain version
+// (ops/cuda/lane_solver.py::ric_plain, whose two phases are these); only where each
+// value is computed differs.
 //
 // K2: one thread per (lane, candidate). A block is 32 lanes by nα candidates, so a
 // warp is 32 lanes of one candidate and its stores of Xn, Un and cost are
@@ -55,33 +50,13 @@
 // step evaluates the smooth-min h once, not twice. chip_smoke.py measures each
 // kernel's time beside its bound; PERF.md keeps the numbers with the card they
 // came from.
-#include <type_traits>
-
 #include "lane_common.cuh"
 
 namespace lane {
 
-constexpr int RIC_WARPS = 4;                         // warps of a K1 block
-constexpr int RIC_THREADS = 32 * RIC_WARPS;
-constexpr int RIC_KC = 3;                            // steps per chunk, one per linearising warp
-constexpr int ROW_BM = NH * NH;                      // rows of a step in shared memory:
-constexpr int ROW_LX = ROW_BM + NH * M;              //   A [0, 16), Bm [16, 24),
-constexpr int ROW_LU = ROW_LX + NH;                  //   lx [24, 28), lu [28, 30)
-constexpr int LIN_ROWS = ROW_LU + M;
-constexpr int STEP_VALUES = LIN_ROWS * 32;           // one step's rows for the block's lanes
-constexpr int CHUNK_VALUES = RIC_KC * STEP_VALUES;   // one buffer
-
-// K1 blocks each SM must hold at once: four f32 blocks (at most 128 registers a
-// thread) hold all 512 blocks of B=16384 on the 132 SMs. f64 is not capped.
-template <typename T> struct RicBlocksPerSM {
-  static constexpr int value = sizeof(T) == 4 ? 4 : 1;
-};
-
-// Barrier 1 over the K1 block's threads, which warp 0 and the linearising warps
-// reach from loops of their own.
-__device__ __forceinline__ void ric_sync() {
-  asm volatile("bar.sync 1, %0;" :: "n"(RIC_THREADS) : "memory");
-}
+constexpr int ROW_LX = JAC_ROWS;                     // rows of a step in shared memory:
+constexpr int ROW_LU = ROW_LX + NH;                  //   A [0, 16), Bm [16, 24),
+constexpr int LIN_ROWS = ROW_LU + M;                 //   lx [24, 28), lu [28, 30)
 
 // Phase A for step k of one lane: f̂'s Jacobian rows and the cost gradients, at
 // row[r * 32] for row r.
@@ -105,14 +80,9 @@ __device__ __forceinline__ void lin_step(const Consts& p, const T* __restrict__ 
   fhat_lin(p, xs, us, c[ROW_ALPHA], c[ROW_ALPHA + 1], c[ROW_ALPHA + 2], L);
   T A[NH][NH], Bm[NH][M];
   fhat_jac(p, L, A, Bm);
+  store_jac(A, Bm, row);
 #pragma unroll
-  for (int i = 0; i < NH; ++i) {
-#pragma unroll
-    for (int j = 0; j < NH; ++j) row[(i * NH + j) * 32] = A[i][j];
-#pragma unroll
-    for (int a = 0; a < M; ++a) row[(ROW_BM + i * M + a) * 32] = Bm[i][a];
-    row[(ROW_LX + i) * 32] = c[i] * (xs[i] - xr[i]);
-  }
+  for (int i = 0; i < NH; ++i) row[(ROW_LX + i) * 32] = c[i] * (xs[i] - xr[i]);
 #pragma unroll
   for (int a = 0; a < M; ++a) row[(ROW_LU + a) * 32] = c[NH + a] * (us[a] - ur[a]);
 }
@@ -124,17 +94,11 @@ __device__ __forceinline__ void ric_step(const T* row, const T c[NC], T reg0, T 
                                          T vxx[NH][NH], T& logs, T* __restrict__ Kout,
                                          T* __restrict__ kffout, int k, size_t Bs, int lane) {
   T A[NH][NH], Bm[NH][M], lx[NH], lu[M];
+  load_jac(row, A, Bm);
 #pragma unroll
-  for (int i = 0; i < NH; ++i) {
-#pragma unroll
-    for (int j = 0; j < NH; ++j) A[i][j] = row[(i * NH + j) * 32];
-#pragma unroll
-    for (int a = 0; a < M; ++a) Bm[i][a] = row[(ROW_BM + i * M + a) * 32];
-    lx[i] = row[(ROW_LX + i) * 32];
-  }
+  for (int i = 0; i < NH; ++i) lx[i] = row[(ROW_LX + i) * 32];
 #pragma unroll
   for (int a = 0; a < M; ++a) lu[a] = row[(ROW_LU + a) * 32];
-
   const T inv_s = m_exp(-logs);
   T Qx[NH], Qu[M], VA[NH][NH], VB[NH][M], Qxx[NH][NH], Qux[M][NH], Quu[M][M];
 #pragma unroll
@@ -235,60 +199,33 @@ __device__ __forceinline__ void ric_step(const T* row, const T c[NC], T reg0, T 
 }
 
 template <typename T, int NOBS>
-__global__ void __launch_bounds__(RIC_THREADS, RicBlocksPerSM<T>::value)
+__global__ void __launch_bounds__(SWEEP_THREADS, SweepBlocksPerSM<T>::value)
 ric_kernel(const T* __restrict__ X, const T* __restrict__ U, const T* __restrict__ Xr,
            const T* __restrict__ Ur, const T* __restrict__ C, const T* __restrict__ phix,
            T* __restrict__ Kout, T* __restrict__ kffout, int N, int B, Consts p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* lin = reinterpret_cast<T*>(smem);              // [2][RIC_KC][LIN_ROWS][32]
-  const int l = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int lane = blockIdx.x * 32 + l;
+  const int lane = blockIdx.x * 32 + (threadIdx.x & 31);
   const bool live = lane < B;
   const size_t Bs = static_cast<size_t>(B);
 
   T c[NC];
 #pragma unroll
   for (int r = 0; r < NC; ++r) c[r] = live ? C[r * Bs + lane] : T(0);
-
-  // Chunk j holds the steps [lo, hi), hi = N - j RIC_KC, lo = max(hi - RIC_KC, 0),
-  // in buffer j % 2.
-  const int chunks = (N + RIC_KC - 1) / RIC_KC;
-  auto linearise = [&](int j, int first, int stride) {   // steps lo + first, + stride, ...
-    const int hi = N - j * RIC_KC, lo = hi > RIC_KC ? hi - RIC_KC : 0;
-    T* buf = lin + (j & 1) * CHUNK_VALUES + l;
-    if (live)
-      for (int k = lo + first; k < hi; k += stride)
-        lin_step<NOBS>(p, X, U, Xr, Ur, c, k, Bs, lane, buf + (k - lo) * STEP_VALUES);
-  };
-
-  linearise(0, warp, RIC_WARPS);
-  ric_sync();
-  if (warp == 0) {
-    T vx[NH], vxx[NH][NH];
-    T logs = T(0);
+  T vx[NH], vxx[NH][NH];
+  T logs = T(0);
 #pragma unroll
-    for (int i = 0; i < NH; ++i) {
-      vx[i] = live ? phix[i * Bs + lane] : T(0);
+  for (int i = 0; i < NH; ++i) {
+    vx[i] = live ? phix[i * Bs + lane] : T(0);
 #pragma unroll
-      for (int j = 0; j < NH; ++j) vxx[i][j] = (i == j) ? c[NH + M + i] : T(0);
-    }
-    const T reg0 = T(p.reg);
-    for (int j = 0; j < chunks; ++j) {
-      const int hi = N - j * RIC_KC, lo = hi > RIC_KC ? hi - RIC_KC : 0;
-      const T* buf = lin + (j & 1) * CHUNK_VALUES + l;
-      if (live)
-        for (int k = hi - 1; k >= lo; --k)
-          ric_step(buf + (k - lo) * STEP_VALUES, c, reg0, vx, vxx, logs, Kout, kffout, k, Bs,
-                   lane);
-      ric_sync();
-    }
-  } else {
-    for (int j = 0; j < chunks; ++j) {
-      if (j + 1 < chunks) linearise(j + 1, warp - 1, RIC_WARPS - 1);
-      ric_sync();
-    }
+    for (int j = 0; j < NH; ++j) vxx[i][j] = (i == j) ? c[NH + M + i] : T(0);
   }
+  const T reg0 = T(p.reg);
+  sweep<true, LIN_ROWS>(
+      N, live, reinterpret_cast<T*>(smem),
+      [&](int k, T* row) { lin_step<NOBS>(p, X, U, Xr, Ur, c, k, Bs, lane, row); },
+      [&](int k, const T* row) {
+        ric_step(row, c, reg0, vx, vxx, logs, Kout, kffout, k, Bs, lane);
+      });
 }
 
 // The inputs of step k that every candidate shares.
@@ -392,30 +329,18 @@ fwd_kernel(const T* __restrict__ x0, const T* __restrict__ Xo, const T* __restri
   cost[a * Bs + lane] = acc;
 }
 
-// Calls f(std::integral_constant<int, NOBS>) for NOBS = n_obs, so that the kernel it
-// launches has the obstacle loops unrolled (lane_common.cuh, HLin).
-template <int NOBS = 1, typename F>
-int with_obs(int n_obs, F&& f) {
-  if constexpr (NOBS > MAX_OBS) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    if (n_obs == NOBS) return f(std::integral_constant<int, NOBS>{});
-    return with_obs<NOBS + 1>(n_obs, f);
-  }
-}
-
 template <typename T>
 int launch_ric(const void* X, const void* U, const void* Xr, const void* Ur, const void* C,
                const void* phix, void* K, void* kff, int N, int B, const Consts* p,
                void* stream) {
   // Two buffers: f32 23,040 bytes, f64 46,080, within the 48 KB a launch gets without
   // cudaFuncAttributeMaxDynamicSharedMemorySize.
-  constexpr int smem = 2 * CHUNK_VALUES * static_cast<int>(sizeof(T));
+  constexpr int smem = sweep_smem<T, LIN_ROWS>();
   static_assert(smem <= 48 * 1024, "K1's buffers need the dynamic shared memory attribute");
   const dim3 grid((B + 31) / 32);
   return with_obs(p->n_obs, [&](auto nobs) {
     constexpr int NOBS = decltype(nobs)::value;
-    ric_kernel<T, NOBS><<<grid, RIC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+    ric_kernel<T, NOBS><<<grid, SWEEP_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(X), static_cast<const T*>(U), static_cast<const T*>(Xr),
         static_cast<const T*>(Ur), static_cast<const T*>(C), static_cast<const T*>(phix),
         static_cast<T*>(K), static_cast<T*>(kff), N, B, *p);

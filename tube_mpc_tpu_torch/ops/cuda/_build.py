@@ -19,13 +19,14 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("lane_solver", "lane_sensitivity")
+SOURCES = ("lane_solver", "lane_sbwd", "lane_sfwd")
 HEADERS = ("lane_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -74,10 +75,16 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
+
+    def wait(name):   # the build's log and its own seconds, whichever finishes first
+        log, _ = procs[name][0].communicate()
+        return log, time.perf_counter() - start
+
+    with ThreadPoolExecutor(max_workers=len(procs)) as pool:
+        waited = dict(zip(procs, pool.map(wait, procs)))
     seconds, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - start
+        log, seconds[name] = waited[name]
         BUILD_LOG[name] = log
         if proc.returncode != 0:
             os.unlink(tmp)

@@ -15,9 +15,11 @@ Variants, by the JAX kernels' static flags:
 
 One wrapper per variant: ``sbwd`` (K3), ``sbwd_generic``, ``sbwd_upper`` (K5),
 ``sfwd`` (K4), ``sfwd_generic``, ``sfwd_ref`` (K6). Each runs its plain version for
-CPU tensors and its CUDA kernel (csrc/lane_sensitivity.cu) for CUDA tensors, and
-counts its kernel launches in ``<wrapper>.launches``; ``lane_sensitivity_grads``
-picks the variants by the JAX function's flags.
+CPU tensors and its CUDA kernel (csrc/lane_sbwd.cu, csrc/lane_sfwd.cu) for CUDA
+tensors, and counts its kernel launches in ``<wrapper>.launches``;
+``lane_sensitivity_grads`` picks the variants by the JAX function's flags. The
+backward sweep's plain version has the kernel's two phases (sbwd_lin_plain, then
+the recursion).
 """
 from __future__ import annotations
 
@@ -26,13 +28,13 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from ..lanes import jac_rows
 from .lane_solver import (
     LaneProblem,
     _bp_from_C,
     _inv2,
     _rescale,
     check_kernel_inputs,
+    jac_lin_plain,
     kernel_consts,
     launch,
     on_cpu,
@@ -52,8 +54,7 @@ def sbwd_plain(pb: LaneProblem, reg: float, active_tol: float, U: Tensor, X: Ten
     value function at k+1 in its scaled form: tV_x [N, n̂, B], V_xx [N, n̂², B],
     LogS [N, 1, B] (at k = N-1 the terminal initialisation)."""
     tv = [2.0 * (XN[i] - XrN[i]) for i in range(pb.n_hat)]
-    upper_at = lambda k, xs: ([2.0 * (xs[i] - Xr[k, i]) for i in range(pb.n_hat)], None)
-    return _sbwd_sweep(pb, reg, active_tol, U, X, C, tv, upper_at, generic)
+    return _sbwd_sweep(pb, reg, active_tol, U, X, C, tv, 2.0 * (X - Xr), None, generic)
 
 
 def sbwd_upper_plain(pb: LaneProblem, reg: float, active_tol: float, gX: Tensor, gU: Tensor,
@@ -62,18 +63,32 @@ def sbwd_upper_plain(pb: LaneProblem, reg: float, active_tol: float, gX: Tensor,
     gU [N, m, B] at k and gXN [n̂, B] at the terminal in place of the tube loss's:
     (K, kff, tVx, Vxx, LogS) as sbwd_plain with generic=True."""
     tv = [gXN[i] for i in range(pb.n_hat)]
-    upper_at = lambda k, xs: ([gX[k, i] for i in range(pb.n_hat)],
-                              [gU[k, a] for a in range(pb.m)])
-    return _sbwd_sweep(pb, reg, active_tol, U, X, C, tv, upper_at, True)
+    return _sbwd_sweep(pb, reg, active_tol, U, X, C, tv, gX, gU, True)
+
+
+def sbwd_lin_plain(pb: LaneProblem, active_tol: float, U: Tensor, X: Tensor, C: Tensor,
+                   gX: Tensor, gU: Optional[Tensor] = None):
+    """K3/K5's phase A: the rows of every step at once, each a row [N, B]: f̂'s Jacobian
+    rows A, Bm (jac_lin_plain), the upper gradient g_x[i] = gX[:, i] and g_u[a] = gU[:, a]
+    (None for g_u = 0) before the carry's scale, and the active-set mask am[a], 0 where
+    u_a lies within active_tol of a bound, else 1. None depends on the carry."""
+    A, Bm = jac_lin_plain(pb, X, U, C)
+    g_x = [gX[:, i] for i in range(pb.n_hat)]
+    g_u = None if gU is None else [gU[:, a] for a in range(pb.m)]
+    zero = torch.zeros_like(U[:, 0])
+    am = [torch.where((U[:, a] <= pb.u_min[a] + active_tol) | (U[:, a] >= pb.u_max[a] - active_tol),
+                      zero, torch.ones_like(zero)) for a in range(pb.m)]
+    return A, Bm, g_x, g_u, am
 
 
 def _sbwd_sweep(pb: LaneProblem, reg: float, active_tol: float, U: Tensor, X: Tensor,
-                C: Tensor, tv, upper_at, generic: bool) -> Tuple[Tensor, ...]:
-    """The sweep of sbwd_plain and sbwd_upper_plain from the terminal tV_x ``tv``;
-    ``upper_at(k, xs)`` gives step k's upper gradient (g_x, g_u), g_u None for 0."""
+                C: Tensor, tv, gX: Tensor, gU: Optional[Tensor], generic: bool) -> Tuple[Tensor, ...]:
+    """The sweep of sbwd_plain and sbwd_upper_plain from the terminal tV_x ``tv``, with
+    the upper-gradient rows gX [N, n̂, B] and gU [N, m, B] (None for 0), in the kernel's two
+    phases: the rows of every step (sbwd_lin_plain), then the recursion over k = N-1..0."""
     nh, m = pb.n_hat, pb.m
     N, B = X.shape[0], X.shape[-1]
-    bp = _bp_from_C(pb, C)
+    A_all, Bm_all, gx_all, gu_all, am_all = sbwd_lin_plain(pb, active_tol, U, X, C, gX, gU)
     K_out = X.new_empty((N, m * nh, B))
     kff_out = X.new_empty((N, m, B))
     if generic:
@@ -92,13 +107,10 @@ def _sbwd_sweep(pb: LaneProblem, reg: float, active_tol: float, U: Tensor, X: Te
                     Vxx_out[k, i * nh + j] = vxx[i][j]
             LogS_out[k, 0] = LogS
         inv_s = torch.exp(-LogS)
-        xs = tuple(X[k, i] for i in range(nh))
-        us = [U[k, a] for a in range(m)]
-        _, tangent = pb.f_hat_lin(xs, tuple(us), bp)
-        A, Bm = jac_rows(tangent, nh, m, xs[0])
-        g_x, g_u = upper_at(k, xs)
-        gx = [g_x[i] * inv_s for i in range(nh)]
-        gu = [0.0] * m if g_u is None else [g_u[a] * inv_s for a in range(m)]
+        A = [[A_all[i][j][k] for j in range(nh)] for i in range(nh)]
+        Bm = [[Bm_all[i][a][k] for a in range(m)] for i in range(nh)]
+        gx = [gx_all[i][k] * inv_s for i in range(nh)]
+        gu = [0.0] * m if gu_all is None else [gu_all[a][k] * inv_s for a in range(m)]
 
         VA = [[sum(vxx[i][l] * A[l][j] for l in range(nh)) for j in range(nh)] for i in range(nh)]
         VB = [[sum(vxx[i][l] * Bm[l][a] for l in range(nh)) for a in range(m)] for i in range(nh)]
@@ -112,8 +124,7 @@ def _sbwd_sweep(pb: LaneProblem, reg: float, active_tol: float, U: Tensor, X: Te
         tQx = [gx[i] + sum(A[l][i] * tv[l] for l in range(nh)) for i in range(nh)]
         regs = reg * inv_s
 
-        am = [torch.where((us[a] <= pb.u_min[a] + active_tol) | (us[a] >= pb.u_max[a] - active_tol),
-                          zero, torch.ones_like(zero)) for a in range(m)]
+        am = [am_all[a][k] for a in range(m)]
         act = [1.0 - am[a] for a in range(m)]
         Qm = [[(Quu[a][b] + (regs if a == b else 0.0)) * am[a] * am[b] + (act[a] if a == b else 0.0)
                for b in range(m)] for a in range(m)]
@@ -202,11 +213,12 @@ def sfwd_plain(pb: LaneProblem, K: Tensor, kff: Tensor, X: Tensor, Xr: Tensor, U
 
 def _launch(wrapper, fn: str, consts, ins, outs, N: int, B: int) -> Tuple[Tensor, ...]:
     """Check ``ins`` ({name: (shape, tensor)}), allocate ``outs`` (shapes) and launch
-    ``lane_<fn>`` on them; count the launch on ``wrapper``."""
+    ``lane_<fn>`` of csrc/lane_sbwd.cu or lane_sfwd.cu on them; count the launch on
+    ``wrapper``."""
     dtype = check_kernel_inputs(fn, ins)
     dev = next(iter(ins.values()))[1].device
     out = tuple(torch.empty(shape, dtype=dtype, device=dev) for shape in outs)
-    launch("lane_sensitivity", f"lane_{fn}", dtype, dev,
+    launch(f"lane_{fn.split('_')[0]}", f"lane_{fn}", dtype, dev,
            tuple(t for _, t in ins.values()) + out, N, B, consts)
     wrapper.launches += 1
     return out

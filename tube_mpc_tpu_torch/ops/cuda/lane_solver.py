@@ -95,17 +95,23 @@ def _rescale(vx_new, vxx_new, LogS: Tensor):
     return Vx, Vxx, LogS
 
 
+def jac_lin_plain(pb: LaneProblem, X: Tensor, U: Tensor, C: Tensor):
+    """f̂'s Jacobian rows at every step at once, each a row [N, B]: A[i][j] = ∂f̂_i/∂x̂_j,
+    Bm[i][a] = ∂f̂_i/∂u_a at X [N, n̂, B], U [N, m, B] (the phase A of K1 and K3/K5)."""
+    xs = tuple(X[:, i] for i in range(pb.n_hat))
+    us = tuple(U[:, a] for a in range(pb.m))
+    _, tangent = pb.f_hat_lin(xs, us, _bp_from_C(pb, C))
+    return jac_rows(tangent, pb.n_hat, pb.m, xs[0])
+
+
 def ric_lin_plain(pb: LaneProblem, X: Tensor, U: Tensor, Xr: Tensor, Ur: Tensor, C: Tensor):
     """K1's phase A: f̂'s Jacobian rows and the cost gradients at every step at once,
-    each a row [N, B]: A[i][j] = ∂f̂_i/∂x̂_j, Bm[i][a] = ∂f̂_i/∂u_a, lx[i] = C_i (x_i - xr_i),
+    each a row [N, B]: A, Bm (jac_lin_plain), lx[i] = C_i (x_i - xr_i),
     lu[a] = C_{n̂+a} (u_a - ur_a). None depends on the Riccati carry."""
     nh, m = pb.n_hat, pb.m
-    xs = tuple(X[:, i] for i in range(nh))
-    us = tuple(U[:, a] for a in range(m))
-    _, tangent = pb.f_hat_lin(xs, us, _bp_from_C(pb, C))
-    A, Bm = jac_rows(tangent, nh, m, xs[0])
-    lx = [C[i] * (xs[i] - Xr[:, i]) for i in range(nh)]
-    lu = [C[nh + a] * (us[a] - Ur[:, a]) for a in range(m)]
+    A, Bm = jac_lin_plain(pb, X, U, C)
+    lx = [C[i] * (X[:, i] - Xr[:, i]) for i in range(nh)]
+    lu = [C[nh + a] * (U[:, a] - Ur[:, a]) for a in range(m)]
     return A, Bm, lx, lu
 
 
