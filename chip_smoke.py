@@ -1,34 +1,51 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two lane paths on one NVIDIA card and check them.
+"""Drive the PyTorch/CUDA port's lane paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py            # from the repository root, on a machine with a card
 
-The two paths are bench.py's paper workload (run_paper_closed_loop_lanes: K1-K4) and
-its BENCH_MODE=coupled workload (run_generic_closed_loop_lanes with adapt_nominal:
-K1, K2 and the generic and coupled variants K5, K6 of the sensitivity kernels).
+The paths are bench.py's paper workload (run_paper_closed_loop_lanes: K1-K4), its
+BENCH_MODE=coupled workload (run_generic_closed_loop_lanes with adapt_nominal: K1, K2
+and the generic and coupled variants K5, K6 of the sensitivity kernels), and its
+BENCH_SYSTEM families, the double integrator, the planar quadrotor and the cart-pole
+on the paper loop (K1-K4 built for each system; presets.family_paper_setup).
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 
 1. device:   the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build:    nvcc builds the three kernel sources (eight kernel variants, float and
-             double, each once for each obstacle count, 1 to 8) from csrc/, in
-             parallel, and prints each instantiation's registers and spills;
+2. build:    nvcc builds the three kernel sources for each of the four systems (Dubins:
+             eight kernel variants, the families: K1-K4; float and double, each once
+             for each obstacle count, 1 to 8, the cart-pole's once) from csrc/, twelve
+             libraries in parallel, and prints each instantiation's registers and
+             spills;
 3. kernels:  each kernel variant against its plain PyTorch version on the same
              inputs, at the main paths' shapes (B=16384, N=50, n̂=4, m=2, nα=7) in
              f64 and in f32. The inputs are those of a real closed-loop step (after
              three disturbed steps, so that the lanes differ): of the paper setup for
              K1-K4, of the coupled setup for K5/K6; some ancillary controls must lie
-             at a bound in each, so that the active set runs. Every variant (K2 also
+             at a bound in each, so that the active set runs (where a family's step
+             has none, K3 is also held with the controls clamped to their quartiles,
+             which become the bounds). Every variant (K2 also
              at nα=1, the rollout's shape) is also held at a ragged shape, the first
              1000 lanes and 37 steps of the same inputs, and there with 1 and with 8
              obstacles (each kernel is built for each count), and with 8 obstacles at
              the main shape too. Each variant is timed with CUDA events over 20
              launches back to back, in f64 and in f32 (its plain version, 5, in f32),
              and so are K2 at nα=1 and every variant with 8 obstacles at the main shape;
+   kernels_<family>, for each family: K1-K4 against their plain versions as in phase 3,
+             on the inputs of a closed-loop step of the family's setup at B=16384, N=50
+             in f64 and f32, each timed; also at B=1000, N=37, there with 1 and 8
+             obstacles for the families that have obstacles;
 4. loop64:   a short f64 paper loop (B=256, N=50, H=5) through the kernels on the
              card and through the plain versions on the CPU, held at the tolerances
              of tests/test_lane_closed_loop.py:45-50;
 5. loop64_coupled: the same for the coupled loop, held at the tolerances of
              tests/test_lane_generic.py:219-225, with the final raw parameters;
+   loop64_<family>: phase 4 on each family's setup. Where the card parts from the CPU
+             (the cart-pole's f64 swing-up is chaotic: a 1e-15 perturbation of its
+             start and disturbances grows to O(1) within five steps on the CPU alone), the card
+             must agree with the CPU on the steps on which the CPU agrees with itself
+             under that perturbation (at least one), and the loop through the kernels
+             must agree with the loop through the plain versions on the card on every
+             step;
 6. main:     the full-width paper path, B=16384, N=50, H=300 in f32, disturbances
              from a seeded torch.Generator on the card; every paper kernel must have
              launched in this run (the launch counts are set to 0 just before it), K3
@@ -38,18 +55,23 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              0 again just before it): K1 and K2 launched, each K5/K6 variant exactly
              H times, at least 99% of the lanes finite, and the nominal tightening
              moved on some lane (the coupled chain ran);
-8. profile:  torch.profiler over five full-width steps of each path: the device's
+   main_<family>: the full-width paper path of each family, B=16384, N=50, H=300 in f32
+             (the counts set to 0 just before each): K1-K4 launched, K3 and K4 exactly
+             H times, at least 99% of the lanes finite;
+8. profile:  torch.profiler over five full-width steps of the Dubins paths: the device's
              busy share and the device time of each kernel variant and of PyTorch's
              own kernels.
 
 Then it prints the `kernels` JSON line (launches from the main path for K1-K4, from
-the coupled path for K5/K6), the card's name and power limit, and, as the last line,
+the coupled path for K5/K6, from main_<family> for each family's K1-K4, named
+`<kernel>_<family>`), the card's name and power limit, and, as the last line,
 {"ok": true, "device": {...}}. With no card it exits non-zero at once. It takes no
 arguments: every size is fixed below, so a result line always stands for the whole
 run at full width.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -75,6 +97,11 @@ PLAIN_RUNS = 5            # timed runs per plain version (one small PyTorch kern
 LOOP64_B, LOOP64_H = 256, 5
 PROFILE_H = 5
 
+# bench.py's BENCH_SYSTEM families (bench.py:143-181) on the paper loop
+FAMILIES = ("double_integrator", "quadrotor2d", "cartpole")
+# the extra obstacles of the 8-obstacle instantiation checks (each system's own come first)
+EXTRA_CENTERS = ((2.0, 8.0), (8.0, 2.0), (5.0, 9.0), (9.0, 5.0), (1.0, 6.5), (6.5, 1.0))
+
 SBWD, SFWD = "tube_mpc_tpu_torch/csrc/lane_sbwd.cu", "tube_mpc_tpu_torch/csrc/lane_sfwd.cu"
 KERNELS = {
     # name: (source, the Pallas kernel it replaces, the CUDA kernel and its template flags)
@@ -93,9 +120,8 @@ KERNELS = {
     "sfwd_ref": (SFWD, "tube_mpc_tpu/ops/pallas/lane_sensitivity.py:172", "sfwd_kernel",
                  ", true, true"),
 }
-# Rows of the const block C [13, B] that a kernel reads, where not all: K4 and the generic
-# K6 read only the barrier parameters (alpha, gamma, tight); the bound counts no other.
-C_ROWS = 13
+# Rows of the const block C [2n̂+m+3, B] that a kernel reads, where not all: K4 and the
+# generic K6 read only the barrier parameters (alpha, gamma, tight); the bound counts no other.
 C_ROWS_READ = {"sfwd": 3, "sfwd_generic": 3}
 PAPER = ("ric", "fwd", "sbwd", "sfwd")
 COUPLED = ("sbwd_generic", "sbwd_upper", "sfwd_generic", "sfwd_ref")
@@ -139,16 +165,25 @@ def nvidia_smi() -> str:
 
 
 def kernel_label(line: str) -> str:
-    """ptxas names a kernel by its mangled symbol; write it as name<type, flags>."""
+    """ptxas names a kernel by its mangled symbol; write it as name<type, flags, system,
+    obstacles> (an older build's as name<type, flags, obstacles>)."""
+    from tube_mpc_tpu_torch.ops.lanes import FAMILIES
+
     def label(m):
         sym = m.group(0)
         k = re.match(r"_ZN4lane\d+(\w+?_kernel)I([fd])((?:L[bi]\d+E)*)E", sym)
         if not k:
             return sym
         args = ["float" if k[2] == "f" else "double"]
+        ints = []
         for kind, v in re.findall(r"L([bi])(\d+)E", k[3]):   # a bool flag or an int
-            args.append(v if kind == "i" else "true" if v == "1" else "false")
-        return f"{k[1]}<{', '.join(args)}>"
+            if kind == "i":
+                ints.append(v)
+            else:
+                args.append("true" if v == "1" else "false")
+        if len(ints) == 2:   # the system's id and the obstacle count
+            ints[0] = FAMILIES[int(ints[0])]
+        return f"{k[1]}<{', '.join(args + ints)}>"
     return re.sub(r"_ZN4lane\w+", label, line)
 
 
@@ -247,10 +282,11 @@ def coupled_setup(torch, H_, where, dtype):
     return s, cfg, raw_nom, raw_aux
 
 
-def paper_step(torch, dev, dtype):
+def paper_step(torch, dev, dtype, family="dubins"):
     """The four paper kernels' inputs in one real closed-loop step of the paper setup
-    at full width: three disturbed steps first, then this step's nominal solve, the
-    first iteration of its ancillary solve, and the sensitivity of its solution.
+    (Dubins', or a family's from presets.family_paper_setup) at full width: three
+    disturbed steps first, then this step's nominal solve, the first iteration of its
+    ancillary solve, and the sensitivity of its solution.
     Returns (the problem, its eps, make, {kernel: inputs}, the ancillary U rows, what):
     make(q) gives {kernel: (its wrapper, its plain version)} on the problem q, and K2 at
     the rollout's nα=1 as "fwd nα=1"."""
@@ -258,24 +294,29 @@ def paper_step(torch, dev, dtype):
     from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
     from tube_mpc_tpu_torch.ops.cuda.lane_sensitivity import sbwd_plain, sfwd_plain
     from tube_mpc_tpu_torch.ops.cuda.lane_solver import fwd_plain, ric_plain, rollout
-    from tube_mpc_tpu_torch.presets import dubins_paper_setup
+    from tube_mpc_tpu_torch.presets import dubins_paper_setup, family_paper_setup
     from tube_mpc_tpu_torch.tube.lane_closed_loop import make_paper_lane_step, paper_lane_init_state
     from tube_mpc_tpu_torch.tube.lane_interface import (
         _build_C, _rows, _with_barrier_row, make_lane_problem, tube_ilqr_solve_lanes)
 
-    s = dubins_paper_setup(N=N, H=4, device=dev, dtype=dtype)
+    if family == "dubins":
+        s, seed = dubins_paper_setup(N=N, H=4, device=dev, dtype=dtype), SEED + 1
+    else:
+        s = family_paper_setup(family, N=N, H=4, device=dev, dtype=dtype)
+        seed = SEED + 10 + FAMILIES.index(family)
+    nx, nu = s.system.nx, s.system.nu
     pb = make_lane_problem(s.sys_c, eps=s.eps)
     step = make_paper_lane_step(s.system, s.aug, pb, s.cfg, w_nominal=s.w_nominal, bp=s.bp,
                                 target=s.target, B=B, dtype=dtype, device=dev)
     state = paper_lane_init_state(s.system, s.aug, s.cfg, aux_init=s.aux_init, bp=s.bp,
                                   x0=s.x0, B=B, dtype=dtype)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     w = s.system.sample_disturbance(gen, (B, 3), dtype=dtype)
     for t in range(3):
         state, _ = step(state, w[:, t])
     x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
-    X_ref_nom = s.target[None, None].expand(B, N + 1, 3)
-    U_ref_nom = torch.zeros((B, N, 2), dtype=dtype, device=dev)
+    X_ref_nom = s.target[None, None].expand(B, N + 1, nx)
+    U_ref_nom = torch.zeros((B, N, nu), dtype=dtype, device=dev)
     X_nom, U_nom = tube_ilqr_solve_lanes(
         pb, s.cfg.nominal_ilqr(), w=s.w_nominal, bp=s.bp, x_hat0=x_hat_bar,
         U_init=state.U_nom_ws, X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev)
@@ -285,7 +326,7 @@ def paper_step(torch, dev, dtype):
     C = _build_C(pb, w_aux, s.bp, B, dtype, dev)
     x0 = _rows(x_hat)
     U0 = _rows(s.system.clamp(state.U_aux_ws))
-    Xr = _rows(_with_barrier_row(X_nom[..., :3]))
+    Xr = _rows(_with_barrier_row(X_nom[..., :nx]))
     Ur = _rows(U_nom)
     X0 = rollout(pb, x0, U0, Xr, Ur, C)
     nh, m = pb.n_hat, pb.m
@@ -295,7 +336,7 @@ def paper_step(torch, dev, dtype):
     k2 = (x0, X0[:-1], U0, K, kff, Xr[:-1], Xr[-1], Ur, C)
     X_aux, U_aux = tube_ilqr_solve_lanes(
         pb, s.cfg.aux_ilqr(), w=w_aux, bp=s.bp, x_hat0=x_hat, U_init=state.U_aux_ws,
-        X_ref=X_nom[..., :3], U_ref=U_nom, device=dev)
+        X_ref=X_nom[..., :nx], U_ref=U_nom, device=dev)
     Xa, Ua = _rows(X_aux), _rows(U_aux)
     k3 = (Ua, Xa[:-1], Xr[:-1], C, Xa[-1], Xr[-1])
     Ks, kffs = WRAPPERS["sbwd"](pb, REG_SENS, ACTIVE_TOL, *k3)
@@ -316,8 +357,52 @@ def paper_step(torch, dev, dtype):
                          lambda *t: fwd_plain(q, (1.0,), *t)),
         }
 
+    what = "paper setup" if family == "dubins" else f"{family} paper setup"
     return (pb, s.eps, make, {"ric": k1, "fwd": k2, "sbwd": k3, "sfwd": k4}, Ua,
-            f"paper setup, {len(s.cfg.alphas)} alphas")
+            f"{what}, {len(s.cfg.alphas)} alphas")
+
+
+def with_obstacles(pb, centers, eps):
+    """The lane problem of pb's system with the circle obstacles `centers`, radius 1."""
+    from tube_mpc_tpu_torch.ops import lanes
+    from tube_mpc_tpu_torch.tube.lane_interface import make_lane_problem
+
+    sp = pb.spec
+    kw = dict(centers=centers, radii=[1.0] * len(centers), beta=sp.beta)
+    if sp.family == "dubins":
+        sys_c = lanes.dubins_components(dt=sp.dt, v_min=pb.u_min[0], v_max=pb.u_max[0],
+                                        omega_max=pb.u_max[1], **kw)
+    elif sp.family == "double_integrator":
+        sys_c = lanes.double_integrator_components(dt=sp.dt, a_max=pb.u_max[0], **kw)
+    else:
+        sys_c = lanes.quadrotor2d_components(
+            dt=sp.dt, mass=sp.mass, inertia=sp.inertia, arm=sp.arm, gravity=sp.gravity,
+            t_min=pb.u_min[0], t_max=pb.u_max[0], **kw)
+    return make_lane_problem(sys_c, eps=eps)
+
+
+def run_paper_loop(s, w, where):
+    """The paper loop of setup s under the disturbances w, on `where`."""
+    from tube_mpc_tpu_torch.tube.lane_closed_loop import run_paper_closed_loop_lanes
+
+    return run_paper_closed_loop_lanes(
+        s.system, s.aug, s.sys_c, s.cfg, w_nominal=s.w_nominal, aux_init=s.aux_init,
+        bp=s.bp, x0=s.x0, target=s.target, w_seqs=w, eps=s.eps, device=where)
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """The kernel wrappers run their plain versions on CUDA tensors too, within: a loop
+    through the plain versions on the card, with the card's math library (a check's
+    reference only; the port's wrappers never do this)."""
+    from tube_mpc_tpu_torch.ops.cuda import lane_sensitivity, lane_solver
+
+    saved = lane_solver.on_cpu, lane_sensitivity.on_cpu
+    lane_solver.on_cpu = lane_sensitivity.on_cpu = lambda *tensors: True
+    try:
+        yield
+    finally:
+        lane_solver.on_cpu, lane_sensitivity.on_cpu = saved
 
 
 def coupled_step(torch, dev, dtype):
@@ -399,13 +484,8 @@ def main() -> int:
         return 2
 
     from tube_mpc_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
-    from tube_mpc_tpu_torch.ops.lanes import dubins_components
-    from tube_mpc_tpu_torch.presets import dubins_paper_setup
-    from tube_mpc_tpu_torch.tube.lane_closed_loop import (
-        run_generic_closed_loop_lanes,
-        run_paper_closed_loop_lanes,
-    )
-    from tube_mpc_tpu_torch.tube.lane_interface import make_lane_problem
+    from tube_mpc_tpu_torch.presets import dubins_paper_setup, family_paper_setup
+    from tube_mpc_tpu_torch.tube.lane_closed_loop import run_generic_closed_loop_lanes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -417,11 +497,6 @@ def main() -> int:
         return run_generic_closed_loop_lanes(
             s.system, s.aug, s.sys_c, cfg, raw_nom=raw_nom, raw_aux_init=raw_aux, x0=s.x0,
             target=s.target, w_seqs=w, eps=1e-4, device=where)
-
-    def run_paper(s, w, where):
-        return run_paper_closed_loop_lanes(
-            s.system, s.aug, s.sys_c, s.cfg, w_nominal=s.w_nominal, aux_init=s.aux_init,
-            bp=s.bp, x0=s.x0, target=s.target, w_seqs=w, eps=s.eps, device=where)
 
     # ---- 1. device ------------------------------------------------------------
     log(f"[device] {card}")
@@ -455,20 +530,22 @@ def main() -> int:
         (calls {kernel: (wrapper, plain version, inputs)} at the main shape, extra [(label,
         kernel, wrapper, plain version, inputs, timed)]). Every kernel is built for each
         obstacle count (the paper has 5), so the extra checks also take the first and the
-        last instantiation, with the paper's first obstacle alone and with three more, at
-        the ragged shape; the last also at the main shape, timed."""
+        last instantiation, with the system's first obstacle alone and with more up to
+        eight, at the ragged shape; Dubins' last also at the main shape, timed. The
+        cart-pole has no obstacles, so only the ragged shape."""
         main = make(pb)
         calls = {k: (*main[k], t) for k, t in inputs.items()}
         extra = [(f"{k} at {RAGGED_AT}", k, *main[k], tuple(map(ragged, t)), False)
                  for k, t in inputs.items()]
         sp = pb.spec
-        for centers in (sp.centers[:1], sp.centers + ((2.0, 8.0), (8.0, 2.0), (5.0, 9.0))):
-            pbn = make_lane_problem(dubins_components(
-                dt=sp.dt, v_min=pb.u_min[0], v_max=pb.u_max[0], omega_max=pb.u_max[1],
-                centers=centers, radii=[1.0] * len(centers), beta=sp.beta), eps=eps)
+        if not sp.centers:
+            return calls, extra
+        more = EXTRA_CENTERS[:8 - len(sp.centers)]
+        for centers in (sp.centers[:1], sp.centers + more):
+            pbn = with_obstacles(pb, centers, eps)
             n, fns = f"{len(centers)} obstacles", make(pbn)
             shapes = [(f" at {RAGGED_AT}", ragged, False)]
-            if len(centers) == 8:
+            if len(centers) == 8 and sp.family == "dubins":
                 shapes.append((" at the main shape", lambda t: t, True))
             for where, cut, timed in shapes:
                 extra += [(f"{k}, {n}{where}", k, *fns[k], tuple(map(cut, t)), timed)
@@ -476,8 +553,11 @@ def main() -> int:
         return calls, extra
 
     def checks(step_of, dtype):
-        """(calls, extra, controls at a bound, what) of one step's inputs (paper_step or
-        coupled_step); K2 also at the rollout's nα=1."""
+        """(calls, extra, controls at a bound, what, the problem) of one step's inputs
+        (paper_step or coupled_step); K2 also at the rollout's nα=1. Where no ancillary
+        control of the step lies at a bound (a family's step may have none), K3 is also
+        held on the same inputs with the ancillary controls clamped to their quartiles,
+        which become the problem's bounds, so that the active set runs."""
         pb, eps, make, inputs, Ua, what = step_of(torch, dev, dtype)
         calls, extra = held(make, pb, eps, inputs)
         if "fwd" in inputs:
@@ -485,13 +565,28 @@ def main() -> int:
             extra = [("fwd nα=1", "fwd", *fwd1, inputs["fwd"], True),
                      (f"fwd nα=1 at {RAGGED_AT}", "fwd", *fwd1, tuple(map(ragged, inputs["fwd"])),
                       False)] + extra
-        return calls, extra, at_bound(pb, Ua), what
+        n_bound = at_bound(pb, Ua)
+        if n_bound == 0 and "sbwd" in inputs:
+            rows = Ua.transpose(0, 1).reshape(pb.m, -1).float()
+            lo = tuple(float(torch.quantile(r, 0.25)) for r in rows)
+            hi = tuple(float(torch.quantile(r, 0.75)) for r in rows)
+            pbc = dataclasses.replace(pb, u_min=lo, u_max=hi)
+            U_c = torch.minimum(torch.as_tensor(hi, dtype=dtype, device=dev)[:, None],
+                                torch.maximum(torch.as_tensor(lo, dtype=dtype, device=dev)[:, None],
+                                              Ua))
+            ins = (U_c,) + tuple(inputs["sbwd"][1:])
+            n_bound = at_bound(pbc, U_c)
+            log(f"[checks] {what}: no ancillary control at a bound; K3 also with the controls "
+                f"clamped to their quartiles {lo}..{hi}, {n_bound} of them at a bound")
+            extra.append((f"sbwd, controls clamped to their quartiles, at {RAGGED_AT}", "sbwd",
+                          *make(pbc)["sbwd"], tuple(map(ragged, ins)), False))
+        return calls, extra, n_bound, what, pb
 
     results = {}
     main_ms = {}   # (type, kernel): ms per launch at the main shape
     failed = []
 
-    def check(dname, label, name, kernel, plain, inputs):
+    def check(phase, dname, label, name, kernel, plain, inputs):
         """Hold a kernel against its plain version at TOL[dname][name]; log, record a
         failure, and return the kernel's outputs and the largest difference."""
         got = kernel(*inputs)
@@ -500,55 +595,74 @@ def main() -> int:
         rtol, atol_frac = TOL[dname][name]
         err, ok = max_err(torch, got, ref, rtol, atol_frac)
         nonfinite = sum(int((~torch.isfinite(r)).sum()) for r in ref)
-        log(f"[kernels] {dname} {label}: max |kernel - plain| = {err!r} "
+        log(f"[{phase}] {dname} {label}: max |kernel - plain| = {err!r} "
             f"(rtol {rtol}, atol {atol_frac} of the row's max|plain|) -> "
             f"{'ok' if ok else 'FAIL'}; {nonfinite} non-finite values in the plain output")
         if not ok:
             failed.append(f"{dname} {label}")
         return got, err
 
-    for dtype in (torch.float64, torch.float32):
+    def check_step(phase, step_of, dtype, suffix=""):
+        """Phase 3's checks and times of the kernels of one step's inputs in `dtype`; the
+        f32 results go to results[<kernel><suffix>]."""
         dname = str(dtype).replace("torch.", "")
+        calls, extra, n_bound, what, pb = checks(step_of, dtype)
+        log(f"[{phase}] {dname}: inputs from a closed-loop step of the {what} at B={B}, "
+            f"N={N}; {n_bound} ancillary controls at a bound")
+        if n_bound == 0:
+            failed.append(f"{dname} {what}: no ancillary control at a bound, active set unchecked")
+        nc = 2 * pb.n_hat + pb.m + 3
+        for name, (kernel, plain, inputs) in calls.items():
+            got, err = check(phase, dname, name, name, kernel, plain, inputs)
+            ms = main_ms[dname, name + suffix] = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
+            if dtype != torch.float32:
+                log(f"[{phase}] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back)")
+                continue
+            plain_ms = device_time_ms(torch, lambda: plain(*inputs), PLAIN_RUNS, warmup=1)
+            out_bytes = sum(t.numel() * t.element_size() for t in got)
+            in_bytes = sum(t.numel() * t.element_size() for t in inputs)
+            in_bytes -= (nc - C_ROWS_READ.get(name, nc)) * B * got[0].element_size()
+            lanes = 8
+            ops = count_ops(torch, plain, inputs, lanes) * (B // lanes)
+            t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS_PER_S[dname] * 1e3
+            results[name + suffix] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=in_bytes + out_bytes, ops=ops)
+            log(f"[{phase}] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back), plain "
+                f"{plain_ms:.2f} ms (mean of {PLAIN_RUNS}); {in_bytes + out_bytes} bytes "
+                f"-> {t_bytes:.4f} ms, {ops} ops -> {t_ops:.4f} ms at peak "
+                f"({2 * t_ops:.4f} ms without fused multiply-adds)")
+        for label, name, kernel, plain, inputs, timed in extra:
+            check(phase, dname, label, name, kernel, plain, inputs)
+            if timed:
+                ms = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
+                log(f"[{phase}] {dname} {label}: {ms:.4f} ms (mean of {RUNS} back to back), "
+                    f"beside {main_ms[dname, name + suffix]:.4f} ms for {name} on the main "
+                    f"path's inputs")
+        del calls, extra
+        torch.cuda.empty_cache()
+
+    for dtype in (torch.float64, torch.float32):
         for step_of in (paper_step, coupled_step):
-            calls, extra, n_bound, what = checks(step_of, dtype)
-            log(f"[kernels] {dname}: inputs from a closed-loop step of the {what} at B={B}, "
-                f"N={N}; {n_bound} ancillary controls at a bound")
-            if n_bound == 0:
-                failed.append(f"{dname} {what}: no ancillary control at a bound, active set unchecked")
-            for name, (kernel, plain, inputs) in calls.items():
-                got, err = check(dname, name, name, kernel, plain, inputs)
-                ms = main_ms[dname, name] = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
-                if dtype != torch.float32:
-                    log(f"[kernels] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back)")
-                    continue
-                plain_ms = device_time_ms(torch, lambda: plain(*inputs), PLAIN_RUNS, warmup=1)
-                out_bytes = sum(t.numel() * t.element_size() for t in got)
-                in_bytes = sum(t.numel() * t.element_size() for t in inputs)
-                in_bytes -= (C_ROWS - C_ROWS_READ.get(name, C_ROWS)) * B * got[0].element_size()
-                lanes = 8
-                ops = count_ops(torch, plain, inputs, lanes) * (B // lanes)
-                t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-                t_ops = ops / PEAK_OPS_PER_S[dname] * 1e3
-                results[name] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    bytes=in_bytes + out_bytes, ops=ops)
-                log(f"[kernels] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back), plain "
-                    f"{plain_ms:.2f} ms (mean of {PLAIN_RUNS}); {in_bytes + out_bytes} bytes "
-                    f"-> {t_bytes:.4f} ms, {ops} ops -> {t_ops:.4f} ms at peak "
-                    f"({2 * t_ops:.4f} ms without fused multiply-adds)")
-            for label, name, kernel, plain, inputs, timed in extra:
-                check(dname, label, name, kernel, plain, inputs)
-                if timed:
-                    ms = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
-                    log(f"[kernels] {dname} {label}: {ms:.4f} ms (mean of {RUNS} back to back), "
-                        f"beside {main_ms[dname, name]:.4f} ms for {name} on the main path's inputs")
-            del calls, extra
-            torch.cuda.empty_cache()
+            check_step("kernels", step_of, dtype)
     if failed:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
     log(f"[kernels] done at {time.perf_counter() - t_start:.0f} s")
+
+    # ---- the families' kernels against their plain versions ------------------------
+    for family in FAMILIES:
+        t0 = time.perf_counter()
+        for dtype in (torch.float64, torch.float32):
+            check_step(f"kernels_{family}", lambda *a: paper_step(*a, family=family), dtype,
+                       suffix=f"_{family}")
+        if failed:
+            raise SystemExit(f"chip_smoke: {family}'s kernels disagree with their plain "
+                             f"versions: {failed}")
+        log(f"[kernels_{family}] done in {time.perf_counter() - t0:.0f} s, at "
+            f"{time.perf_counter() - t_start:.0f} s")
 
     # ---- 4. short f64 paper loop: kernels on the card vs plain versions on the CPU ----
     logs = {}
@@ -557,7 +671,7 @@ def main() -> int:
         w = s.system.sample_disturbance(torch.Generator().manual_seed(SEED + 2),
                                         (LOOP64_B, LOOP64_H), dtype=torch.float64).to(where)
         t0 = time.perf_counter()
-        out = run_paper(s, w, where)
+        out = run_paper_loop(s, w, where)
         if where != "cpu":
             torch.cuda.synchronize()
         log(f"[loop64] B={LOOP64_B}, N={N}, H={LOOP64_H} f64 on {where}: "
@@ -608,6 +722,75 @@ def main() -> int:
                          f"loop: {bad}")
     log(f"[loop64_coupled] done at {time.perf_counter() - t_start:.0f} s")
 
+    # ---- the families' short f64 loops: kernels on the card vs plain versions on the CPU ----
+    def loop_diffs(got, ref, steps):
+        """{log field: (max |got - ref| over the first `steps` steps, within LOOP_TOL)}."""
+        out = {}
+        for field, (rtol, atol) in LOOP_TOL.items():
+            a = getattr(got, field)[:, :steps].cpu()
+            b = getattr(ref, field)[:, :steps].cpu()
+            d = (a - b).abs()
+            out[field] = (float(d.max()), bool((d <= atol + rtol * b.abs()).all()))
+        return out
+
+    def logged(phase, what, diffs):
+        for field, (d, ok) in diffs.items():
+            rtol, atol = LOOP_TOL[field]
+            log(f"[{phase}] {field}: max |{what}| = {d!r} (rtol {rtol}, atol {atol}) -> "
+                f"{'ok' if ok else 'FAIL'}")
+        return [f for f, (_, ok) in diffs.items() if not ok]
+
+    for family in FAMILIES:
+        phase = f"loop64_{family}"
+        logs = {}
+        for where in ("cpu", dev):
+            s = family_paper_setup(family, N=N, H=LOOP64_H, device=where, dtype=torch.float64)
+            gen = torch.Generator().manual_seed(SEED + 20 + FAMILIES.index(family))
+            w = s.system.sample_disturbance(gen, (LOOP64_B, LOOP64_H), dtype=torch.float64).to(where)
+            t0 = time.perf_counter()
+            out = run_paper_loop(s, w, where)
+            if where != "cpu":
+                torch.cuda.synchronize()
+            log(f"[{phase}] B={LOOP64_B}, N={N}, H={LOOP64_H} f64 on {where}: "
+                f"{time.perf_counter() - t0:.1f} s")
+            logs[where] = out
+        bad = logged(phase, "card - cpu", loop_diffs(logs[dev], logs["cpu"], LOOP64_H))
+        if not bad:
+            continue
+        # The loop parts from the CPU's. Where the loop itself is chaotic (the cart-pole's
+        # swing-up in f64 is), a last-bit difference of the card's math library (sin, cos,
+        # exp, log) against the CPU's grows as a 1e-15 perturbation of the start and the
+        # disturbances does on the CPU alone. So: the steps T on which the CPU agrees with
+        # itself under that perturbation; the card must agree with the CPU on those
+        # (T >= 1), and the kernels' loop with the plain versions' loop on the card, on
+        # every step.
+        s, w = family_paper_setup(family, N=N, H=LOOP64_H, device="cpu",
+                                  dtype=torch.float64), w.cpu()
+        pert = run_paper_loop(dataclasses.replace(s, x0=s.x0 * (1.0 + 1e-15)),
+                              w * (1.0 + 1e-15), "cpu")
+        T = 0
+        while T < LOOP64_H and all(ok for _, ok in loop_diffs(pert, logs["cpu"], T + 1).values()):
+            T += 1
+        log(f"[{phase}] the card parts from the CPU ({bad}); the CPU's loop with its start "
+            f"and disturbances times 1 + 1e-15 stays within the tolerances of its own on {T} of "
+            f"{LOOP64_H} steps: per step max |du| = "
+            f"{[float((pert.u_real - logs['cpu'].u_real)[:, t].abs().max()) for t in range(LOOP64_H)]}")
+        log(f"[{phase}] the card against the CPU on the first {T} steps:")
+        bad = logged(phase, "card - cpu", loop_diffs(logs[dev], logs["cpu"], T)) if T else [
+            "the CPU agrees with itself on no step"]
+        s = family_paper_setup(family, N=N, H=LOOP64_H, device=dev, dtype=torch.float64)
+        t0 = time.perf_counter()
+        with plain_on_card():
+            plain = run_paper_loop(s, w.to(dev), dev)
+        torch.cuda.synchronize()
+        log(f"[{phase}] the plain versions' loop on {dev}: {time.perf_counter() - t0:.1f} s")
+        bad += logged(phase, "kernels - plain versions, on the card,",
+                      loop_diffs(logs[dev], plain, LOOP64_H))
+        if bad:
+            raise SystemExit(f"chip_smoke: {family}'s f64 loop on the card disagrees with the "
+                             f"plain loop: {bad}")
+    log(f"[loop64 families] done at {time.perf_counter() - t_start:.0f} s")
+
     # ---- 6. the full-width paper path ---------------------------------------------
     s = dubins_paper_setup(N=N, H=H, device=dev, dtype=torch.float32)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -616,7 +799,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    out = run_paper(s, w, dev)
+    out = run_paper_loop(s, w, dev)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = launch_counts()
@@ -676,6 +859,43 @@ def main() -> int:
     del out
     log(f"[coupled] done at {time.perf_counter() - t_start:.0f} s")
 
+    # ---- the families' full-width paper paths -----------------------------------------
+    family_counts = {}
+    for family in FAMILIES:
+        phase = f"main_{family}"
+        s = family_paper_setup(family, N=N, H=H, device=dev, dtype=torch.float32)
+        nx, nu = s.system.nx, s.system.nu
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30 + FAMILIES.index(family))
+        w = s.system.sample_disturbance(gen, (B, H), dtype=torch.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_paper_loop(s, w, dev)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        fc = family_counts[family] = launch_counts()
+        finite = float(torch.isfinite(out.loss[:, -1]).float().mean())
+        shapes_ok = (tuple(out.x_real.shape) == (B, H, nx) and tuple(out.u_real.shape) == (B, H, nu)
+                     and tuple(out.loss.shape) == (B, H) and tuple(out.Q_hist.shape) == (B, H, nx))
+        log(f"[{phase}] B={B}, N={N}, H={H} f32: {elapsed:.3f} s, {2 * H * B / elapsed:.1f} "
+            f"solves/s (2*H*B / elapsed), finite_lane_frac {finite!r}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+        log(f"[{phase}] launches: {json.dumps(fc)}; final loss median "
+            f"{float(out.loss[:, -1].nanmedian())!r}")
+        problems = [k for k in PAPER if fc[k] == 0]
+        if problems:
+            raise SystemExit(f"chip_smoke: kernels not launched on {family}'s path: {problems}")
+        if fc["sbwd"] != H or fc["sfwd"] != H:
+            raise SystemExit(f"chip_smoke: {family}'s K3/K4 launched {fc['sbwd']}/{fc['sfwd']} "
+                             f"times, not H={H}")
+        if finite < 0.99:
+            raise SystemExit(f"chip_smoke: {family}'s finite_lane_frac {finite} < 0.99")
+        if not shapes_ok:
+            raise SystemExit(f"chip_smoke: {family}'s closed-loop log has the wrong shapes")
+        del out
+    log(f"[main families] done at {time.perf_counter() - t_start:.0f} s")
+
     # ---- 8. where the time goes: torch.profiler over a few full-width steps ---------
     from torch.profiler import ProfilerActivity, profile
 
@@ -720,7 +940,7 @@ def main() -> int:
                                     (B, PROFILE_H), dtype=torch.float32)
 
     def paper_steps():
-        run_paper(s, w, dev)
+        run_paper_loop(s, w, dev)
         torch.cuda.synchronize()
 
     profile_phase("paper", paper_steps)
@@ -743,6 +963,14 @@ def main() -> int:
                          launches=launches, max_abs_err=r["max_abs_err"],
                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"], library_ms=None))
+    for family in FAMILIES:
+        for name in PAPER:
+            source, replaces = KERNELS[name][:2]
+            r = results[f"{name}_{family}"]
+            line.append(dict(name=f"{name}_{family}", route="cuda", source=source,
+                             replaces=replaces, launches=family_counts[family][name],
+                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
     print(json.dumps({"kernels": line}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

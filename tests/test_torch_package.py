@@ -60,7 +60,7 @@ FORBIDDEN = ("jax", "jaxlib", "tube_mpc_tpu")
 
 def _sources():
     return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
-        REPO / "tools" / f"{name}.py" for name in ("port_kernel_ab", "ric_probe")]
+        REPO / "tools" / f"{name}.py" for name in ("port_kernel_ab", "ric_probe", "port_quick_check")]
 
 
 def _imported_roots(path: Path):
@@ -81,6 +81,13 @@ def test_no_module_imports_jax_or_the_jax_package(path):
     assert path.exists()
     bad = _imported_roots(path) & set(FORBIDDEN)
     assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def test_family_modules_are_held_by_the_no_jax_rule():
+    """The no-JAX rule above covers every module of the package, the families' too."""
+    held = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    assert {"systems/double_integrator.py", "systems/quadrotor2d.py", "systems/cartpole.py",
+            "systems/registry.py", "presets.py", "convert.py", "ops/lanes.py"} <= held
 
 
 def test_package_imports_without_nvcc_and_builds_nothing():
@@ -269,6 +276,48 @@ def test_kernel_constants_refuse_what_the_kernels_do_not_take():
     log_pb = make_lane_problem(s.sys_c, barrier_type="log", eps=s.eps)
     with pytest.raises(ValueError, match="inverse barrier"):
         kernel_consts(log_pb)
+
+
+@pytest.mark.parametrize("family,n_obs,m", [("double_integrator", 2, 2), ("quadrotor2d", 4, 2),
+                                            ("cartpole", 0, 1)])
+def test_kernel_constants_of_the_families(family, n_obs, m):
+    """Each family's constants name its system and library; the bounds fill m entries;
+    the products of constants are formed in double."""
+    from tube_mpc_tpu_torch.presets import family_paper_setup
+
+    s = family_paper_setup(family, N=4, H=2, device="cpu", dtype=torch.float64)
+    pb = make_lane_problem(s.sys_c, eps=s.eps)
+    k = kernel_consts(pb, reg=1e-6, alphas=s.cfg.alphas, active_tol=1e-8)
+    assert (k.system, k.n_obs, k.n_alphas) == (_build.FAMILIES.index(family), n_obs,
+                                               len(s.cfg.alphas))
+    assert [k.u_max[a] for a in range(m)] == list(pb.u_max) and k.u_max[1] == (0.0 if m == 1 else
+                                                                               pb.u_max[1])
+    sp = pb.spec
+    assert (k.total_m, k.mpl, k.x_lim2) == (sp.m_cart + sp.m_pole, sp.m_pole * sp.length,
+                                             sp.x_lim * sp.x_lim)
+    lib = _build.library_name("lane_solver", family)
+    assert _build.LIBRARIES[lib] == ("lane_solver", family)
+    assert f"-DLANE_SYSTEM={k.system}" in _build.flags(lib)
+    assert _build.flags("lane_solver") == _build.NVCC_FLAGS   # Dubins: the default system
+
+
+def test_kernel_constants_refuse_a_cartpole_with_obstacles_and_generic_family_kernels(monkeypatch):
+    from tube_mpc_tpu_torch.ops import lanes
+    from tube_mpc_tpu_torch.presets import family_paper_setup
+
+    cp = lanes.cartpole_components(dt=0.02)
+    bad = cp._replace(spec=dataclasses.replace(cp.spec, centers=((0.0, 0.0),), radii=(1.0,)))
+    with pytest.raises(ValueError, match="takes no obstacles"):
+        kernel_consts(make_lane_problem(bad))
+    s = family_paper_setup("double_integrator", N=4, H=2, device="cpu", dtype=torch.float64)
+    pb = make_lane_problem(s.sys_c, eps=s.eps)
+    B, N = 2, 4
+    t = lambda *shape: torch.ones(shape, dtype=torch.float64)
+    monkeypatch.setattr(sens, "on_cpu", lambda *ts: False)
+    monkeypatch.setattr(sens, "launch", lambda *a: pytest.fail("launched"))
+    with pytest.raises(ValueError, match="built for the Dubins system only"):
+        sens.sbwd_generic(pb, 1e-9, 1e-8, t(N, 2, B), t(N, 5, B), t(N, 5, B), t(15, B), t(5, B),
+                          t(5, B))
 
 
 def test_build_needs_no_work_at_import_and_names_its_sources():

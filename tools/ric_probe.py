@@ -13,11 +13,10 @@ card, in one process.
    - A only: warp 0 skips phase B (the recursion), so phase A and the barriers remain;
    - B only: the phase-A warps skip phase A, so phase B (over whatever shared memory
              holds) and the barriers remain;
-   - kc2, kc4, kc6: SWEEP_KC steps per chunk, not 3 (f32 only: K1's and K3's f64
-             buffers pass 48 KB from 4 steps up, so these drop their launchers'
-             static_assert);
+   - kc2, kc4, kc6: SWEEP_KC steps per chunk, not 3 (f32 only; above 48 KB of
+             buffers the launchers set the dynamic shared memory attribute);
    - cap3, cap2: 3 or 2 f32 blocks per SM in __launch_bounds__ (at most 168 or 255
-             registers a thread), not 4 (128).
+             registers a thread), not 4 (128), for the systems with n̂ <= 5.
    The edits are to the shared sweep, so each variant changes K1, K3-K6 alike.
 2. Times every f32 kernel of tools/port_kernel_ab.py's cases (the paper step's K1-K4,
    the coupled step's K5/K6 at B=16384, N=50) through its wrapper on every variant's
@@ -54,19 +53,17 @@ import port_kernel_ab as ab  # noqa: E402
 
 RUNS = 50
 SWEEP = "lane_common.cuh"
-KC_ASSERTS = [(src, r"static_assert\(smem <= 48 \* 1024[^;]*;", "", 1)
-              for src in ("lane_solver.cu", "lane_sbwd.cu")]
 VARIANTS = {  # name: [(file, regex, replacement, matches)]
     "kept": [],
     "A only": [(SWEEP, r"rec_step\(k, buf \+ \(k - lo\) \* STEP\);", "(void)buf;", 2)],
     "B only": [(SWEEP, r"lin_step\(k, buf \+ \(k - lo\) \* STEP\);", "(void)buf;", 1)],
-    **{f"kc{kc}": [(SWEEP, r"constexpr int SWEEP_KC = 3;", f"constexpr int SWEEP_KC = {kc};", 1),
-                   *KC_ASSERTS] for kc in (2, 4, 6)},
+    **{f"kc{kc}": [(SWEEP, r"constexpr int SWEEP_KC = 3;", f"constexpr int SWEEP_KC = {kc};", 1)]
+       for kc in (2, 4, 6)},
     **{f"cap{n}": [(SWEEP, r"sizeof\(T\) == 4 \? 4 : 1", f"sizeof(T) == 4 ? {n} : 1", 1)]
        for n in (3, 2)},
 }
-PROBED = ("ric_kernel<float, 5>", "sbwd_kernel<float, false, false, 5>",
-          "sfwd_kernel<float, false, false, 5>")   # the paper's instantiations
+PROBED = ("ric_kernel<float, dubins, 5>", "sbwd_kernel<float, false, false, dubins, 5>",
+          "sfwd_kernel<float, false, false, dubins, 5>")   # the paper's instantiations
 
 
 def variant_sources(csrc: Path, edits, out: Path):

@@ -1,8 +1,8 @@
 """Carry a setup and a closed-loop state across from numpy.
 
 The JAX package's objects reach the port as numpy arrays and Python numbers (for
-example ``np.asarray`` of each leaf of a ``DubinsPaperSetup``), so both packages
-can run on the same numbers. Containers may be mappings or objects with the same
+example ``np.asarray`` of each leaf of a paper setup, Dubins' or a family's), so both
+packages can run on the same numbers. Containers may be mappings or objects with the same
 attribute names.
 """
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 from .device import DeviceLike, resolve_device, resolve_dtype
 from .ops.costs import CostWeights
 from .ops.dbas import BarrierParams
-from .presets import DubinsPaperSetup, build_dubins_setup
+from .presets import PaperSetup, build_dubins_setup, build_family_setup
 from .systems.dubins import DubinsConfig
 from .tube.closed_loop import TubeMPCConfig
 from .tube.lane_closed_loop import GenericLaneState, LaneLoopState
@@ -31,21 +31,9 @@ def _has(obj: Any, key: str) -> bool:
     return key in obj if isinstance(obj, Mapping) else hasattr(obj, key)
 
 
-def setup_from_numpy(d: Any, device: DeviceLike = None, dtype=torch.float32) -> DubinsPaperSetup:
-    """A DubinsPaperSetup from ``d`` with: cfg (N, H, nominal_max_iter, aux_max_iter,
-    tol, reg, alphas, adapt{lr, momentum, steps, grad_clip_norm, project}, and
-    optionally adapt_nominal, adapt_ancillary, coupling),
-    w_nominal{Q, R, Qf, qb}, aux_init{Q, R, qb}, bp{alpha, gamma, tight}, x0,
-    target, centers [M, 2], radii [M], beta, eps, and optionally dubins (the
-    DubinsConfig fields; default dt=0.01)."""
-    dev = resolve_device(device)
-    dtype = resolve_dtype(dtype)
-
-    def t(v):
-        return torch.tensor(np.array(v), dtype=dtype, device=dev)
-
-    c, a = _get(d, "cfg"), _get(_get(d, "cfg"), "adapt")
-    cfg = TubeMPCConfig(
+def _cfg_from(c: Any) -> TubeMPCConfig:
+    a = _get(c, "adapt")
+    return TubeMPCConfig(
         N=int(_get(c, "N")), H=int(_get(c, "H")),
         nominal_max_iter=int(_get(c, "nominal_max_iter")),
         aux_max_iter=int(_get(c, "aux_max_iter")),
@@ -59,20 +47,40 @@ def setup_from_numpy(d: Any, device: DeviceLike = None, dtype=torch.float32) -> 
         **{f: (str if f == "coupling" else bool)(_get(c, f))
            for f in ("adapt_nominal", "adapt_ancillary", "coupling") if _has(c, f)},
     )
+
+
+def _weights_from(d: Any, t):
+    """(w_nominal, aux_init, bp) of ``d``."""
     wn, ai, bp = _get(d, "w_nominal"), _get(d, "aux_init"), _get(d, "bp")
+    return (CostWeights(Q=t(_get(wn, "Q")), R=t(_get(wn, "R")), Qf=t(_get(wn, "Qf")),
+                        qb=t(_get(wn, "qb"))),
+            AuxAdapt(Q=t(_get(ai, "Q")), R=t(_get(ai, "R")), qb=t(_get(ai, "qb"))),
+            BarrierParams(alpha=t(_get(bp, "alpha")), gamma=t(_get(bp, "gamma")),
+                          tight=t(_get(bp, "tight"))))
+
+
+def setup_from_numpy(d: Any, device: DeviceLike = None, dtype=torch.float32) -> PaperSetup:
+    """A Dubins PaperSetup from ``d`` with: cfg (N, H, nominal_max_iter, aux_max_iter,
+    tol, reg, alphas, adapt{lr, momentum, steps, grad_clip_norm, project}, and
+    optionally adapt_nominal, adapt_ancillary, coupling),
+    w_nominal{Q, R, Qf, qb}, aux_init{Q, R, qb}, bp{alpha, gamma, tight}, x0,
+    target, centers [M, 2], radii [M], beta, eps, and optionally dubins (the
+    DubinsConfig fields; default dt=0.01)."""
+    dev = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+
+    def t(v):
+        return torch.tensor(np.array(v), dtype=dtype, device=dev)
+
     dubins = DubinsConfig(dt=0.01)
     if _has(d, "dubins"):
         dc = _get(d, "dubins")
         dubins = DubinsConfig(**{f: (tuple(float(x) for x in _get(dc, f))
                                      if f in ("w_low", "w_high", "x_target") else float(_get(dc, f)))
                                  for f in DubinsConfig.__dataclass_fields__ if _has(dc, f)})
+    w_nominal, aux_init, bp = _weights_from(d, t)
     return build_dubins_setup(
-        cfg=cfg,
-        w_nominal=CostWeights(Q=t(_get(wn, "Q")), R=t(_get(wn, "R")), Qf=t(_get(wn, "Qf")),
-                              qb=t(_get(wn, "qb"))),
-        aux_init=AuxAdapt(Q=t(_get(ai, "Q")), R=t(_get(ai, "R")), qb=t(_get(ai, "qb"))),
-        bp=BarrierParams(alpha=t(_get(bp, "alpha")), gamma=t(_get(bp, "gamma")),
-                         tight=t(_get(bp, "tight"))),
+        cfg=_cfg_from(_get(d, "cfg")), w_nominal=w_nominal, aux_init=aux_init, bp=bp,
         x0=t(_get(d, "x0")),
         target=t(_get(d, "target")),
         centers=t(_get(d, "centers")),
@@ -80,6 +88,32 @@ def setup_from_numpy(d: Any, device: DeviceLike = None, dtype=torch.float32) -> 
         beta=float(_get(d, "beta")),
         eps=float(_get(d, "eps")),
         dubins=dubins,
+    )
+
+
+def family_setup_from_numpy(name: str, d: Any, device: DeviceLike = None,
+                            dtype=torch.float32) -> PaperSetup:
+    """A PaperSetup of family ``name`` from ``d`` with: cfg, w_nominal, aux_init, bp, x0
+    and target as setup_from_numpy takes them, and the system's dt, control_bounds
+    {name: bound}, w_low, w_high, centers [M, 2] and radii [M] (M may be 0), beta, eps
+    and optionally extra (e.g. {"x_lim": ..} of the cart-pole)."""
+    dev = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+
+    def t(v):
+        return torch.tensor(np.array(v), dtype=dtype, device=dev)
+
+    w_nominal, aux_init, bp = _weights_from(d, t)
+    centers = np.asarray(_get(d, "centers"), dtype=np.float64).reshape(-1, 2)
+    radii = np.asarray(_get(d, "radii"), dtype=np.float64).reshape(-1)
+    return build_family_setup(
+        name, cfg=_cfg_from(_get(d, "cfg")), w_nominal=w_nominal, aux_init=aux_init, bp=bp,
+        x0=t(_get(d, "x0")), target=t(_get(d, "target")), dt=float(_get(d, "dt")),
+        control_bounds={k: float(v) for k, v in dict(_get(d, "control_bounds")).items()},
+        w_low=[float(v) for v in _get(d, "w_low")], w_high=[float(v) for v in _get(d, "w_high")],
+        obstacles=[(tuple(c), float(r)) for c, r in zip(centers.tolist(), radii.tolist())],
+        beta=float(_get(d, "beta")), eps=float(_get(d, "eps")),
+        extra=dict(_get(d, "extra")) if _has(d, "extra") else None,
     )
 
 

@@ -1,10 +1,16 @@
-// Shared device code of the lane kernels: the Dubins component step, the
-// smooth-min obstacle value h, the relaxed inverse barrier, the DBaS-augmented
-// step f̂, its hand-written tangent map (the counterpart of jax.jvp in
-// tube_mpc_tpu/ops/lanes.py::jac_rows) and its derivatives in the barrier
-// parameters (the three jax.jvp calls of the generic _sfwd_kernel); the chunked
-// sweep that K1 and K3-K6 share (sweep), and with_obs, which launches a kernel
-// for the problem's obstacle count.
+// Shared device code of the lane kernels: the component systems (their step, its
+// tangent map, and their safety value h: the smooth-min over circle obstacles or the
+// cart-pole's track limit), the relaxed inverse barrier, the DBaS-augmented step f̂,
+// its hand-written tangent map (the counterpart of jax.jvp in
+// tube_mpc_tpu/ops/lanes.py::jac_rows) and its derivatives in the barrier parameters
+// (the three jax.jvp calls of the generic _sfwd_kernel); the chunked sweep that K1 and
+// K3-K6 share (sweep), and with_system, which launches a kernel for the problem's
+// obstacle count.
+//
+// Every kernel is a template on its system, System<T, SYS, NOBS> (SYS one of the ids
+// below, NOBS the obstacle count); a library is built for one system, LANE_SYSTEM
+// (ops/cuda/_build.py), so the arrays' sizes (n̂, m, the const rows) and the rows of
+// the sweeps' shared memory follow from the system at compile time.
 //
 // Layout: every array is [.., component, B] with the lane index fastest, so
 // neighbouring threads of a warp, which own neighbouring lanes, read neighbouring
@@ -22,25 +28,28 @@
 
 #include <type_traits>
 
+// The system a library is built for: an id of ops/lanes.py::FAMILIES.
+#ifndef LANE_SYSTEM
+#define LANE_SYSTEM 0
+#endif
+
 namespace lane {
 
-constexpr int NH = 4;                 // augmented state (px, py, theta, b)
-constexpr int M = 2;                  // controls (v, omega)
-constexpr int NC = 2 * NH + M + 3;    // const rows, see tube/lane_interface.py::_build_C
-constexpr int ROW_ALPHA = 2 * NH + M;
+constexpr int DUBINS = 0, DOUBLE_INTEGRATOR = 1, QUADROTOR2D = 2, CARTPOLE = 3;
+constexpr int MAX_M = 2;
 constexpr int MAX_OBS = 8;
 constexpr int MAX_ALPHAS = 8;
 
 // Runtime constants, passed by value to every kernel. Mirrors
-// ops/cuda/lane_solver.py::LaneConsts field by field. Sums such as
-// u_min + active_tol are formed in double on the host and rounded once to the
-// working type, as the reference does with Python floats.
+// ops/cuda/lane_solver.py::LaneConsts field by field. Sums and products such as
+// u_min + active_tol or m_pole * length are formed in double on the host and rounded
+// once to the working type, as the reference does with Python floats.
 struct Consts {
   double dt;
-  double u_min[M];
-  double u_max[M];
-  double act_lo[M];   // u_min + active_tol
-  double act_hi[M];   // u_max - active_tol
+  double u_min[MAX_M];
+  double u_max[MAX_M];
+  double act_lo[MAX_M];   // u_min + active_tol
+  double act_hi[MAX_M];   // u_max - active_tol
   double eps;         // barrier floor
   double neg_beta;    // -beta
   double inv_beta;    // 1 / beta
@@ -51,6 +60,17 @@ struct Consts {
   double reg;
   int32_t n_obs;
   int32_t n_alphas;
+  double mass;        // quadrotor
+  double inertia;
+  double arm;
+  double gravity;     // quadrotor, cart-pole
+  double m_pole;      // cart-pole
+  double length;
+  double total_m;     // m_cart + m_pole
+  double mpl;         // m_pole * length
+  double x_lim2;      // x_lim * x_lim
+  int32_t system;     // the id of the system the constants are for
+  int32_t pad;
 };
 
 __device__ __forceinline__ float m_exp(float x) { return expf(x); }
@@ -82,12 +102,13 @@ template <typename T> __device__ __forceinline__ T scrub(T v) {
 }
 
 // ---------------------------------------------------------------------------
-// Smooth-min obstacle value in component form (ops/lanes.py::dubins_components):
+// Smooth-min obstacle value in component form (ops/lanes.py::smoothmin_h_lin), on
+// the state's two leading rows (Dubins, the double integrator, the quadrotor):
 //   h = z - (1/beta) log sum_i exp(-beta (h_i - z)),  z = min_i h_i.
 //
 // NOBS is the obstacle count (p.n_obs), fixed at compile time so that every
 // obstacle loop unrolls into straight-line code the compiler can schedule; every
-// kernel is instantiated for 1 to MAX_OBS and launched through with_obs.
+// kernel is instantiated for 1 to MAX_OBS and launched through with_system.
 // Runtime-guarded loops over MAX_OBS slots cut a linearisation into blocks the
 // compiler could not schedule across, several times slower on an H100 (PERF.md).
 //
@@ -158,6 +179,49 @@ __device__ __forceinline__ T h_tan(const Consts& p, const HLin<T, NOBS>& L, T dp
   return dz - T(p.inv_beta) * (dacc / L.acc);
 }
 
+// The h policies: Lin holds h's value and what its tangent needs; rows(L, f) calls f
+// on each field of Lin that the tangent reads, in a fixed order (K4/K6 store and load
+// them, lane_sfwd.cu), ROWS of them.
+template <typename T, int NOBS> struct CircleH {
+  using Lin = HLin<T, NOBS>;
+  static constexpr int ROWS = 3 + NOBS + 2 * (NOBS - 1);
+  static __device__ __forceinline__ void lin(const Consts& p, const T* x, Lin& L) {
+    h_lin(p, x[0], x[1], L);
+  }
+  static __device__ __forceinline__ T tan(const Consts& p, const Lin& L, const T* dx) {
+    return h_tan(p, L, dx[0], dx[1]);
+  }
+  template <typename F> static __device__ __forceinline__ void rows(Lin& L, F&& f) {
+    f(L.px);
+    f(L.py);
+    f(L.acc);
+#pragma unroll
+    for (int i = 0; i < NOBS; ++i) f(L.e[i]);
+#pragma unroll
+    for (int i = 1; i < NOBS; ++i) {
+      f(L.wz[i]);
+      f(L.wv[i]);
+    }
+  }
+};
+
+// The cart-pole's track limit h = x_lim^2 - pos^2 (ops/lanes.py::cartpole_components),
+// with the tangent of JAX's rules for sub and mul: -(dpos pos + pos dpos).
+template <typename T> struct TrackH {
+  struct Lin {
+    T pos, value;
+  };
+  static constexpr int ROWS = 1;
+  static __device__ __forceinline__ void lin(const Consts& p, const T* x, Lin& L) {
+    L.pos = x[0];
+    L.value = T(p.x_lim2) - x[0] * x[0];
+  }
+  static __device__ __forceinline__ T tan(const Consts&, const Lin& L, const T* dx) {
+    return -(dx[0] * L.pos + L.pos * dx[0]);
+  }
+  template <typename F> static __device__ __forceinline__ void rows(Lin& L, F&& f) { f(L.pos); }
+};
+
 // ---------------------------------------------------------------------------
 // Relaxed inverse barrier (ops/barrier.py::relaxed_inverse_barrier) and its
 // tangent by JAX's rules for max, div and integer_pow. barrier_lin also forms the
@@ -216,42 +280,227 @@ __device__ __forceinline__ T barrier_dalpha(const Consts& p, const BLin<T>& L, T
 }
 
 // ---------------------------------------------------------------------------
+// The component steps x+ = f(x, u) (ops/lanes.py): lin computes the step and Lin,
+// what its tangent needs that depends on the point alone; tan is the tangent map by
+// JAX's rules, term by term; rows(L, f) calls f on each field of Lin, ROWS of them.
+// A division by a constant is a true division, as JAX's (and the plain versions').
+// ---------------------------------------------------------------------------
+template <typename T> struct DubinsStep {   // [px, py, theta], [v, omega]
+  static constexpr int NX = 3, NU = 2, ROWS = 3;
+  struct Lin {
+    T c, s, dtv;
+  };
+  static __device__ __forceinline__ void lin(const Consts& p, const T* x, const T* u, Lin& L,
+                                             T* out) {
+    const T dt = T(p.dt);
+    L.c = m_cos(x[2]);
+    L.s = m_sin(x[2]);
+    L.dtv = dt * u[0];
+    out[0] = x[0] + L.dtv * L.c;
+    out[1] = x[1] + L.dtv * L.s;
+    out[2] = x[2] + dt * u[1];
+  }
+  static __device__ __forceinline__ void tan(const Consts& p, const Lin& L, const T* dx,
+                                             const T* du, T* out) {
+    const T dt = T(p.dt);
+    const T ddtv = dt * du[0];
+    out[0] = dx[0] + (ddtv * L.c + L.dtv * (-(dx[2] * L.s)));
+    out[1] = dx[1] + (ddtv * L.s + L.dtv * (dx[2] * L.c));
+    out[2] = dx[2] + dt * du[1];
+  }
+  template <typename F> static __device__ __forceinline__ void rows(Lin& L, F&& f) {
+    f(L.c);
+    f(L.s);
+    f(L.dtv);
+  }
+};
+
+template <typename T> struct DoubleIntegratorStep {   // [px, py, vx, vy], [ax, ay]
+  static constexpr int NX = 4, NU = 2, ROWS = 0;
+  struct Lin {};
+  static __device__ __forceinline__ void lin(const Consts& p, const T* x, const T* u, Lin&,
+                                             T* out) {
+    const T dt = T(p.dt);
+    out[0] = x[0] + dt * x[2];
+    out[1] = x[1] + dt * x[3];
+    out[2] = x[2] + dt * u[0];
+    out[3] = x[3] + dt * u[1];
+  }
+  static __device__ __forceinline__ void tan(const Consts& p, const Lin&, const T* dx,
+                                             const T* du, T* out) {
+    const T dt = T(p.dt);
+    out[0] = dx[0] + dt * dx[2];
+    out[1] = dx[1] + dt * dx[3];
+    out[2] = dx[2] + dt * du[0];
+    out[3] = dx[3] + dt * du[1];
+  }
+  template <typename F> static __device__ __forceinline__ void rows(Lin&, F&&) {}
+};
+
+template <typename T> struct Quadrotor2DStep {   // [px, pz, th, vx, vz, om], [T1, T2]
+  static constexpr int NX = 6, NU = 2, ROWS = 3;
+  struct Lin {
+    T s, c, thrust;
+  };
+  static __device__ __forceinline__ void lin(const Consts& p, const T* x, const T* u, Lin& L,
+                                             T* out) {
+    const T dt = T(p.dt), mass = T(p.mass);
+    L.thrust = u[0] + u[1];
+    L.s = m_sin(x[2]);
+    L.c = m_cos(x[2]);
+    const T ax = ((-L.thrust) * L.s) / mass;
+    const T az = (L.thrust * L.c) / mass - T(p.gravity);
+    const T al = ((u[1] - u[0]) * T(p.arm)) / T(p.inertia);
+    out[0] = x[0] + dt * x[3];
+    out[1] = x[1] + dt * x[4];
+    out[2] = x[2] + dt * x[5];
+    out[3] = x[3] + dt * ax;
+    out[4] = x[4] + dt * az;
+    out[5] = x[5] + dt * al;
+  }
+  static __device__ __forceinline__ void tan(const Consts& p, const Lin& L, const T* dx,
+                                             const T* du, T* out) {
+    const T dt = T(p.dt), mass = T(p.mass);
+    const T dthrust = du[0] + du[1];
+    const T ds = dx[2] * L.c;
+    const T dc = -(dx[2] * L.s);
+    const T dax = ((-dthrust) * L.s + (-L.thrust) * ds) / mass;
+    const T daz = (dthrust * L.c + L.thrust * dc) / mass;
+    const T dal = ((du[1] - du[0]) * T(p.arm)) / T(p.inertia);
+    out[0] = dx[0] + dt * dx[3];
+    out[1] = dx[1] + dt * dx[4];
+    out[2] = dx[2] + dt * dx[5];
+    out[3] = dx[3] + dt * dax;
+    out[4] = dx[4] + dt * daz;
+    out[5] = dx[5] + dt * dal;
+  }
+  template <typename F> static __device__ __forceinline__ void rows(Lin& L, F&& f) {
+    f(L.s);
+    f(L.c);
+    f(L.thrust);
+  }
+};
+
+// The cart-pole (ops/lanes.py::cartpole_components), left to right as the JAX form:
+// temp = (F + mpl om om s) / tm, th_acc = (g s - c temp) / (l (4/3 - mp c c / tm)),
+// x_acc = temp - mpl th_acc c / tm, with tm = m_cart + m_pole and mpl = m_pole length
+// formed on the host. The tangent's division th_acc = nt / den takes JAX's div rule,
+// dnt / den + ((-dden) nt) (1 / (den den)).
+template <typename T> struct CartPoleStep {   // [pos, vel, th, om], [force]
+  static constexpr int NX = 4, NU = 1, ROWS = 11;
+  struct Lin {
+    T s, c, om, p1, p2, temp, q1, nt, den, inv_den2, r1;
+  };
+  static __device__ __forceinline__ void lin(const Consts& p, const T* x, const T* u, Lin& L,
+                                             T* out) {
+    const T dt = T(p.dt), tm = T(p.total_m), mpl = T(p.mpl);
+    L.s = m_sin(x[2]);
+    L.c = m_cos(x[2]);
+    L.om = x[3];
+    L.p1 = mpl * L.om;
+    L.p2 = L.p1 * L.om;
+    L.temp = (u[0] + L.p2 * L.s) / tm;
+    L.nt = T(p.gravity) * L.s - L.c * L.temp;
+    L.q1 = T(p.m_pole) * L.c;
+    L.den = T(p.length) * (T(4.0 / 3.0) - (L.q1 * L.c) / tm);
+    const T th_acc = L.nt / L.den;
+    L.r1 = mpl * th_acc;
+    const T x_acc = L.temp - (L.r1 * L.c) / tm;
+    L.inv_den2 = T(1) / (L.den * L.den);
+    out[0] = x[0] + dt * x[1];
+    out[1] = x[1] + dt * x_acc;
+    out[2] = x[2] + dt * x[3];
+    out[3] = x[3] + dt * th_acc;
+  }
+  static __device__ __forceinline__ void tan(const Consts& p, const Lin& L, const T* dx,
+                                             const T* du, T* out) {
+    const T dt = T(p.dt), tm = T(p.total_m), mpl = T(p.mpl);
+    const T ds = dx[2] * L.c;
+    const T dc = -(dx[2] * L.s);
+    const T dp2 = (mpl * dx[3]) * L.om + L.p1 * dx[3];
+    const T dtemp = (du[0] + (dp2 * L.s + L.p2 * ds)) / tm;
+    const T dnt = T(p.gravity) * ds - (dc * L.temp + L.c * dtemp);
+    const T dq2 = (T(p.m_pole) * dc) * L.c + L.q1 * dc;
+    const T dden = T(p.length) * (-(dq2 / tm));
+    const T dth_acc = dnt / L.den + ((-dden) * L.nt) * L.inv_den2;
+    const T dr2 = (mpl * dth_acc) * L.c + L.r1 * dc;
+    const T dx_acc = dtemp - dr2 / tm;
+    out[0] = dx[0] + dt * dx[1];
+    out[1] = dx[1] + dt * dx_acc;
+    out[2] = dx[2] + dt * dx[3];
+    out[3] = dx[3] + dt * dth_acc;
+  }
+  template <typename F> static __device__ __forceinline__ void rows(Lin& L, F&& f) {
+    f(L.s);
+    f(L.c);
+    f(L.om);
+    f(L.p1);
+    f(L.p2);
+    f(L.temp);
+    f(L.q1);
+    f(L.nt);
+    f(L.den);
+    f(L.inv_den2);
+    f(L.r1);
+  }
+};
+
+// A system: its step and its h, and the sizes that follow: the augmented state n̂ =
+// n + 1, the controls m, and the const rows C (tube/lane_interface.py::_build_C):
+// [0, n̂) stage diag | [n̂, n̂+m) 2R | [n̂+m, 2n̂+m) terminal diag | alpha, gamma, tight.
+template <typename Step, typename Hp> struct Sys : Step {
+  using H = Hp;
+  static constexpr int NX = Step::NX;
+  static constexpr int NH = Step::NX + 1;
+  static constexpr int M = Step::NU;
+  static constexpr int NC = 2 * NH + M + 3;
+  static constexpr int ROW_ALPHA = 2 * NH + M;
+};
+
+template <typename T, int SYS, int NOBS> struct SystemOf;
+template <typename T, int NOBS> struct SystemOf<T, DUBINS, NOBS> {
+  using type = Sys<DubinsStep<T>, CircleH<T, NOBS>>;
+};
+template <typename T, int NOBS> struct SystemOf<T, DOUBLE_INTEGRATOR, NOBS> {
+  using type = Sys<DoubleIntegratorStep<T>, CircleH<T, NOBS>>;
+};
+template <typename T, int NOBS> struct SystemOf<T, QUADROTOR2D, NOBS> {
+  using type = Sys<Quadrotor2DStep<T>, CircleH<T, NOBS>>;
+};
+template <typename T, int NOBS> struct SystemOf<T, CARTPOLE, NOBS> {
+  using type = Sys<CartPoleStep<T>, TrackH<T>>;
+};
+template <typename T, int SYS, int NOBS> using System = typename SystemOf<T, SYS, NOBS>::type;
+
+// ---------------------------------------------------------------------------
 // Augmented step f̂(x̂, u) = [f(x, u), B(h(f) - s) - gamma (B(h(x) - s) - b)]
 // (ops/lanes.py::augmented_step_fn) and its tangent map.
 // ---------------------------------------------------------------------------
-template <typename T, int NOBS> struct FLin {
-  T c, s, dtv, dt, gamma;
-  HLin<T, NOBS> hc, hn;
+template <typename T, typename S> struct FLin {
+  T gamma;
+  typename S::Lin f;
+  typename S::H::Lin hc, hn;
   BLin<T> bc, bn;
-  T out[NH];
+  T out[S::NH];
 };
 
-template <typename T, int NOBS>
-__device__ __forceinline__ void fhat_lin(const Consts& p, const T x[NH], const T u[M],
-                                         T alpha, T gamma, T tight, FLin<T, NOBS>& L) {
-  L.dt = T(p.dt);
+template <typename S, typename T>
+__device__ __forceinline__ void fhat_lin(const Consts& p, const T x[S::NH], const T u[S::M],
+                                         T alpha, T gamma, T tight, FLin<T, S>& L) {
   L.gamma = gamma;
-  L.c = m_cos(x[2]);
-  L.s = m_sin(x[2]);
-  L.dtv = L.dt * u[0];
-  const T pxn = x[0] + L.dtv * L.c;
-  const T pyn = x[1] + L.dtv * L.s;
-  const T thn = x[2] + L.dt * u[1];
-  h_lin(p, pxn, pyn, L.hn);
-  h_lin(p, x[0], x[1], L.hc);
+  S::lin(p, x, u, L.f, L.out);
+  S::H::lin(p, L.out, L.hn);
+  S::H::lin(p, x, L.hc);
   barrier_lin(p, L.hn.value - tight, alpha, L.bn);
   barrier_lin(p, L.hc.value - tight, alpha, L.bc);
-  L.out[0] = pxn;
-  L.out[1] = pyn;
-  L.out[2] = thn;
-  L.out[3] = L.bn.value - gamma * (L.bc.value - x[3]);
+  L.out[S::NX] = L.bn.value - gamma * (L.bc.value - x[S::NX]);
 }
 
-// The barrier value B(h(px, py) - tight) of fhat_lin's bc and bn.
-template <int NOBS, typename T>
-__device__ __forceinline__ T barrier_at(const Consts& p, T px, T py, T alpha, T tight) {
-  HLin<T, NOBS> h;
-  h_lin(p, px, py, h);
+// The barrier value B(h(x) - tight) of fhat_lin's bc and bn.
+template <typename S, typename T>
+__device__ __forceinline__ T barrier_at(const Consts& p, const T* x, T alpha, T tight) {
+  typename S::H::Lin h;
+  S::H::lin(p, x, h);
   BLin<T> b;
   barrier_lin(p, h.value - tight, alpha, b);
   return b.value;
@@ -262,58 +511,50 @@ __device__ __forceinline__ T barrier_at(const Consts& p, T px, T py, T alpha, T 
 // A rollout carries it from step to step, so each step evaluates h once: the next
 // state of step k is, bit for bit, the current state of step k+1. The operations
 // are fhat_lin's, so the values are too.
-template <int NOBS, typename T>
-__device__ __forceinline__ void fhat_carry(const Consts& p, const T x[NH], const T u[M], T alpha,
-                                           T gamma, T tight, T& bc, T out[NH]) {
-  const T dt = T(p.dt);
-  const T dtv = dt * u[0];
-  out[0] = x[0] + dtv * m_cos(x[2]);
-  out[1] = x[1] + dtv * m_sin(x[2]);
-  out[2] = x[2] + dt * u[1];
-  const T bn = barrier_at<NOBS>(p, out[0], out[1], alpha, tight);
-  out[3] = bn - gamma * (bc - x[3]);
+template <typename S, typename T>
+__device__ __forceinline__ void fhat_carry(const Consts& p, const T x[S::NH], const T u[S::M],
+                                           T alpha, T gamma, T tight, T& bc, T out[S::NH]) {
+  typename S::Lin f;
+  S::lin(p, x, u, f, out);
+  const T bn = barrier_at<S>(p, out, alpha, tight);
+  out[S::NX] = bn - gamma * (bc - x[S::NX]);
   bc = bn;
 }
 
-template <typename T, int NOBS>
-__device__ __forceinline__ void fhat_tan(const Consts& p, const FLin<T, NOBS>& L,
-                                         const T dx[NH], const T du[M], T out[NH]) {
-  const T ddtv = L.dt * du[0];
-  const T dpxn = dx[0] + (ddtv * L.c + L.dtv * (-(dx[2] * L.s)));
-  const T dpyn = dx[1] + (ddtv * L.s + L.dtv * (dx[2] * L.c));
-  const T dthn = dx[2] + L.dt * du[1];
-  const T dBn = barrier_tan(L.bn, h_tan(p, L.hn, dpxn, dpyn));
-  const T dBc = barrier_tan(L.bc, h_tan(p, L.hc, dx[0], dx[1]));
-  out[0] = dpxn;
-  out[1] = dpyn;
-  out[2] = dthn;
-  out[3] = dBn - L.gamma * (dBc - dx[3]);
+template <typename S, typename T>
+__device__ __forceinline__ void fhat_tan(const Consts& p, const FLin<T, S>& L,
+                                         const T dx[S::NH], const T du[S::M], T out[S::NH]) {
+  S::tan(p, L.f, dx, du, out);
+  const T dBn = barrier_tan(L.bn, S::H::tan(p, L.hn, out));
+  const T dBc = barrier_tan(L.bc, S::H::tan(p, L.hc, dx));
+  out[S::NX] = dBn - L.gamma * (dBc - dx[S::NX]);
 }
 
 // Derivatives of f̂ in the barrier parameters at the point of L (b is the
-// barrier state x̂[3] there), the rows (d f̂/d alpha, d f̂/d gamma, d f̂/d tight)
+// barrier state x̂[n] there), the rows (d f̂/d alpha, d f̂/d gamma, d f̂/d tight)
 // of ops/lanes.py::augmented_lin_fn: only the barrier row depends on them.
 // The zero rows stay in the sums that use them, as in the reference, so that
 // an infinite weight on them gives NaN there too.
-template <typename T, int NOBS>
-__device__ __forceinline__ void fhat_dparams(const Consts& p, const FLin<T, NOBS>& L, T alpha, T b,
-                                             T fa[NH], T fg[NH], T ft[NH]) {
+template <typename S, typename T>
+__device__ __forceinline__ void fhat_dparams(const Consts& p, const FLin<T, S>& L, T alpha, T b,
+                                             T fa[S::NH], T fg[S::NH], T ft[S::NH]) {
 #pragma unroll
-  for (int i = 0; i < NH - 1; ++i) {
+  for (int i = 0; i < S::NX; ++i) {
     fa[i] = T(0);
     fg[i] = T(0);
     ft[i] = T(0);
   }
-  fa[NH - 1] = barrier_dalpha(p, L.bn, alpha) - L.gamma * barrier_dalpha(p, L.bc, alpha);
-  fg[NH - 1] = -(L.bc.value - b);
-  ft[NH - 1] = barrier_tan(L.bn, T(-1)) - L.gamma * barrier_tan(L.bc, T(-1));
+  fa[S::NX] = barrier_dalpha(p, L.bn, alpha) - L.gamma * barrier_dalpha(p, L.bc, alpha);
+  fg[S::NX] = -(L.bc.value - b);
+  ft[S::NX] = barrier_tan(L.bn, T(-1)) - L.gamma * barrier_tan(L.bc, T(-1));
 }
 
 // Jacobian rows A[i][j] = d f̂_i / d x̂_j, Bm[i][a] = d f̂_i / d u_a by basis
 // tangents, as jac_rows does.
-template <typename T, int NOBS>
-__device__ __forceinline__ void fhat_jac(const Consts& p, const FLin<T, NOBS>& L, T A[NH][NH],
-                                         T Bm[NH][M]) {
+template <typename S, typename T>
+__device__ __forceinline__ void fhat_jac(const Consts& p, const FLin<T, S>& L,
+                                         T A[S::NH][S::NH], T Bm[S::NH][S::M]) {
+  constexpr int NH = S::NH, M = S::M;
 #pragma unroll
   for (int j = 0; j < NH + M; ++j) {
     T dx[NH], du[M], col[NH];
@@ -333,7 +574,7 @@ __device__ __forceinline__ void fhat_jac(const Consts& p, const FLin<T, NOBS>& L
 // Scale-invariant adjugate inverse of a 2x2 block with resolve-or-zero
 // (ops/pallas/lane_solver.py:126-143).
 template <typename T>
-__device__ __forceinline__ void inv2(T q00, T q01, T q10, T q11, T inv[M][M]) {
+__device__ __forceinline__ void inv2(T q00, T q01, T q10, T q11, T inv[2][2]) {
   T s = jmax(jmax(m_abs(q00), m_abs(q01)), jmax(m_abs(q10), m_abs(q11)));
   s = jmax(s, tiny<T>());
   const T n00 = q00 / s, n01 = q01 / s, n10 = q10 / s, n11 = q11 / s;
@@ -349,7 +590,7 @@ __device__ __forceinline__ void inv2(T q00, T q01, T q10, T q11, T inv[M][M]) {
 
 // Renormalise the value-function carry above 1e8 and scrub non-finite entries
 // (ops/pallas/lane_solver.py:173-189). vx is V_x (K1) or tV_x (K3).
-template <typename T>
+template <int NH, typename T>
 __device__ __forceinline__ void rescale_carry(const T vx_new[NH], const T vxx_new[NH][NH],
                                               T vx[NH], T vxx[NH][NH], T& logs) {
   T mmax = T(0);
@@ -387,9 +628,11 @@ constexpr int SWEEP_THREADS = 32 * SWEEP_WARPS;
 constexpr int SWEEP_KC = 3;            // steps per chunk, one per phase-A warp
 
 // Blocks each SM must hold at once: four f32 blocks (at most 128 registers a thread)
-// hold all 512 blocks of B=16384 on the 132 SMs. f64 is not capped.
-template <typename T> struct SweepBlocksPerSM {
-  static constexpr int value = sizeof(T) == 4 ? 4 : 1;
+// hold all 512 blocks of B=16384 on the 132 SMs. Above n̂ = 5 (the quadrotor's n̂ = 7,
+// whose 49-entry V_xx carry and Q blocks cannot fit in 128) two f32 blocks, at most 255
+// registers a thread. f64 is not capped.
+template <typename T, int NH> struct SweepBlocksPerSM {
+  static constexpr int value = NH > 5 ? (sizeof(T) == 4 ? 2 : 1) : (sizeof(T) == 4 ? 4 : 1);
 };
 
 // Barrier 1 over the block's threads, which warp 0 and the phase-A warps reach from
@@ -401,6 +644,14 @@ __device__ __forceinline__ void sweep_sync() {
 // Dynamic shared memory of a sweep with ROWS rows a step.
 template <typename T, int ROWS> constexpr int sweep_smem() {
   return 2 * SWEEP_KC * ROWS * 32 * static_cast<int>(sizeof(T));
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory: above the 48 KB a launch
+// gets by default it needs cudaFuncAttributeMaxDynamicSharedMemorySize.
+template <typename K> int allow_smem(K kernel, int smem) {
+  if (smem <= 48 * 1024) return static_cast<int>(cudaSuccess);
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
 }
 
 // lin(k, row) writes step k's rows at row[r * 32] (phase A); rec(k, row) reads them
@@ -452,29 +703,30 @@ __device__ __forceinline__ void sweep(int N, bool live, T* lin, Lin&& lin_step, 
   }
 }
 
-// Rows of f̂'s Jacobians in a step's phase-A rows (K1, K3/K5): A [0, 16), Bm [16, 24).
-constexpr int ROW_BM = NH * NH;
-constexpr int JAC_ROWS = ROW_BM + NH * M;
+// Rows of f̂'s Jacobians in a step's phase-A rows (K1, K3/K5): A [0, n̂²), Bm [n̂², n̂² + n̂m).
+template <typename S> constexpr int ROW_BM = S::NH * S::NH;
+template <typename S> constexpr int JAC_ROWS = ROW_BM<S> + S::NH * S::M;
 
-template <typename T>
-__device__ __forceinline__ void store_jac(const T A[NH][NH], const T Bm[NH][M], T* row) {
+template <typename S, typename T>
+__device__ __forceinline__ void store_jac(const T A[S::NH][S::NH], const T Bm[S::NH][S::M],
+                                          T* row) {
 #pragma unroll
-  for (int i = 0; i < NH; ++i) {
+  for (int i = 0; i < S::NH; ++i) {
 #pragma unroll
-    for (int j = 0; j < NH; ++j) row[(i * NH + j) * 32] = A[i][j];
+    for (int j = 0; j < S::NH; ++j) row[(i * S::NH + j) * 32] = A[i][j];
 #pragma unroll
-    for (int a = 0; a < M; ++a) row[(ROW_BM + i * M + a) * 32] = Bm[i][a];
+    for (int a = 0; a < S::M; ++a) row[(ROW_BM<S> + i * S::M + a) * 32] = Bm[i][a];
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void load_jac(const T* row, T A[NH][NH], T Bm[NH][M]) {
+template <typename S, typename T>
+__device__ __forceinline__ void load_jac(const T* row, T A[S::NH][S::NH], T Bm[S::NH][S::M]) {
 #pragma unroll
-  for (int i = 0; i < NH; ++i) {
+  for (int i = 0; i < S::NH; ++i) {
 #pragma unroll
-    for (int j = 0; j < NH; ++j) A[i][j] = row[(i * NH + j) * 32];
+    for (int j = 0; j < S::NH; ++j) A[i][j] = row[(i * S::NH + j) * 32];
 #pragma unroll
-    for (int a = 0; a < M; ++a) Bm[i][a] = row[(ROW_BM + i * M + a) * 32];
+    for (int a = 0; a < S::M; ++a) Bm[i][a] = row[(ROW_BM<S> + i * S::M + a) * 32];
   }
 }
 
@@ -487,6 +739,20 @@ int with_obs(int n_obs, F&& f) {
   } else {
     if (n_obs == NOBS) return f(std::integral_constant<int, NOBS>{});
     return with_obs<NOBS + 1>(n_obs, f);
+  }
+}
+
+// Calls f(std::integral_constant<int, NOBS>{}) for the kernels of this library's system
+// (LANE_SYSTEM): with the problem's obstacle count through with_obs, or NOBS = 0 for the
+// cart-pole, whose h is its track limit. Refuses constants made for another system.
+template <typename F>
+int with_system(const Consts& p, F&& f) {
+  if (p.system != LANE_SYSTEM) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (LANE_SYSTEM == CARTPOLE) {
+    if (p.n_obs != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return f(std::integral_constant<int, 0>{});
+  } else {
+    return with_obs(p.n_obs, f);
   }
 }
 

@@ -1,6 +1,7 @@
-// K3/K5 of the lane sensitivity on Hopper: the backward delta-z sweep.
+// K3/K5 of the lane sensitivity on Hopper: the backward delta-z sweep, for the system
+// LANE_SYSTEM (lane_common.cuh).
 //
-// sbwd_kernel<T, GENERIC, UPPER, NOBS> replaces
+// sbwd_kernel<T, GENERIC, UPPER, SYS, NOBS> replaces
 // tube_mpc_tpu/ops/pallas/lane_sensitivity.py::_sbwd_kernel: the backward sweep
 // with active-set elimination. UPPER=false builds the tube upper gradient
 // g_x = 2 (x - x_ref), g_u = 0 in-kernel; UPPER=true reads caller-supplied rows
@@ -9,9 +10,12 @@
 // k+1 in its scaled form: tV_x, V_xx, LogS (at k = N-1 the terminal
 // initialisation). Instantiated: <false, false> (K3, paper), <true, false> (K5,
 // the ancillary sweep), <true, true> (K5, the coupled nominal sweep), each for
-// 1 to 8 obstacles (NOBS, launched through with_obs).
+// 1 to 8 obstacles (NOBS, launched through with_system). The double integrator's, the
+// quadrotor's and the cart-pole's libraries build K3 only (their loop runs the paper
+// path); with one control (the cart-pole) the reduced solve is 1 / Q_m, as the JAX
+// kernel writes it, without resolve-or-zero.
 //
-// What bounds it on an H100 (B=16384, N=50, f32): per lane and step K3 reads 10
+// What bounds it on an H100 (Dubins, B=16384, N=50, f32): per lane and step K3 reads 10
 // values and writes 10, 66 MB a sweep; K5 also writes the 21 carry values and, with
 // UPPER, reads gX, gU in place of Xr. Nearly all of its operations, some 2,900 per
 // lane and step, are f̂'s linearisation (fhat_lin and the six tangents of fhat_jac),
@@ -22,10 +26,11 @@
 // the card they came from).
 //
 // Design: K1's (lane_solver.cu), on the chunked sweep of lane_common.cuh, backwards.
-// - Phase A writes, for each (step, lane), A (16 rows) and Bm (8) from fhat_lin and
-//   fhat_jac, the upper gradient g_x (4) unscaled, the active-set mask (2) and, with
-//   UPPER, g_u (2): 30 or 32 rows, two buffers of 3 steps within the 48 KB a launch
-//   gets without the dynamic shared memory attribute, in f64 too.
+// - Phase A writes, for each (step, lane), A (n̂² rows) and Bm (n̂m) from fhat_lin and
+//   fhat_jac, the upper gradient g_x (n̂) unscaled, the active-set mask (m) and, with
+//   UPPER, g_u (m): Dubins' 30 or 32 rows, two buffers of 3 steps, fit the 48 KB a
+//   launch gets by default in f64 too; the quadrotor's 72 rows need the dynamic shared
+//   memory attribute (allow_smem).
 // - Phase B, in warp 0, runs the recursion from those rows with its carry (tV_x,
 //   V_xx, LogS) in registers: it scales g_x and g_u by exp(-LogS) as before, so a
 //   value rounded to T, stored and multiplied rounds as it did, writes K, kff and,
@@ -41,53 +46,59 @@
 
 namespace lane {
 
-constexpr int ROW_G = JAC_ROWS;        // rows of a step in shared memory: A [0, 16),
-constexpr int ROW_AM = ROW_G + NH;     //   Bm [16, 24), g_x [24, 28) before the scale,
-constexpr int ROW_GU = ROW_AM + M;     //   the mask am [28, 30), g_u [30, 32) (UPPER)
-template <bool UPPER> constexpr int SBWD_ROWS = ROW_GU + (UPPER ? M : 0);
+template <typename S> constexpr int ROW_G = JAC_ROWS<S>;          // rows of a step in shared
+template <typename S> constexpr int ROW_AM = ROW_G<S> + S::NH;    //   memory: A, Bm, g_x before
+template <typename S> constexpr int ROW_GU = ROW_AM<S> + S::M;    //   the scale, the mask am,
+template <typename S, bool UPPER>                                 //   g_u (UPPER)
+constexpr int SBWD_ROWS = ROW_GU<S> + (UPPER ? S::M : 0);
 
 // Phase A for step k of one lane.
-template <int NOBS, bool UPPER, typename T>
+template <typename S, bool UPPER, typename T>
 __device__ __forceinline__ void sbwd_lin(const Consts& p, const T* __restrict__ gX,
                                          const T* __restrict__ gU, const T* __restrict__ U,
                                          const T* __restrict__ X, const T* __restrict__ Xr,
-                                         const T c[NC], int k, size_t Bs, int lane, T* row) {
+                                         const T c[S::NC], int k, size_t Bs, int lane, T* row) {
+  constexpr int NH = S::NH, M = S::M;
   T xs[NH], us[M];
 #pragma unroll
   for (int i = 0; i < NH; ++i) xs[i] = X[(static_cast<size_t>(k) * NH + i) * Bs + lane];
 #pragma unroll
   for (int a = 0; a < M; ++a) us[a] = U[(static_cast<size_t>(k) * M + a) * Bs + lane];
-  FLin<T, NOBS> L;
-  fhat_lin(p, xs, us, c[ROW_ALPHA], c[ROW_ALPHA + 1], c[ROW_ALPHA + 2], L);
+  FLin<T, S> L;
+  fhat_lin<S>(p, xs, us, c[S::ROW_ALPHA], c[S::ROW_ALPHA + 1], c[S::ROW_ALPHA + 2], L);
   T A[NH][NH], Bm[NH][M];
-  fhat_jac(p, L, A, Bm);
-  store_jac(A, Bm, row);
+  fhat_jac<S>(p, L, A, Bm);
+  store_jac<S>(A, Bm, row);
 #pragma unroll
   for (int i = 0; i < NH; ++i) {
     const size_t at = (static_cast<size_t>(k) * NH + i) * Bs + lane;
     if constexpr (UPPER) {
-      row[(ROW_G + i) * 32] = gX[at];
+      row[(ROW_G<S> + i) * 32] = gX[at];
     } else {
-      row[(ROW_G + i) * 32] = T(2) * (xs[i] - Xr[at]);
+      row[(ROW_G<S> + i) * 32] = T(2) * (xs[i] - Xr[at]);
     }
   }
   // Active set: a control within active_tol of a bound is eliminated (identity row
   // and column, zero gains).
 #pragma unroll
   for (int a = 0; a < M; ++a) {
-    row[(ROW_AM + a) * 32] = (us[a] <= T(p.act_lo[a]) || us[a] >= T(p.act_hi[a])) ? T(0) : T(1);
-    if constexpr (UPPER) row[(ROW_GU + a) * 32] = gU[(static_cast<size_t>(k) * M + a) * Bs + lane];
+    row[(ROW_AM<S> + a) * 32] =
+        (us[a] <= T(p.act_lo[a]) || us[a] >= T(p.act_hi[a])) ? T(0) : T(1);
+    if constexpr (UPPER)
+      row[(ROW_GU<S> + a) * 32] = gU[(static_cast<size_t>(k) * M + a) * Bs + lane];
   }
 }
 
 // Phase B for step k of one lane: K and kff from the step's rows (row[r * 32]) and
 // the carry, which it advances to step k; with GENERIC it first writes the carry.
-template <bool GENERIC, bool UPPER, typename T>
-__device__ __forceinline__ void sbwd_step(const T* row, const T c[NC], T reg0, T tv[NH],
-                                          T vxx[NH][NH], T& logs, T* __restrict__ Kout,
+// Every sum over the controls runs a = 0..m-1 left to right, as the reference's.
+template <typename S, bool GENERIC, bool UPPER, typename T>
+__device__ __forceinline__ void sbwd_step(const T* row, const T c[S::NC], T reg0, T tv[S::NH],
+                                          T vxx[S::NH][S::NH], T& logs, T* __restrict__ Kout,
                                           T* __restrict__ kffout, T* __restrict__ tVx_out,
                                           T* __restrict__ Vxx_out, T* __restrict__ LogS_out,
                                           int k, size_t Bs, int lane) {
+  constexpr int NH = S::NH, M = S::M;
   if constexpr (GENERIC) {
 #pragma unroll
     for (int i = 0; i < NH; ++i) {
@@ -100,9 +111,9 @@ __device__ __forceinline__ void sbwd_step(const T* row, const T c[NC], T reg0, T
   }
   const T inv_s = m_exp(-logs);
   T A[NH][NH], Bm[NH][M], gx[NH];
-  load_jac(row, A, Bm);
+  load_jac<S>(row, A, Bm);
 #pragma unroll
-  for (int i = 0; i < NH; ++i) gx[i] = row[(ROW_G + i) * 32] * inv_s;
+  for (int i = 0; i < NH; ++i) gx[i] = row[(ROW_G<S> + i) * 32] * inv_s;
 
   T VA[NH][NH], VB[NH][M], Qxx[NH][NH], Qxu[NH][M], Qux[M][NH], Quu[M][M], tQu[M], tQx[NH];
 #pragma unroll
@@ -159,7 +170,7 @@ __device__ __forceinline__ void sbwd_step(const T* row, const T c[NC], T reg0, T
 #pragma unroll
     for (int l = 1; l < NH; ++l) s = s + Bm[l][a] * tv[l];
     if constexpr (UPPER) {
-      tQu[a] = row[(ROW_GU + a) * 32] * inv_s + s;
+      tQu[a] = row[(ROW_GU<S> + a) * 32] * inv_s + s;
     } else {
       tQu[a] = s;
     }
@@ -176,7 +187,7 @@ __device__ __forceinline__ void sbwd_step(const T* row, const T c[NC], T reg0, T
   T am[M], act[M];
 #pragma unroll
   for (int a = 0; a < M; ++a) {
-    am[a] = row[(ROW_AM + a) * 32];
+    am[a] = row[(ROW_AM<S> + a) * 32];
     act[a] = T(1) - am[a];
   }
   T Qm[M][M], Qux_m[M][NH], tQu_m[M];
@@ -192,14 +203,26 @@ __device__ __forceinline__ void sbwd_step(const T* row, const T c[NC], T reg0, T
   }
 
   T inv[M][M];
-  inv2(Qm[0][0], Qm[0][1], Qm[1][0], Qm[1][1], inv);
+  if constexpr (M == 1) {
+    inv[0][0] = T(1) / Qm[0][0];
+  } else {
+    inv2(Qm[0][0], Qm[0][1], Qm[1][0], Qm[1][1], inv);
+  }
 
   T K[M][NH], kf[M];
 #pragma unroll
   for (int a = 0; a < M; ++a) {
 #pragma unroll
-    for (int i = 0; i < NH; ++i) K[a][i] = -(inv[a][0] * Qux_m[0][i] + inv[a][1] * Qux_m[1][i]);
-    kf[a] = -(inv[a][0] * tQu_m[0] + inv[a][1] * tQu_m[1]);
+    for (int i = 0; i < NH; ++i) {
+      T s = inv[a][0] * Qux_m[0][i];
+#pragma unroll
+      for (int b = 1; b < M; ++b) s = s + inv[a][b] * Qux_m[b][i];
+      K[a][i] = -s;
+    }
+    T s = inv[a][0] * tQu_m[0];
+#pragma unroll
+    for (int b = 1; b < M; ++b) s = s + inv[a][b] * tQu_m[b];
+    kf[a] = -s;
     kffout[(static_cast<size_t>(k) * M + a) * Bs + lane] = kf[a];
 #pragma unroll
     for (int i = 0; i < NH; ++i)
@@ -209,29 +232,39 @@ __device__ __forceinline__ void sbwd_step(const T* row, const T c[NC], T reg0, T
   T tv_new[NH], vxx_new[NH][NH];
 #pragma unroll
   for (int i = 0; i < NH; ++i) {
-    tv_new[i] = tQx[i] + (Qxu[i][0] * kf[0] + Qxu[i][1] * kf[1]);
+    T s = Qxu[i][0] * kf[0];
 #pragma unroll
-    for (int j = 0; j < NH; ++j)
-      vxx_new[i][j] = Qxx[i][j] + (Qxu[i][0] * K[0][j] + Qxu[i][1] * K[1][j]);
+    for (int a = 1; a < M; ++a) s = s + Qxu[i][a] * kf[a];
+    tv_new[i] = tQx[i] + s;
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      T t = Qxu[i][0] * K[0][j];
+#pragma unroll
+      for (int a = 1; a < M; ++a) t = t + Qxu[i][a] * K[a][j];
+      vxx_new[i][j] = Qxx[i][j] + t;
+    }
   }
-  rescale_carry(tv_new, vxx_new, tv, vxx, logs);
+  rescale_carry<NH>(tv_new, vxx_new, tv, vxx, logs);
 }
 
-template <typename T, bool GENERIC, bool UPPER, int NOBS>
-__global__ void __launch_bounds__(SWEEP_THREADS, SweepBlocksPerSM<T>::value)
+template <typename T, bool GENERIC, bool UPPER, int SYS, int NOBS>
+__global__ void __launch_bounds__(SWEEP_THREADS,
+                                  SweepBlocksPerSM<T, System<T, SYS, NOBS>::NH>::value)
 sbwd_kernel(const T* __restrict__ gX, const T* __restrict__ gU, const T* __restrict__ gXN,
             const T* __restrict__ U, const T* __restrict__ X, const T* __restrict__ Xr,
             const T* __restrict__ C, const T* __restrict__ XN, const T* __restrict__ XrN,
             T* __restrict__ Kout, T* __restrict__ kffout, T* __restrict__ tVx_out,
             T* __restrict__ Vxx_out, T* __restrict__ LogS_out, int N, int B, Consts p) {
+  using S = System<T, SYS, NOBS>;
+  constexpr int NH = S::NH, M = S::M;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = blockIdx.x * 32 + (threadIdx.x & 31);
   const bool live = lane < B;
   const size_t Bs = static_cast<size_t>(B);
 
-  T c[NC];
+  T c[S::NC];
 #pragma unroll
-  for (int r = 0; r < NC; ++r) c[r] = live ? C[r * Bs + lane] : T(0);
+  for (int r = 0; r < S::NC; ++r) c[r] = live ? C[r * Bs + lane] : T(0);
   T tv[NH], vxx[NH][NH];
   T logs = T(0);
 #pragma unroll
@@ -247,12 +280,12 @@ sbwd_kernel(const T* __restrict__ gX, const T* __restrict__ gU, const T* __restr
     for (int j = 0; j < NH; ++j) vxx[i][j] = (i == j) ? c[NH + M + i] : T(0);
   }
   const T reg0 = T(p.reg);
-  sweep<true, SBWD_ROWS<UPPER>>(
+  sweep<true, SBWD_ROWS<S, UPPER>>(
       N, live, reinterpret_cast<T*>(smem),
-      [&](int k, T* row) { sbwd_lin<NOBS, UPPER>(p, gX, gU, U, X, Xr, c, k, Bs, lane, row); },
+      [&](int k, T* row) { sbwd_lin<S, UPPER>(p, gX, gU, U, X, Xr, c, k, Bs, lane, row); },
       [&](int k, const T* row) {
-        sbwd_step<GENERIC, UPPER>(row, c, reg0, tv, vxx, logs, Kout, kffout, tVx_out, Vxx_out,
-                                  LogS_out, k, Bs, lane);
+        sbwd_step<S, GENERIC, UPPER>(row, c, reg0, tv, vxx, logs, Kout, kffout, tVx_out,
+                                     Vxx_out, LogS_out, k, Bs, lane);
       });
 }
 
@@ -261,20 +294,21 @@ int launch_sbwd(const void* gX, const void* gU, const void* gXN, const void* U, 
                 const void* Xr, const void* C, const void* XN, const void* XrN, void* K,
                 void* kff, void* tVx, void* Vxx, void* LogS, int N, int B, const Consts* p,
                 void* stream) {
-  // Two buffers: 30 rows f32 23,040 bytes, f64 46,080; 32 rows (UPPER) f64 49,152, the
-  // 48 KB a launch gets without cudaFuncAttributeMaxDynamicSharedMemorySize.
-  constexpr int smem = sweep_smem<T, SBWD_ROWS<UPPER>>();
-  static_assert(smem <= 48 * 1024, "K3/K5's buffers need the dynamic shared memory attribute");
+  // Two buffers: Dubins' 30 rows f32 23,040 bytes, f64 46,080; 32 rows (UPPER) f64
+  // 49,152; the quadrotor's 72 rows f64 110,592 (allow_smem).
   const dim3 grid((B + 31) / 32);
-  return with_obs(p->n_obs, [&](auto nobs) {
+  return with_system(*p, [&](auto nobs) {
     constexpr int NOBS = decltype(nobs)::value;
-    sbwd_kernel<T, GENERIC, UPPER, NOBS>
-        <<<grid, SWEEP_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const T*>(gX), static_cast<const T*>(gU), static_cast<const T*>(gXN),
-            static_cast<const T*>(U), static_cast<const T*>(X), static_cast<const T*>(Xr),
-            static_cast<const T*>(C), static_cast<const T*>(XN), static_cast<const T*>(XrN),
-            static_cast<T*>(K), static_cast<T*>(kff), static_cast<T*>(tVx),
-            static_cast<T*>(Vxx), static_cast<T*>(LogS), N, B, *p);
+    constexpr int smem = sweep_smem<T, SBWD_ROWS<System<T, LANE_SYSTEM, NOBS>, UPPER>>();
+    const auto kernel = sbwd_kernel<T, GENERIC, UPPER, LANE_SYSTEM, NOBS>;
+    const int err = allow_smem(kernel, smem);
+    if (err != 0) return err;
+    kernel<<<grid, SWEEP_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(gX), static_cast<const T*>(gU), static_cast<const T*>(gXN),
+        static_cast<const T*>(U), static_cast<const T*>(X), static_cast<const T*>(Xr),
+        static_cast<const T*>(C), static_cast<const T*>(XN), static_cast<const T*>(XrN),
+        static_cast<T*>(K), static_cast<T*>(kff), static_cast<T*>(tVx),
+        static_cast<T*>(Vxx), static_cast<T*>(LogS), N, B, *p);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -283,7 +317,8 @@ int launch_sbwd(const void* gX, const void* gU, const void* gXN, const void* U, 
 
 // C entry points, one per variant and type: the tensors in the order of the
 // Python wrapper (ops/cuda/lane_sensitivity.py), then N, B, the constants and
-// the stream. Each returns cudaGetLastError() after the launch.
+// the stream. Each returns cudaGetLastError() after the launch. The generic variants
+// (K5) are built into Dubins' library only.
 #define LANE_SBWD_ENTRIES(T, SUFFIX)                                                          \
   int lane_sbwd_##SUFFIX(const void* U, const void* X, const void* Xr, const void* C,         \
                          const void* XN, const void* XrN, void* K, void* kff, int N, int B,   \
@@ -291,7 +326,8 @@ int launch_sbwd(const void* gX, const void* gU, const void* gXN, const void* U, 
     return lane::launch_sbwd<T, false, false>(nullptr, nullptr, nullptr, U, X, Xr, C, XN,     \
                                               XrN, K, kff, nullptr, nullptr, nullptr, N, B,   \
                                               p, stream);                                     \
-  }                                                                                           \
+  }
+#define LANE_SBWD_GENERIC_ENTRIES(T, SUFFIX)                                                  \
   int lane_sbwd_generic_##SUFFIX(const void* U, const void* X, const void* Xr, const void* C, \
                                  const void* XN, const void* XrN, void* K, void* kff,         \
                                  void* tVx, void* Vxx, void* LogS, int N, int B,              \
@@ -310,4 +346,8 @@ int launch_sbwd(const void* gX, const void* gU, const void* gXN, const void* U, 
 extern "C" {
 LANE_SBWD_ENTRIES(float, f32)
 LANE_SBWD_ENTRIES(double, f64)
+#if LANE_SYSTEM == 0
+LANE_SBWD_GENERIC_ENTRIES(float, f32)
+LANE_SBWD_GENERIC_ENTRIES(double, f64)
+#endif
 }  // extern "C"

@@ -1,7 +1,7 @@
 // K4/K6 of the lane sensitivity on Hopper: the forward delta rollout fused with the
-// weight gradients.
+// weight gradients, for the system LANE_SYSTEM (lane_common.cuh).
 //
-// sfwd_kernel<T, GENERIC, EMIT, NOBS> replaces
+// sfwd_kernel<T, GENERIC, EMIT, SYS, NOBS> replaces
 // tube_mpc_tpu/ops/pallas/lane_sensitivity.py::_sfwd_kernel: the rollout
 // dv = kff + K dx, dx+ = the tangent of f̂ along (dx, dv), with the closed-form
 // gradients gQ/gqb = sum 2 (x - x_ref) dx and gR = sum 2 (u - u_ref) dv. GENERIC=true
@@ -12,9 +12,10 @@
 // reference cotangents -C dx, -C dv at each k and -C_N dx_N. Instantiated:
 // <false, false> (K4, paper), <true, false> (K6, the nominal sweep), <true, true>
 // (K6, the ancillary sweep of the coupled chain), each for 1 to 8 obstacles (NOBS,
-// launched through with_obs).
+// launched through with_system). The double integrator's, the quadrotor's and the
+// cart-pole's libraries build K4 only (their loop runs the paper path).
 //
-// What bounds it on an H100 (B=16384, N=50, f32): per lane and step K4 reads 22
+// What bounds it on an H100 (Dubins, B=16384, N=50, f32): per lane and step K4 reads 22
 // values, 72 MB a sweep; K6 reads the 21 carry rows K5 wrote and, with EMIT, writes 6
 // more values. Its operations, one tangent of f̂ a step, take less time than those
 // bytes, so every variant is bound by bytes (chip_smoke.py prints both bounds; PERF.md
@@ -25,17 +26,20 @@
 // obstacle and a log in each of the two smooth-mins, the barriers' divisions), and
 // fhat_dparams depend on X, U and C alone.
 // - Phase A writes, for each (step, lane), the fields of FLin that fhat_tan reads
-//   (tan_rows: 6 NOBS + 17 rows, the min chain's weights and the barriers' factors
-//   already formed), 2 (x - x_ref) (4 rows), 2 (u - u_ref) (2) and, with GENERIC, the
+//   (tan_rows: the step's own (Dubins 3, the double integrator none, the quadrotor 3,
+//   the cart-pole 11), each h's (3 NOBS + 1 for the smooth-min, 1 for the track limit)
+//   and each barrier's 6, with the min chain's weights and the barriers' factors
+//   already formed), 2 (x - x_ref) (n̂ rows), 2 (u - u_ref) (m) and, with GENERIC, the
 //   barrier rows of the three parameter derivatives (3).
 // - Phase B, in warp 0, runs fhat_tan on those fields with the same operations in the
 //   same order, and the sums. It loads step k+1's K and kff while it computes step k,
 //   as K2 does, and with GENERIC the step's carry rows before its tangent, though they
 //   are used after it: a warp runs in program order, so a load whose value the step waits for
 //   stalls every later step (PERF.md).
-// At 5 obstacles a step has 53-56 rows: 41-43 KB of shared memory in f32 (four
+// Dubins at 5 obstacles has 53-56 rows a step: 41-43 KB of shared memory in f32 (four
 // blocks an SM hold all 512 blocks of B=16384 in one wave); above 48 KB (f64, or 8
-// obstacles with GENERIC) the launcher raises the block's dynamic shared memory limit.
+// obstacles with GENERIC, or the quadrotor's 50-74 rows) the launcher raises the
+// block's dynamic shared memory limit (allow_smem).
 // Longer chunks would cost that wave. Where the time goes (tools/ric_probe.py): K4's
 // two phases take about as long each and overlap well; with GENERIC, phase B (the
 // carry rows, dlam and the gdyn sums on top of the tangent) sets the time.
@@ -47,16 +51,16 @@ namespace lane {
 
 // Rows of a step in shared memory: the tangent's fields [0, TAN_ROWS), 2 (x - x_ref),
 // 2 (u - u_ref), and with GENERIC the barrier rows of d f̂/d(alpha, gamma, tight).
-template <int NOBS> constexpr int TAN_ROWS = 3 + 2 * (3 * NOBS + 1) + 2 * 6;
-template <int NOBS> constexpr int ROW_G2X = TAN_ROWS<NOBS>;
-template <int NOBS> constexpr int ROW_G2U = ROW_G2X<NOBS> + NH;
-template <int NOBS> constexpr int ROW_DP = ROW_G2U<NOBS> + M;
-template <int NOBS, bool GENERIC> constexpr int SFWD_ROWS = ROW_DP<NOBS> + (GENERIC ? 3 : 0);
+template <typename S> constexpr int TAN_ROWS = S::ROWS + 2 * S::H::ROWS + 2 * 6;
+template <typename S> constexpr int ROW_G2X = TAN_ROWS<S>;
+template <typename S> constexpr int ROW_G2U = ROW_G2X<S> + S::NH;
+template <typename S> constexpr int ROW_DP = ROW_G2U<S> + S::M;
+template <typename S, bool GENERIC> constexpr int SFWD_ROWS = ROW_DP<S> + (GENERIC ? 3 : 0);
 
-// Stores (STORE) or loads the fields of L that fhat_tan reads, but dt and gamma:
+// Stores (STORE) or loads the fields of L that fhat_tan reads, but gamma:
 // row[r * 32] for row r.
-template <bool STORE, int NOBS, typename T, typename P>
-__device__ __forceinline__ void tan_rows(FLin<T, NOBS>& L, P row) {
+template <bool STORE, typename S, typename T, typename P>
+__device__ __forceinline__ void tan_rows(FLin<T, S>& L, P row) {
   int r = 0;
   auto f = [&](T& v) {
     if constexpr (STORE) {
@@ -66,23 +70,9 @@ __device__ __forceinline__ void tan_rows(FLin<T, NOBS>& L, P row) {
     }
     ++r;
   };
-  f(L.c);
-  f(L.s);
-  f(L.dtv);
-  auto h = [&](HLin<T, NOBS>& H) {
-    f(H.px);
-    f(H.py);
-    f(H.acc);
-#pragma unroll
-    for (int i = 0; i < NOBS; ++i) f(H.e[i]);
-#pragma unroll
-    for (int i = 1; i < NOBS; ++i) {
-      f(H.wz[i]);
-      f(H.wv[i]);
-    }
-  };
-  h(L.hc);
-  h(L.hn);
+  S::rows(L.f, f);
+  S::H::rows(L.hc, f);
+  S::H::rows(L.hn, f);
   auto b = [&](BLin<T>& Bl) {
     if constexpr (STORE) {
       row[r * 32] = Bl.safe ? T(1) : T(0);
@@ -101,46 +91,48 @@ __device__ __forceinline__ void tan_rows(FLin<T, NOBS>& L, P row) {
 }
 
 // Phase A for step k of one lane.
-template <bool GENERIC, int NOBS, typename T>
+template <typename S, bool GENERIC, typename T>
 __device__ __forceinline__ void sfwd_lin(const Consts& p, const T* __restrict__ X,
                                          const T* __restrict__ Xr, const T* __restrict__ U,
                                          const T* __restrict__ Ur, T alpha, T gamma, T tight,
                                          int k, size_t Bs, int lane, T* row) {
+  constexpr int NH = S::NH, M = S::M;
   T xs[NH], us[M];
 #pragma unroll
   for (int i = 0; i < NH; ++i) xs[i] = X[(static_cast<size_t>(k) * NH + i) * Bs + lane];
 #pragma unroll
   for (int a = 0; a < M; ++a) us[a] = U[(static_cast<size_t>(k) * M + a) * Bs + lane];
-  FLin<T, NOBS> L;
-  fhat_lin(p, xs, us, alpha, gamma, tight, L);
+  FLin<T, S> L;
+  fhat_lin<S>(p, xs, us, alpha, gamma, tight, L);
   tan_rows<true>(L, row);
 #pragma unroll
   for (int i = 0; i < NH; ++i)
-    row[(ROW_G2X<NOBS> + i) * 32] =
+    row[(ROW_G2X<S> + i) * 32] =
         T(2) * (xs[i] - Xr[(static_cast<size_t>(k) * NH + i) * Bs + lane]);
 #pragma unroll
   for (int a = 0; a < M; ++a)
-    row[(ROW_G2U<NOBS> + a) * 32] =
+    row[(ROW_G2U<S> + a) * 32] =
         T(2) * (us[a] - Ur[(static_cast<size_t>(k) * M + a) * Bs + lane]);
   if constexpr (GENERIC) {
     // Only the barrier row of d f̂/d(alpha, gamma, tight) depends on the point; phase
     // B puts the zeros of the other rows back into its sums.
     T fp[3][NH];
-    fhat_dparams(p, L, alpha, xs[NH - 1], fp[0], fp[1], fp[2]);
+    fhat_dparams<S>(p, L, alpha, xs[S::NX], fp[0], fp[1], fp[2]);
 #pragma unroll
-    for (int r = 0; r < 3; ++r) row[(ROW_DP<NOBS> + r) * 32] = fp[r][NH - 1];
+    for (int r = 0; r < 3; ++r) row[(ROW_DP<S> + r) * 32] = fp[r][S::NX];
   }
 }
 
 // The gains of step k.
-template <typename T> struct Gains {
-  T K[M][NH], kf[M];
+template <typename T, typename S> struct Gains {
+  T K[S::M][S::NH], kf[S::M];
 };
 
-template <typename T>
-__device__ __forceinline__ void load_gains(Gains<T>& g, const T* __restrict__ Kg,
+template <typename S, typename T>
+__device__ __forceinline__ void load_gains(Gains<T, S>& g, const T* __restrict__ Kg,
                                            const T* __restrict__ kff, int k, size_t Bs,
                                            int lane) {
+  constexpr int NH = S::NH, M = S::M;
 #pragma unroll
   for (int a = 0; a < M; ++a) {
     g.kf[a] = kff[(static_cast<size_t>(k) * M + a) * Bs + lane];
@@ -150,8 +142,9 @@ __device__ __forceinline__ void load_gains(Gains<T>& g, const T* __restrict__ Kg
   }
 }
 
-template <typename T, bool GENERIC, bool EMIT, int NOBS>
-__global__ void __launch_bounds__(SWEEP_THREADS, SweepBlocksPerSM<T>::value)
+template <typename T, bool GENERIC, bool EMIT, int SYS, int NOBS>
+__global__ void __launch_bounds__(SWEEP_THREADS,
+                                  SweepBlocksPerSM<T, System<T, SYS, NOBS>::NH>::value)
 sfwd_kernel(const T* __restrict__ Kg, const T* __restrict__ kff, const T* __restrict__ X,
             const T* __restrict__ Xr, const T* __restrict__ U, const T* __restrict__ Ur,
             const T* __restrict__ C, const T* __restrict__ XN, const T* __restrict__ XrN,
@@ -160,14 +153,16 @@ sfwd_kernel(const T* __restrict__ Kg, const T* __restrict__ kff, const T* __rest
             T* __restrict__ gdyn_out, T* __restrict__ gxr_out, T* __restrict__ gur_out,
             T* __restrict__ gxrN_out, int N, int B, Consts p) {
   static_assert(GENERIC || !EMIT, "the reference cotangents come with the generic sweep only");
+  using S = System<T, SYS, NOBS>;
+  constexpr int NH = S::NH, M = S::M;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = blockIdx.x * 32 + (threadIdx.x & 31);
   const bool live = lane < B;
   const size_t Bs = static_cast<size_t>(B);
 
-  const T alpha = live ? C[ROW_ALPHA * Bs + lane] : T(0);
-  const T gamma = live ? C[(ROW_ALPHA + 1) * Bs + lane] : T(0);
-  const T tight = live ? C[(ROW_ALPHA + 2) * Bs + lane] : T(0);
+  const T alpha = live ? C[S::ROW_ALPHA * Bs + lane] : T(0);
+  const T gamma = live ? C[(S::ROW_ALPHA + 1) * Bs + lane] : T(0);
+  const T tight = live ? C[(S::ROW_ALPHA + 2) * Bs + lane] : T(0);
 
   T dx[NH], gx[NH], gr[M];
 #pragma unroll
@@ -178,17 +173,17 @@ sfwd_kernel(const T* __restrict__ Kg, const T* __restrict__ kff, const T* __rest
 #pragma unroll
   for (int a = 0; a < M; ++a) gr[a] = T(0);
   T gdyn[3] = {T(0), T(0), T(0)};
-  Gains<T> next;   // step k+1's gains, loaded while step k runs
-  if (live) load_gains(next, Kg, kff, 0, Bs, lane);
+  Gains<T, S> next;   // step k+1's gains, loaded while step k runs
+  if (live) load_gains<S>(next, Kg, kff, 0, Bs, lane);
 
-  sweep<false, SFWD_ROWS<NOBS, GENERIC>>(
+  sweep<false, SFWD_ROWS<S, GENERIC>>(
       N, live, reinterpret_cast<T*>(smem),
       [&](int k, T* row) {
-        sfwd_lin<GENERIC, NOBS>(p, X, Xr, U, Ur, alpha, gamma, tight, k, Bs, lane, row);
+        sfwd_lin<S, GENERIC>(p, X, Xr, U, Ur, alpha, gamma, tight, k, Bs, lane, row);
       },
       [&](int k, const T* row) {
-        const Gains<T> g = next;
-        load_gains(next, Kg, kff, k + 1 < N ? k + 1 : k, Bs, lane);
+        const Gains<T, S> g = next;
+        load_gains<S>(next, Kg, kff, k + 1 < N ? k + 1 : k, Bs, lane);
         T tv_k[NH], vxx_k[NH][NH], logs_k;   // the carry rows, used after the tangent
         if constexpr (GENERIC) {
 #pragma unroll
@@ -209,9 +204,9 @@ sfwd_kernel(const T* __restrict__ Kg, const T* __restrict__ kff, const T* __rest
           dv[a] = g.kf[a] + s;
         }
 #pragma unroll
-        for (int i = 0; i < NH; ++i) gx[i] = gx[i] + row[(ROW_G2X<NOBS> + i) * 32] * dx[i];
+        for (int i = 0; i < NH; ++i) gx[i] = gx[i] + row[(ROW_G2X<S> + i) * 32] * dx[i];
 #pragma unroll
-        for (int a = 0; a < M; ++a) gr[a] = gr[a] + row[(ROW_G2U<NOBS> + a) * 32] * dv[a];
+        for (int a = 0; a < M; ++a) gr[a] = gr[a] + row[(ROW_G2U<S> + a) * 32] * dv[a];
         if constexpr (EMIT) {
           // C holds the doubled weights (2Q.., 2qb | 2R): g_Xref = -2Q dx, g_Uref = -2R dv
 #pragma unroll
@@ -223,12 +218,11 @@ sfwd_kernel(const T* __restrict__ Kg, const T* __restrict__ kff, const T* __rest
                 (-C[(NH + a) * Bs + lane]) * dv[a];
         }
 
-        FLin<T, NOBS> L;
-        L.dt = T(p.dt);
+        FLin<T, S> L;
         L.gamma = gamma;
         tan_rows<false>(L, row);
         T dxn[NH];
-        fhat_tan(p, L, dx, dv, dxn);
+        fhat_tan<S>(p, L, dx, dv, dxn);
 #pragma unroll
         for (int i = 0; i < NH; ++i) dx[i] = dxn[i];
         if (k == N - 1) {
@@ -261,8 +255,8 @@ sfwd_kernel(const T* __restrict__ Kg, const T* __restrict__ kff, const T* __rest
           for (int r = 0; r < 3; ++r) {
             T fp[NH];
 #pragma unroll
-            for (int i = 0; i < NH - 1; ++i) fp[i] = T(0);
-            fp[NH - 1] = row[(ROW_DP<NOBS> + r) * 32];
+            for (int i = 0; i < S::NX; ++i) fp[i] = T(0);
+            fp[S::NX] = row[(ROW_DP<S> + r) * 32];
             T s = dlam[0] * fp[0];
 #pragma unroll
             for (int i = 1; i < NH; ++i) s = s + dlam[i] * fp[i];
@@ -289,15 +283,12 @@ int launch_sfwd(const void* K, const void* kff, const void* X, const void* Xr, c
                 const void* Vxx, const void* LogS, void* gx, void* gr, void* gxt, void* gdyn,
                 void* gxr, void* gur, void* gxrN, int N, int B, const Consts* p, void* stream) {
   const dim3 grid((B + 31) / 32);
-  return with_obs(p->n_obs, [&](auto nobs) {
+  return with_system(*p, [&](auto nobs) {
     constexpr int NOBS = decltype(nobs)::value;
-    constexpr int smem = sweep_smem<T, SFWD_ROWS<NOBS, GENERIC>>();
-    const auto kernel = sfwd_kernel<T, GENERIC, EMIT, NOBS>;
-    if constexpr (smem > 48 * 1024) {
-      const cudaError_t err =
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
+    constexpr int smem = sweep_smem<T, SFWD_ROWS<System<T, LANE_SYSTEM, NOBS>, GENERIC>>();
+    const auto kernel = sfwd_kernel<T, GENERIC, EMIT, LANE_SYSTEM, NOBS>;
+    const int err = allow_smem(kernel, smem);
+    if (err != 0) return err;
     kernel<<<grid, SWEEP_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(K), static_cast<const T*>(kff), static_cast<const T*>(X),
         static_cast<const T*>(Xr), static_cast<const T*>(U), static_cast<const T*>(Ur),
@@ -313,7 +304,8 @@ int launch_sfwd(const void* K, const void* kff, const void* X, const void* Xr, c
 
 // C entry points, one per variant and type: the tensors in the order of the
 // Python wrapper (ops/cuda/lane_sensitivity.py), then N, B, the constants and
-// the stream. Each returns cudaGetLastError() after the launch.
+// the stream. Each returns cudaGetLastError() after the launch. The generic variants
+// (K6) are built into Dubins' library only.
 #define LANE_SFWD_ENTRIES(T, SUFFIX)                                                          \
   int lane_sfwd_##SUFFIX(const void* K, const void* kff, const void* X, const void* Xr,       \
                          const void* U, const void* Ur, const void* C, const void* XN,        \
@@ -322,7 +314,8 @@ int launch_sfwd(const void* K, const void* kff, const void* X, const void* Xr, c
     return lane::launch_sfwd<T, false, false>(K, kff, X, Xr, U, Ur, C, XN, XrN, nullptr,      \
                                               nullptr, nullptr, gx, gr, nullptr, nullptr,     \
                                               nullptr, nullptr, nullptr, N, B, p, stream);    \
-  }                                                                                           \
+  }
+#define LANE_SFWD_GENERIC_ENTRIES(T, SUFFIX)                                                  \
   int lane_sfwd_generic_##SUFFIX(const void* K, const void* kff, const void* X,               \
                                  const void* Xr, const void* U, const void* Ur,               \
                                  const void* C, const void* XN, const void* XrN,              \
@@ -347,4 +340,8 @@ int launch_sfwd(const void* K, const void* kff, const void* X, const void* Xr, c
 extern "C" {
 LANE_SFWD_ENTRIES(float, f32)
 LANE_SFWD_ENTRIES(double, f64)
+#if LANE_SYSTEM == 0
+LANE_SFWD_GENERIC_ENTRIES(float, f32)
+LANE_SFWD_GENERIC_ENTRIES(double, f64)
+#endif
 }  // extern "C"

@@ -1,11 +1,14 @@
-// K1 and K2 of the lane iLQR solver on Hopper.
+// K1 and K2 of the lane iLQR solver on Hopper, for the system LANE_SYSTEM
+// (lane_common.cuh: Dubins by default; the double integrator, the quadrotor and the
+// cart-pole in libraries of their own, ops/cuda/_build.py).
 //
 // K1 ric_kernel replaces tube_mpc_tpu/ops/pallas/lane_solver.py::_ric_kernel:
 // the backward Riccati sweep with f̂'s Jacobians formed in-kernel.
 // K2 fwd_kernel replaces tube_mpc_tpu/ops/pallas/lane_solver.py::_fwd_kernel:
 // the line search over the alpha ladder.
 //
-// What bounds them on an H100 (B=16384, N=50, f32). Per lane and step K1 reads 12
+// What bounds them on an H100 (Dubins, B=16384, N=50, f32; chip_smoke.py prints each
+// system's bounds from its own shapes). Per lane and step K1 reads 12
 // values and writes 10 (88 bytes): 73 MB a sweep, 22 us at 3.35 TB/s. It also does
 // some 3,000 operations per lane and step, nearly all of them the linearisation
 // (fhat_lin and the six tangents of fhat_jac): 2.5e9 a sweep, 37 us at the card's
@@ -19,8 +22,9 @@
 //
 // K1: linearise in parallel, recurse in one warp, the two overlapped: the chunked
 // sweep of lane_common.cuh (sweep), backwards from k = N-1.
-// - Phase A linearises a chunk: for each (step, lane) it writes A (16 rows), Bm (8),
-//   lx (4) and lu (2). These rows depend on the step's X, U, Xr, Ur and C alone, so
+// - Phase A linearises a chunk: for each (step, lane) it writes A (n̂² rows), Bm
+//   (n̂m), lx (n̂) and lu (m): 30 rows for Dubins, 42 for the double integrator, 72 for
+//   the quadrotor, 36 for the cart-pole. These rows depend on the step's X, U, Xr, Ur and C alone, so
 //   the serial chain loses the linearisation, nearly all of the operations.
 // - Phase B, in warp 0, runs the recursion over a chunk with its carry (V_x, V_xx,
 //   LogS) in registers, and writes K and kff.
@@ -29,7 +33,8 @@
 //   every block on the SM wait.
 // - The obstacle count is a template parameter (lane_common.cuh, HLin), so phase A
 //   is straight-line code the compiler can schedule; the launcher instantiates the
-//   kernel for the problem's count.
+//   kernel for the problem's count. With one control (the cart-pole) Q_uu's inverse
+//   is 1 / (Q_uu + reg), as the JAX kernel writes it, without resolve-or-zero.
 // - Phase A takes most of the time, and the overlap hides little of phase B: the
 //   warps of both share each SM's dispatch slots. The f32 register cap (SweepBlocksPerSM)
 //   costs 36 bytes of spill at 5 obstacles, nearly all in phase A. tools/ric_probe.py
@@ -54,17 +59,18 @@
 
 namespace lane {
 
-constexpr int ROW_LX = JAC_ROWS;                     // rows of a step in shared memory:
-constexpr int ROW_LU = ROW_LX + NH;                  //   A [0, 16), Bm [16, 24),
-constexpr int LIN_ROWS = ROW_LU + M;                 //   lx [24, 28), lu [28, 30)
+template <typename S> constexpr int ROW_LX = JAC_ROWS<S>;       // rows of a step in shared
+template <typename S> constexpr int ROW_LU = ROW_LX<S> + S::NH;  //   memory: A, Bm, lx, lu
+template <typename S> constexpr int LIN_ROWS = ROW_LU<S> + S::M;
 
 // Phase A for step k of one lane: f̂'s Jacobian rows and the cost gradients, at
 // row[r * 32] for row r.
-template <int NOBS, typename T>
+template <typename S, typename T>
 __device__ __forceinline__ void lin_step(const Consts& p, const T* __restrict__ X,
                                          const T* __restrict__ U, const T* __restrict__ Xr,
-                                         const T* __restrict__ Ur, const T c[NC], int k,
+                                         const T* __restrict__ Ur, const T c[S::NC], int k,
                                          size_t Bs, int lane, T* row) {
+  constexpr int NH = S::NH, M = S::M;
   T xs[NH], xr[NH], us[M], ur[M];
 #pragma unroll
   for (int i = 0; i < NH; ++i) {
@@ -76,29 +82,31 @@ __device__ __forceinline__ void lin_step(const Consts& p, const T* __restrict__ 
     us[a] = U[(static_cast<size_t>(k) * M + a) * Bs + lane];
     ur[a] = Ur[(static_cast<size_t>(k) * M + a) * Bs + lane];
   }
-  FLin<T, NOBS> L;
-  fhat_lin(p, xs, us, c[ROW_ALPHA], c[ROW_ALPHA + 1], c[ROW_ALPHA + 2], L);
+  FLin<T, S> L;
+  fhat_lin<S>(p, xs, us, c[S::ROW_ALPHA], c[S::ROW_ALPHA + 1], c[S::ROW_ALPHA + 2], L);
   T A[NH][NH], Bm[NH][M];
-  fhat_jac(p, L, A, Bm);
-  store_jac(A, Bm, row);
+  fhat_jac<S>(p, L, A, Bm);
+  store_jac<S>(A, Bm, row);
 #pragma unroll
-  for (int i = 0; i < NH; ++i) row[(ROW_LX + i) * 32] = c[i] * (xs[i] - xr[i]);
+  for (int i = 0; i < NH; ++i) row[(ROW_LX<S> + i) * 32] = c[i] * (xs[i] - xr[i]);
 #pragma unroll
-  for (int a = 0; a < M; ++a) row[(ROW_LU + a) * 32] = c[NH + a] * (us[a] - ur[a]);
+  for (int a = 0; a < M; ++a) row[(ROW_LU<S> + a) * 32] = c[NH + a] * (us[a] - ur[a]);
 }
 
 // Phase B for step k of one lane: K and kff from the step's rows (row[r * 32]) and
-// the carry, which it advances to step k.
-template <typename T>
-__device__ __forceinline__ void ric_step(const T* row, const T c[NC], T reg0, T vx[NH],
-                                         T vxx[NH][NH], T& logs, T* __restrict__ Kout,
+// the carry, which it advances to step k. Every sum over the controls runs a = 0..m-1
+// left to right, as the reference's.
+template <typename S, typename T>
+__device__ __forceinline__ void ric_step(const T* row, const T c[S::NC], T reg0, T vx[S::NH],
+                                         T vxx[S::NH][S::NH], T& logs, T* __restrict__ Kout,
                                          T* __restrict__ kffout, int k, size_t Bs, int lane) {
+  constexpr int NH = S::NH, M = S::M;
   T A[NH][NH], Bm[NH][M], lx[NH], lu[M];
-  load_jac(row, A, Bm);
+  load_jac<S>(row, A, Bm);
 #pragma unroll
-  for (int i = 0; i < NH; ++i) lx[i] = row[(ROW_LX + i) * 32];
+  for (int i = 0; i < NH; ++i) lx[i] = row[(ROW_LX<S> + i) * 32];
 #pragma unroll
-  for (int a = 0; a < M; ++a) lu[a] = row[(ROW_LU + a) * 32];
+  for (int a = 0; a < M; ++a) lu[a] = row[(ROW_LU<S> + a) * 32];
   const T inv_s = m_exp(-logs);
   T Qx[NH], Qu[M], VA[NH][NH], VB[NH][M], Qxx[NH][NH], Qux[M][NH], Quu[M][M];
 #pragma unroll
@@ -162,14 +170,26 @@ __device__ __forceinline__ void ric_step(const T* row, const T c[NC], T reg0, T 
   const T reg = reg0 * inv_s;
 
   T inv[M][M];
-  inv2(Quu[0][0] + reg, Quu[0][1], Quu[1][0], Quu[1][1] + reg, inv);
+  if constexpr (M == 1) {
+    inv[0][0] = T(1) / (Quu[0][0] + reg);
+  } else {
+    inv2(Quu[0][0] + reg, Quu[0][1], Quu[1][0], Quu[1][1] + reg, inv);
+  }
 
   T K[M][NH], kf[M];
 #pragma unroll
   for (int a = 0; a < M; ++a) {
 #pragma unroll
-    for (int i = 0; i < NH; ++i) K[a][i] = -(inv[a][0] * Qux[0][i] + inv[a][1] * Qux[1][i]);
-    kf[a] = -(inv[a][0] * Qu[0] + inv[a][1] * Qu[1]);
+    for (int i = 0; i < NH; ++i) {
+      T s = inv[a][0] * Qux[0][i];
+#pragma unroll
+      for (int b = 1; b < M; ++b) s = s + inv[a][b] * Qux[b][i];
+      K[a][i] = -s;
+    }
+    T s = inv[a][0] * Qu[0];
+#pragma unroll
+    for (int b = 1; b < M; ++b) s = s + inv[a][b] * Qu[b];
+    kf[a] = -s;
     kffout[(static_cast<size_t>(k) * M + a) * Bs + lane] = kf[a];
 #pragma unroll
     for (int i = 0; i < NH; ++i)
@@ -179,38 +199,59 @@ __device__ __forceinline__ void ric_step(const T* row, const T c[NC], T reg0, T 
   T Quu_k[M], QuuK[M][NH];
 #pragma unroll
   for (int a = 0; a < M; ++a) {
-    Quu_k[a] = Quu[a][0] * kf[0] + Quu[a][1] * kf[1];
+    T s = Quu[a][0] * kf[0];
 #pragma unroll
-    for (int j = 0; j < NH; ++j) QuuK[a][j] = Quu[a][0] * K[0][j] + Quu[a][1] * K[1][j];
+    for (int b = 1; b < M; ++b) s = s + Quu[a][b] * kf[b];
+    Quu_k[a] = s;
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      T t = Quu[a][0] * K[0][j];
+#pragma unroll
+      for (int b = 1; b < M; ++b) t = t + Quu[a][b] * K[b][j];
+      QuuK[a][j] = t;
+    }
   }
   T vx_new[NH], vxx_new[NH][NH];
 #pragma unroll
   for (int i = 0; i < NH; ++i) {
-    vx_new[i] = (Qx[i] + (K[0][i] * (Quu_k[0] + Qu[0]) + K[1][i] * (Quu_k[1] + Qu[1])))
-                + (Qux[0][i] * kf[0] + Qux[1][i] * kf[1]);
+    T s1 = K[0][i] * (Quu_k[0] + Qu[0]), s2 = Qux[0][i] * kf[0];
+#pragma unroll
+    for (int a = 1; a < M; ++a) {
+      s1 = s1 + K[a][i] * (Quu_k[a] + Qu[a]);
+      s2 = s2 + Qux[a][i] * kf[a];
+    }
+    vx_new[i] = (Qx[i] + s1) + s2;
 #pragma unroll
     for (int j = 0; j < NH; ++j) {
-      vxx_new[i][j] = ((Qxx[i][j] + (K[0][i] * QuuK[0][j] + K[1][i] * QuuK[1][j]))
-                       + (K[0][i] * Qux[0][j] + K[1][i] * Qux[1][j]))
-                      + (Qux[0][i] * K[0][j] + Qux[1][i] * K[1][j]);
+      T t1 = K[0][i] * QuuK[0][j], t2 = K[0][i] * Qux[0][j], t3 = Qux[0][i] * K[0][j];
+#pragma unroll
+      for (int a = 1; a < M; ++a) {
+        t1 = t1 + K[a][i] * QuuK[a][j];
+        t2 = t2 + K[a][i] * Qux[a][j];
+        t3 = t3 + Qux[a][i] * K[a][j];
+      }
+      vxx_new[i][j] = ((Qxx[i][j] + t1) + t2) + t3;
     }
   }
-  rescale_carry(vx_new, vxx_new, vx, vxx, logs);
+  rescale_carry<NH>(vx_new, vxx_new, vx, vxx, logs);
 }
 
-template <typename T, int NOBS>
-__global__ void __launch_bounds__(SWEEP_THREADS, SweepBlocksPerSM<T>::value)
+template <typename T, int SYS, int NOBS>
+__global__ void __launch_bounds__(SWEEP_THREADS,
+                                  SweepBlocksPerSM<T, System<T, SYS, NOBS>::NH>::value)
 ric_kernel(const T* __restrict__ X, const T* __restrict__ U, const T* __restrict__ Xr,
            const T* __restrict__ Ur, const T* __restrict__ C, const T* __restrict__ phix,
            T* __restrict__ Kout, T* __restrict__ kffout, int N, int B, Consts p) {
+  using S = System<T, SYS, NOBS>;
+  constexpr int NH = S::NH, M = S::M;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = blockIdx.x * 32 + (threadIdx.x & 31);
   const bool live = lane < B;
   const size_t Bs = static_cast<size_t>(B);
 
-  T c[NC];
+  T c[S::NC];
 #pragma unroll
-  for (int r = 0; r < NC; ++r) c[r] = live ? C[r * Bs + lane] : T(0);
+  for (int r = 0; r < S::NC; ++r) c[r] = live ? C[r * Bs + lane] : T(0);
   T vx[NH], vxx[NH][NH];
   T logs = T(0);
 #pragma unroll
@@ -220,24 +261,25 @@ ric_kernel(const T* __restrict__ X, const T* __restrict__ U, const T* __restrict
     for (int j = 0; j < NH; ++j) vxx[i][j] = (i == j) ? c[NH + M + i] : T(0);
   }
   const T reg0 = T(p.reg);
-  sweep<true, LIN_ROWS>(
+  sweep<true, LIN_ROWS<S>>(
       N, live, reinterpret_cast<T*>(smem),
-      [&](int k, T* row) { lin_step<NOBS>(p, X, U, Xr, Ur, c, k, Bs, lane, row); },
+      [&](int k, T* row) { lin_step<S>(p, X, U, Xr, Ur, c, k, Bs, lane, row); },
       [&](int k, const T* row) {
-        ric_step(row, c, reg0, vx, vxx, logs, Kout, kffout, k, Bs, lane);
+        ric_step<S>(row, c, reg0, vx, vxx, logs, Kout, kffout, k, Bs, lane);
       });
 }
 
 // The inputs of step k that every candidate shares.
-template <typename T> struct FwdStep {
-  T xo[NH], xr[NH], uo[M], ur[M], kf[M], K[M][NH];
+template <typename T, typename S> struct FwdStep {
+  T xo[S::NH], xr[S::NH], uo[S::M], ur[S::M], kf[S::M], K[S::M][S::NH];
 };
 
-template <typename T>
-__device__ __forceinline__ void fwd_load(FwdStep<T>& s, const T* __restrict__ Xo,
+template <typename S, typename T>
+__device__ __forceinline__ void fwd_load(FwdStep<T, S>& s, const T* __restrict__ Xo,
                                          const T* __restrict__ Uo, const T* __restrict__ Kg,
                                          const T* __restrict__ kff, const T* __restrict__ Xr,
                                          const T* __restrict__ Ur, int k, size_t Bs, int lane) {
+  constexpr int NH = S::NH, M = S::M;
 #pragma unroll
   for (int i = 0; i < NH; ++i) {
     s.xo[i] = Xo[(static_cast<size_t>(k) * NH + i) * Bs + lane];
@@ -255,35 +297,37 @@ __device__ __forceinline__ void fwd_load(FwdStep<T>& s, const T* __restrict__ Xo
 }
 
 // threadIdx.y is the candidate. K2 has no barrier, so a thread past B returns.
-template <typename T, int NOBS>
+template <typename T, int SYS, int NOBS>
 __global__ void __launch_bounds__(32 * MAX_ALPHAS)
 fwd_kernel(const T* __restrict__ x0, const T* __restrict__ Xo, const T* __restrict__ Uo,
            const T* __restrict__ Kg, const T* __restrict__ kff, const T* __restrict__ Xr,
            const T* __restrict__ XrN, const T* __restrict__ Ur, const T* __restrict__ C,
            T* __restrict__ Xn, T* __restrict__ Un, T* __restrict__ cost, int N, int B, Consts p) {
+  using S = System<T, SYS, NOBS>;
+  constexpr int NH = S::NH, M = S::M;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
   const int a = threadIdx.y;
   const int na = p.n_alphas;
   const size_t Bs = static_cast<size_t>(B);
 
-  T c[NC];
+  T c[S::NC];
 #pragma unroll
-  for (int r = 0; r < NC; ++r) c[r] = C[r * Bs + lane];
-  const T alpha_b = c[ROW_ALPHA], gamma = c[ROW_ALPHA + 1], tight = c[ROW_ALPHA + 2];
+  for (int r = 0; r < S::NC; ++r) c[r] = C[r * Bs + lane];
+  const T alpha_b = c[S::ROW_ALPHA], gamma = c[S::ROW_ALPHA + 1], tight = c[S::ROW_ALPHA + 2];
   const T al = T(p.alphas[a]);
 
   T x[NH];
 #pragma unroll
   for (int i = 0; i < NH; ++i) x[i] = x0[i * Bs + lane];
-  T bc = barrier_at<NOBS>(p, x[0], x[1], alpha_b, tight);
+  T bc = barrier_at<S>(p, x, alpha_b, tight);
   T acc = T(0);
 
-  FwdStep<T> s;
-  fwd_load(s, Xo, Uo, Kg, kff, Xr, Ur, 0, Bs, lane);
+  FwdStep<T, S> s;
+  fwd_load<S>(s, Xo, Uo, Kg, kff, Xr, Ur, 0, Bs, lane);
   for (int k = 0; k < N; ++k) {
-    FwdStep<T> next;   // step k+1's inputs (step k's again at the last step)
-    fwd_load(next, Xo, Uo, Kg, kff, Xr, Ur, k + 1 < N ? k + 1 : k, Bs, lane);
+    FwdStep<T, S> next;   // step k+1's inputs (step k's again at the last step)
+    fwd_load<S>(next, Xo, Uo, Kg, kff, Xr, Ur, k + 1 < N ? k + 1 : k, Bs, lane);
 
     T u[M];
 #pragma unroll
@@ -305,7 +349,7 @@ fwd_kernel(const T* __restrict__ x0, const T* __restrict__ Xo, const T* __restri
     acc = acc + (sx + su);
 
     T xn[NH];
-    fhat_carry<NOBS>(p, x, u, alpha_b, gamma, tight, bc, xn);
+    fhat_carry<S>(p, x, u, alpha_b, gamma, tight, bc, xn);
 #pragma unroll
     for (int i = 0; i < NH; ++i) {
       Xn[(static_cast<size_t>(k) * (na * NH) + a * NH + i) * Bs + lane] = xn[i];
@@ -333,14 +377,16 @@ template <typename T>
 int launch_ric(const void* X, const void* U, const void* Xr, const void* Ur, const void* C,
                const void* phix, void* K, void* kff, int N, int B, const Consts* p,
                void* stream) {
-  // Two buffers: f32 23,040 bytes, f64 46,080, within the 48 KB a launch gets without
-  // cudaFuncAttributeMaxDynamicSharedMemorySize.
-  constexpr int smem = sweep_smem<T, LIN_ROWS>();
-  static_assert(smem <= 48 * 1024, "K1's buffers need the dynamic shared memory attribute");
+  // Two buffers of LIN_ROWS rows a step: Dubins' f32 23,040 bytes and f64 46,080, within
+  // the 48 KB a launch gets by default; the quadrotor's f64 110,592 (allow_smem).
   const dim3 grid((B + 31) / 32);
-  return with_obs(p->n_obs, [&](auto nobs) {
+  return with_system(*p, [&](auto nobs) {
     constexpr int NOBS = decltype(nobs)::value;
-    ric_kernel<T, NOBS><<<grid, SWEEP_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+    constexpr int smem = sweep_smem<T, LIN_ROWS<System<T, LANE_SYSTEM, NOBS>>>();
+    const auto kernel = ric_kernel<T, LANE_SYSTEM, NOBS>;
+    const int err = allow_smem(kernel, smem);
+    if (err != 0) return err;
+    kernel<<<grid, SWEEP_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(X), static_cast<const T*>(U), static_cast<const T*>(Xr),
         static_cast<const T*>(Ur), static_cast<const T*>(C), static_cast<const T*>(phix),
         static_cast<T*>(K), static_cast<T*>(kff), N, B, *p);
@@ -357,9 +403,9 @@ int launch_fwd(const void* x0, const void* Xo, const void* Uo, const void* K, co
   const int lanes = na >= 4 ? 32 : 32 * (4 / na);   // 32 x nα threads, at least 96
   const dim3 block(lanes, na);
   const dim3 grid((B + lanes - 1) / lanes);
-  return with_obs(p->n_obs, [&](auto nobs) {
+  return with_system(*p, [&](auto nobs) {
     constexpr int NOBS = decltype(nobs)::value;
-    fwd_kernel<T, NOBS><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+    fwd_kernel<T, LANE_SYSTEM, NOBS><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(x0), static_cast<const T*>(Xo), static_cast<const T*>(Uo),
         static_cast<const T*>(K), static_cast<const T*>(kff), static_cast<const T*>(Xr),
         static_cast<const T*>(XrN), static_cast<const T*>(Ur), static_cast<const T*>(C),

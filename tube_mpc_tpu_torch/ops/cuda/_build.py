@@ -1,9 +1,12 @@
 """Build and load the lane kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a plain
-C interface, ``tube_mpc_tpu_torch/_build/lib<name>_<digest>.so``, at first use,
-and loaded with ``ctypes``. The digest covers the source, the shared header and
-the flags, so an edited source is rebuilt. Several sources build in parallel, one
+Each ``csrc/<source>.cu`` is compiled by ``nvcc`` once for each component system the
+kernels take (``FAMILIES``), with ``-DLANE_SYSTEM=<its index>``, into a shared library
+with a plain C interface, ``tube_mpc_tpu_torch/_build/lib<library>_<digest>.so``:
+``<source>`` for Dubins (the default without the define), ``<source>_<family>`` for
+the others. A library is built at first use, so a run builds only its own system's,
+and loaded with ``ctypes``. The digest covers the source, the shared header and the
+flags, so an edited source is rebuilt. Several libraries build in parallel, one
 ``nvcc`` each. Nothing here runs when the package is imported, and a failed build
 raises with nvcc's output.
 
@@ -21,7 +24,9 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
+
+from ..lanes import FAMILIES
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -33,6 +38,16 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+
+def library_name(source: str, family: str = "dubins") -> str:
+    return source if family == "dubins" else f"{source}_{family}"
+
+
+# library name: (source, family)
+LIBRARIES: Dict[str, Tuple[str, str]] = {
+    library_name(src, fam): (src, fam) for fam in FAMILIES for src in SOURCES}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
@@ -48,11 +63,18 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the lane kernels build only where the CUDA toolkit is installed")
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """nvcc's flags for library ``name``."""
+    family = LIBRARIES[name][1]
+    return NVCC_FLAGS if family == "dubins" else NVCC_FLAGS + (
+        f"-DLANE_SYSTEM={FAMILIES.index(family)}",)
+
+
 def _digest(name: str) -> str:
     h = hashlib.sha256()
-    for path in [CSRC / f"{name}.cu"] + [CSRC / hdr for hdr in HEADERS]:
+    for path in [CSRC / f"{LIBRARIES[name][0]}.cu"] + [CSRC / hdr for hdr in HEADERS]:
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     return h.hexdigest()[:16]
 
 
@@ -60,7 +82,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{_digest(name)}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+def build(names: Iterable[str] = tuple(LIBRARIES)) -> Dict[str, float]:
     """Compile every stale library of ``names`` in parallel; returns seconds per build."""
     pending = {n: library_path(n) for n in names if not library_path(n).exists()}
     if not pending:
@@ -72,7 +94,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     for name, out in pending.items():
         fd, tmp = tempfile.mkstemp(prefix=out.stem + ".", suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *flags(name), "-o", tmp, str(CSRC / f"{LIBRARIES[name][0]}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
 
@@ -97,7 +119,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library ``name`` (see LIBRARIES), built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         build([name])

@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
+from ..lanes import FAMILIES
 from .lane_solver import (
     LaneProblem,
     _bp_from_C,
@@ -130,7 +131,10 @@ def _sbwd_sweep(pb: LaneProblem, reg: float, active_tol: float, U: Tensor, X: Te
                for b in range(m)] for a in range(m)]
         Qux_m = [[Qux[a][i] * am[a] for i in range(nh)] for a in range(m)]
         tQu_m = [tQu[a] * am[a] for a in range(m)]
-        inv = _inv2(Qm[0][0], Qm[0][1], Qm[1][0], Qm[1][1])
+        if m == 1:   # as the JAX kernel writes it: no resolve-or-zero guard
+            inv = [[1.0 / Qm[0][0]]]
+        else:
+            inv = _inv2(Qm[0][0], Qm[0][1], Qm[1][0], Qm[1][1])
 
         K = [[-sum(inv[a][b] * Qux_m[b][i] for b in range(m)) for i in range(nh)] for a in range(m)]
         kf = [-sum(inv[a][b] * tQu_m[b] for b in range(m)) for a in range(m)]
@@ -216,6 +220,9 @@ def _launch(wrapper, fn: str, consts, ins, outs, N: int, B: int) -> Tuple[Tensor
     ``lane_<fn>`` of csrc/lane_sbwd.cu or lane_sfwd.cu on them; count the launch on
     ``wrapper``."""
     dtype = check_kernel_inputs(fn, ins)
+    if fn not in ("sbwd", "sfwd") and FAMILIES[consts.system] != "dubins":
+        raise ValueError(f"{fn}: the generic sensitivity kernels (K5, K6) are built for the "
+                         "Dubins system only")
     dev = next(iter(ins.values()))[1].device
     out = tuple(torch.empty(shape, dtype=dtype, device=dev) for shape in outs)
     launch(f"lane_{fn.split('_')[0]}", f"lane_{fn}", dtype, dev,

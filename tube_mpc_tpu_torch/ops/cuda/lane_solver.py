@@ -3,7 +3,7 @@ PyTorch versions, and the solver loop around them (port of
 tube_mpc_tpu/ops/pallas/lane_solver.py:47-510, without straggler compaction).
 
 Layout: every array is [N, component, B] or [component, B], lane index fastest.
-Const rows C [13, B] (tube/lane_interface.py::_build_C):
+Const rows C [2n̂+m+3, B] (tube/lane_interface.py::_build_C):
   [0:n̂] stage diag (2Q.., 2qb) | [n̂:n̂+m] 2R | [n̂+m:2n̂+m] terminal diag
   (2Qf.., 2qb) | alpha | gamma | tight
 
@@ -23,7 +23,7 @@ import torch
 from torch import Tensor
 
 from ..dbas import BarrierParams
-from ..lanes import DubinsSpec, jac_rows
+from ..lanes import FAMILIES, LaneSpec, jac_rows
 from . import _build
 
 V_SCALE_THRESH = 1e8  # renormalise the V carry beyond this (f32 range guard)
@@ -41,7 +41,7 @@ class LaneProblem:
     f_hat_lin: Callable      # (x̂ rows, u rows, bp) -> (rows, tangent map)
     u_min: Tuple[float, ...]
     u_max: Tuple[float, ...]
-    spec: Optional[DubinsSpec]
+    spec: Optional[LaneSpec]
     barrier_type: str
     eps: float
 
@@ -148,7 +148,10 @@ def ric_plain(pb: LaneProblem, reg: float, X: Tensor, U: Tensor, Xr: Tensor, Ur:
         Quu = [[(C[nh + a] * inv_s if a == b else 0.0) + sum(Bm[l][a] * VB[l][b] for l in range(nh))
                 for b in range(m)] for a in range(m)]
         regs = reg * inv_s
-        inv = _inv2(Quu[0][0] + regs, Quu[0][1], Quu[1][0], Quu[1][1] + regs)
+        if m == 1:   # as the JAX kernel writes it: no resolve-or-zero guard
+            inv = [[1.0 / (Quu[0][0] + regs)]]
+        else:
+            inv = _inv2(Quu[0][0] + regs, Quu[0][1], Quu[1][0], Quu[1][1] + regs)
 
         K = [[-sum(inv[a][b] * Qux[b][i] for b in range(m)) for i in range(nh)] for a in range(m)]
         kf = [-sum(inv[a][b] * Qu[b] for b in range(m)) for a in range(m)]
@@ -227,15 +230,23 @@ def fwd_plain(pb: LaneProblem, alphas: Sequence[float], x0: Tensor, Xo: Tensor, 
 # Kernel plumbing shared with lane_sensitivity.py.
 # ---------------------------------------------------------------------------
 
+# The component dimensions (n, m) of each family the kernels take (ops/lanes.py).
+FAMILY_DIMS = {"dubins": (3, 2), "double_integrator": (4, 2), "quadrotor2d": (6, 2),
+               "cartpole": (4, 1)}
+MAX_M = 2
+
+
 class LaneConsts(ctypes.Structure):
-    """Mirror of ``lane::Consts`` in csrc/lane_common.cuh."""
+    """Mirror of ``lane::Consts`` in csrc/lane_common.cuh. The bound arrays hold up to
+    MAX_M controls, of which the first m are set; the family's step constants follow
+    the obstacles and the alphas."""
 
     _fields_ = [
         ("dt", ctypes.c_double),
-        ("u_min", ctypes.c_double * 2),
-        ("u_max", ctypes.c_double * 2),
-        ("act_lo", ctypes.c_double * 2),
-        ("act_hi", ctypes.c_double * 2),
+        ("u_min", ctypes.c_double * MAX_M),
+        ("u_max", ctypes.c_double * MAX_M),
+        ("act_lo", ctypes.c_double * MAX_M),
+        ("act_hi", ctypes.c_double * MAX_M),
         ("eps", ctypes.c_double),
         ("neg_beta", ctypes.c_double),
         ("inv_beta", ctypes.c_double),
@@ -246,6 +257,17 @@ class LaneConsts(ctypes.Structure):
         ("reg", ctypes.c_double),
         ("n_obs", ctypes.c_int32),
         ("n_alphas", ctypes.c_int32),
+        ("mass", ctypes.c_double),
+        ("inertia", ctypes.c_double),
+        ("arm", ctypes.c_double),
+        ("gravity", ctypes.c_double),
+        ("m_pole", ctypes.c_double),
+        ("length", ctypes.c_double),
+        ("total_m", ctypes.c_double),
+        ("mpl", ctypes.c_double),
+        ("x_lim2", ctypes.c_double),
+        ("system", ctypes.c_int32),
+        ("pad", ctypes.c_int32),
     ]
 
 
@@ -253,17 +275,22 @@ def kernel_consts(pb: LaneProblem, *, reg: float = 0.0, alphas: Sequence[float] 
                   active_tol: float = 0.0) -> LaneConsts:
     """Constants for the CUDA kernels; raises for a problem they do not take."""
     spec = pb.spec
-    if spec is None or pb.n != 3 or pb.m != 2:
-        raise ValueError("the lane kernels take the Dubins component system only")
+    if spec is None or FAMILY_DIMS.get(spec.family) != (pb.n, pb.m):
+        raise ValueError("the lane kernels take the component systems of ops/lanes.py only "
+                         f"({', '.join(FAMILIES)})")
     if pb.barrier_type != "inverse":
         raise ValueError(f"the lane kernels take the inverse barrier, not {pb.barrier_type!r}")
-    if not 1 <= len(spec.centers) <= MAX_OBS:
-        raise ValueError(f"the lane kernels take 1 to {MAX_OBS} obstacles, got {len(spec.centers)}")
+    n_obs = len(spec.centers)
+    if spec.family == "cartpole":
+        if n_obs:
+            raise ValueError("the cart-pole's h is its track limit; it takes no obstacles")
+    elif not 1 <= n_obs <= MAX_OBS:
+        raise ValueError(f"the lane kernels take 1 to {MAX_OBS} obstacles, got {n_obs}")
     if len(alphas) > MAX_ALPHAS:
         raise ValueError(f"the lane kernels take at most {MAX_ALPHAS} alphas, got {len(alphas)}")
     k = LaneConsts()
     k.dt = spec.dt
-    for a in range(2):
+    for a in range(pb.m):
         k.u_min[a] = pb.u_min[a]
         k.u_max[a] = pb.u_max[a]
         k.act_lo[a] = pb.u_min[a] + active_tol
@@ -276,8 +303,16 @@ def kernel_consts(pb: LaneProblem, *, reg: float = 0.0, alphas: Sequence[float] 
     for i, al in enumerate(alphas):
         k.alphas[i] = al
     k.reg = reg
-    k.n_obs = len(spec.centers)
+    k.n_obs = n_obs
     k.n_alphas = len(alphas)
+    # the products and sums of constants as the JAX forms take them: Python floats,
+    # formed in double and rounded once to the working type in the kernel
+    k.mass, k.inertia, k.arm, k.gravity = spec.mass, spec.inertia, spec.arm, spec.gravity
+    k.m_pole, k.length = spec.m_pole, spec.length
+    k.total_m = spec.m_cart + spec.m_pole
+    k.mpl = spec.m_pole * spec.length
+    k.x_lim2 = spec.x_lim * spec.x_lim
+    k.system = FAMILIES.index(spec.family)
     return k
 
 
@@ -313,11 +348,12 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 def launch(lib: str, fn: str, dtype: torch.dtype, device: torch.device,
            tensors: Sequence[Tensor], N: int, B: int, consts: LaneConsts) -> None:
-    """Call ``<fn>_f32|_f64`` of ``csrc/<lib>.cu`` on the current stream of
-    ``device``; raise if the launch reports a CUDA error."""
+    """Call ``<fn>_f32|_f64`` of ``csrc/<lib>.cu``, built for the system of ``consts``,
+    on the current stream of ``device``; raise if the launch reports a CUDA error."""
     if B < 1 or N < 1:
         raise ValueError(f"{fn}: needs N >= 1 and B >= 1, got N={N}, B={B}")
-    f = getattr(_build.load(lib), f"{fn}_{'f32' if dtype == torch.float32 else 'f64'}")
+    library = _build.library_name(lib, FAMILIES[consts.system])
+    f = getattr(_build.load(library), f"{fn}_{'f32' if dtype == torch.float32 else 'f64'}")
     f.argtypes = [_PTR] * len(tensors) + [_INT, _INT, _PTR, _PTR]
     f.restype = ctypes.c_int
     with torch.cuda.device(device):

@@ -1,8 +1,9 @@
 """Component ("structure-of-arrays") forms for the lane kernels (port of
-tube_mpc_tpu/ops/lanes.py:33-168).
+tube_mpc_tpu/ops/lanes.py:33-238).
 
 Each state and control component is a row tensor (any shape, usually [B]) and all
-math is elementwise. Where the JAX package derives Jacobian rows with ``jax.jvp``
+math is elementwise. Four systems: Dubins, the double integrator, the planar
+quadrotor and the cart-pole. Where the JAX package derives Jacobian rows with ``jax.jvp``
 (``jac_rows``), the port writes the tangent map by hand: every component system
 supplies ``f_lin`` and ``h_lin``, which return the value and a tangent map whose
 arithmetic follows JAX's differentiation rules term by term. The CUDA kernels
@@ -23,14 +24,30 @@ Rows = Tuple[Tensor, ...]
 Tangent = Callable[[Rows, Rows], Rows]
 
 
-@dataclasses.dataclass(frozen=True)
-class DubinsSpec:
-    """The constants of a Dubins component system, which the CUDA kernels take."""
+# The component systems the CUDA kernels take, in the order of their system ids
+# (csrc/lane_common.cuh, LaneConsts.system).
+FAMILIES = ("dubins", "double_integrator", "quadrotor2d", "cartpole")
 
+
+@dataclasses.dataclass(frozen=True)
+class LaneSpec:
+    """The constants of a component system that the CUDA kernels take: its family
+    (which step and which h the kernels run), the step's constants, and the circle
+    obstacles and beta of the smooth-min h (none for the cart-pole's track limit)."""
+
+    family: str
     dt: float
-    centers: Tuple[Tuple[float, float], ...]
-    radii: Tuple[float, ...]
-    beta: float
+    centers: Tuple[Tuple[float, float], ...] = ()
+    radii: Tuple[float, ...] = ()
+    beta: float = 20.0
+    mass: float = 0.0        # quadrotor
+    inertia: float = 0.0
+    arm: float = 0.0
+    gravity: float = 0.0     # quadrotor, cart-pole
+    m_cart: float = 0.0      # cart-pole
+    m_pole: float = 0.0
+    length: float = 0.0
+    x_lim: float = 0.0
 
 
 class ComponentSystem(NamedTuple):
@@ -47,7 +64,7 @@ class ComponentSystem(NamedTuple):
     h_lin: Optional[Callable[[Rows], Tuple[Tensor, Callable[[Rows], Tensor]]]]
     u_min: Tuple[float, ...]
     u_max: Tuple[float, ...]
-    spec: Optional[DubinsSpec] = None
+    spec: Optional[LaneSpec] = None
 
     def f(self, xs: Rows, us: Rows) -> Rows:
         return self.f_lin(xs, us)[0]
@@ -137,14 +154,72 @@ def init_b0_fn(sys_c: ComponentSystem, *, barrier_type: str = "inverse", eps: fl
     return init_b0
 
 
+def _div(x: Tensor, c: float) -> Tensor:
+    """x / c for a Python number c, as a true division in x's dtype. PyTorch would
+    multiply by a rounded 1/c on the card, which the kernels (and JAX) do not."""
+    return x / torch.full_like(x, c)
+
+
+def smoothmin_h_lin(centers: Sequence[Tuple[float, float]], radii: Sequence[float],
+                    beta: float):
+    """h_lin of the min-shifted smooth-min over circles on the two leading state rows:
+    h = z - (1/β) log Σ exp(-β (h_i - z)), z = min_i h_i, h_i = |p - c_i|² - r_i²."""
+    cs = tuple((float(cx), float(cy)) for cx, cy in centers)
+    rs = tuple(float(r) for r in radii)
+
+    def _each(px: Tensor, py: Tensor):
+        out = []
+        for (cx, cy), r in zip(cs, rs):
+            dx, dy = px - cx, py - cy
+            out.append(dx * dx + dy * dy - r * r)
+        return out
+
+    def _smoothmin(hs):
+        z = hs[0]
+        for v_ in hs[1:]:
+            z = torch.minimum(z, v_)
+        es = [torch.exp(-beta * (v_ - z)) for v_ in hs]
+        acc = sum(es)
+        return z - (1.0 / beta) * torch.log(acc), es, acc
+
+    def h_lin(xs: Rows):
+        px, py = xs[0], xs[1]
+        hs = _each(px, py)
+        value, es, acc = _smoothmin(hs)
+
+        def tangent(dxs: Rows) -> Tensor:
+            dpx, dpy = dxs[0], dxs[1]
+            dh = [dpx * (2.0 * (px - cx)) + dpy * (2.0 * (py - cy)) for cx, cy in cs]
+            z, dz = hs[0], dh[0]
+            for v_, dv_ in zip(hs[1:], dh[1:]):
+                zn = torch.minimum(z, v_)
+                dz = dz * balanced_weight(z, zn, v_) + dv_ * balanced_weight(v_, zn, z)
+                z = zn
+            dacc = sum((-beta * (d - dz)) * e for d, e in zip(dh, es))
+            return dz - (1.0 / beta) * (dacc / acc)
+
+        return value, tangent
+
+    return h_lin
+
+
+def _circle_h(centers, radii, aggregation: str, beta: float):
+    """(h_lin or None without obstacles, centers, radii) of a system with circle obstacles."""
+    cs = tuple((float(cx), float(cy)) for cx, cy in centers)
+    rs = tuple(float(r) for r in radii)
+    if not cs:
+        return None, cs, rs
+    if aggregation != "smoothmin":
+        raise ValueError(f"aggregation {aggregation!r} is not ported; use 'smoothmin'")
+    return smoothmin_h_lin(cs, rs, beta), cs, rs
+
+
 def dubins_components(*, dt: float, v_min: float, v_max: float, omega_max: float,
                       centers: Sequence[Tuple[float, float]] = (),
                       radii: Sequence[float] = (),
                       aggregation: str = "smoothmin", beta: float = 20.0) -> ComponentSystem:
-    """Dubins in component form, with the min-shifted smooth-min h:
-    h = z - (1/β) log Σ exp(-β (h_i - z)), z = min_i h_i."""
-    cs = tuple((float(cx), float(cy)) for cx, cy in centers)
-    rs = tuple(float(r) for r in radii)
+    """Dubins in component form, with the min-shifted smooth-min h (smoothmin_h_lin)."""
+    h_lin, cs, rs = _circle_h(centers, radii, aggregation, beta)
 
     def f_lin(xs: Rows, us: Rows):
         px, py, th = xs
@@ -162,46 +237,128 @@ def dubins_components(*, dt: float, v_min: float, v_max: float, omega_max: float
 
         return (px + dtv * c, py + dtv * s, th + dt * om), tangent
 
-    h_lin = None
-    if cs:
-        if aggregation != "smoothmin":
-            raise ValueError(f"aggregation {aggregation!r} is not ported; use 'smoothmin'")
-
-        def _each(px: Tensor, py: Tensor):
-            out = []
-            for (cx, cy), r in zip(cs, rs):
-                dx, dy = px - cx, py - cy
-                out.append(dx * dx + dy * dy - r * r)
-            return out
-
-        def _smoothmin(hs):
-            z = hs[0]
-            for v_ in hs[1:]:
-                z = torch.minimum(z, v_)
-            es = [torch.exp(-beta * (v_ - z)) for v_ in hs]
-            acc = sum(es)
-            return z - (1.0 / beta) * torch.log(acc), es, acc
-
-        def h_lin(xs: Rows):  # noqa: F811
-            px, py = xs[0], xs[1]
-            hs = _each(px, py)
-            value, es, acc = _smoothmin(hs)
-
-            def tangent(dxs: Rows) -> Tensor:
-                dpx, dpy = dxs[0], dxs[1]
-                dh = [dpx * (2.0 * (px - cx)) + dpy * (2.0 * (py - cy)) for cx, cy in cs]
-                z, dz = hs[0], dh[0]
-                for v_, dv_ in zip(hs[1:], dh[1:]):
-                    zn = torch.minimum(z, v_)
-                    dz = dz * balanced_weight(z, zn, v_) + dv_ * balanced_weight(v_, zn, z)
-                    z = zn
-                dacc = sum((-beta * (d - dz)) * e for d, e in zip(dh, es))
-                return dz - (1.0 / beta) * (dacc / acc)
-
-            return value, tangent
-
-    spec = DubinsSpec(dt=float(dt), centers=cs, radii=rs, beta=float(beta))
+    spec = LaneSpec(family="dubins", dt=float(dt), centers=cs, radii=rs, beta=float(beta))
     return ComponentSystem(
         n=3, m=2, f_lin=f_lin, h_lin=h_lin,
         u_min=(v_min, -omega_max), u_max=(v_max, omega_max), spec=spec,
     )
+
+
+def double_integrator_components(*, dt: float, a_max: float, centers=(), radii=(),
+                                 aggregation: str = "smoothmin",
+                                 beta: float = 20.0) -> ComponentSystem:
+    """The 2-D double integrator [px, py, vx, vy], [ax, ay] in component form
+    (tube_mpc_tpu/ops/lanes.py:171-187), with Dubins' smooth-min h on (px, py)."""
+    h_lin, cs, rs = _circle_h(centers, radii, aggregation, beta)
+
+    def f_lin(xs: Rows, us: Rows):
+        px, py, vx, vy = xs
+        ax, ay = us
+
+        def tangent(dxs: Rows, dus: Rows) -> Rows:
+            dpx, dpy, dvx, dvy = dxs
+            dax, day = dus
+            return (dpx + dt * dvx, dpy + dt * dvy, dvx + dt * dax, dvy + dt * day)
+
+        return (px + dt * vx, py + dt * vy, vx + dt * ax, vy + dt * ay), tangent
+
+    spec = LaneSpec(family="double_integrator", dt=float(dt), centers=cs, radii=rs,
+                    beta=float(beta))
+    return ComponentSystem(n=4, m=2, f_lin=f_lin, h_lin=h_lin, u_min=(-a_max, -a_max),
+                           u_max=(a_max, a_max), spec=spec)
+
+
+def cartpole_components(*, dt: float, m_cart: float = 1.0, m_pole: float = 0.1,
+                        length: float = 0.5, gravity: float = 9.81,
+                        f_max: float = 20.0, x_lim: float = 2.4) -> ComponentSystem:
+    """Cart-pole [pos, vel, th, om], [force] in component form
+    (tube_mpc_tpu/ops/lanes.py:190-206), with the track limit h = x_lim² - pos².
+
+    The arithmetic is the JAX form's, left to right: the products and sums of Python
+    numbers (m_pole·length, m_cart + m_pole, 4/3, x_lim²) are formed once in double,
+    and the tangent applies JAX's rules (sin, cos, mul, div, sub) term by term."""
+    total_m = m_cart + m_pole
+    mpl = m_pole * length
+    xl2 = x_lim * x_lim
+
+    def f_lin(xs: Rows, us: Rows):
+        pos, vel, th, om = xs
+        (force,) = us
+        s, c = torch.sin(th), torch.cos(th)
+        p1 = mpl * om
+        p2 = p1 * om
+        temp = _div(force + p2 * s, total_m)
+        nt = gravity * s - c * temp
+        q1 = m_pole * c
+        den = length * (4.0 / 3.0 - _div(q1 * c, total_m))
+        th_acc = nt / den
+        r1 = mpl * th_acc
+        x_acc = temp - _div(r1 * c, total_m)
+        inv_den2 = 1.0 / (den * den)
+
+        def tangent(dxs: Rows, dus: Rows) -> Rows:
+            dpos, dvel, dth, dom = dxs
+            (dforce,) = dus
+            ds = dth * c
+            dc = -(dth * s)
+            dp2 = (mpl * dom) * om + p1 * dom
+            dtemp = _div(dforce + (dp2 * s + p2 * ds), total_m)
+            dnt = gravity * ds - (dc * temp + c * dtemp)
+            dq2 = (m_pole * dc) * c + q1 * dc
+            dden = length * (-_div(dq2, total_m))
+            dth_acc = dnt / den + ((-dden) * nt) * inv_den2
+            dr2 = (mpl * dth_acc) * c + r1 * dc
+            dx_acc = dtemp - _div(dr2, total_m)
+            return (dpos + dt * dvel, dvel + dt * dx_acc, dth + dt * dom, dom + dt * dth_acc)
+
+        return (pos + dt * vel, vel + dt * x_acc, th + dt * om, om + dt * th_acc), tangent
+
+    def h_lin(xs: Rows):
+        pos = xs[0]
+        return xl2 - pos * pos, lambda dxs: -(dxs[0] * pos + pos * dxs[0])
+
+    spec = LaneSpec(family="cartpole", dt=float(dt), gravity=float(gravity),
+                    m_cart=float(m_cart), m_pole=float(m_pole), length=float(length),
+                    x_lim=float(x_lim))
+    return ComponentSystem(n=4, m=1, f_lin=f_lin, h_lin=h_lin, u_min=(-f_max,), u_max=(f_max,),
+                           spec=spec)
+
+
+def quadrotor2d_components(*, dt: float, mass: float = 0.8, inertia: float = 0.02,
+                           arm: float = 0.2, gravity: float = 9.81,
+                           t_min: float = 0.0, t_max: float = 8.0,
+                           centers=(), radii=(), aggregation: str = "smoothmin",
+                           beta: float = 20.0) -> ComponentSystem:
+    """The planar quadrotor [px, pz, th, vx, vz, om], [T1, T2] in component form
+    (tube_mpc_tpu/ops/lanes.py:209-238), with Dubins' smooth-min h on (px, pz)."""
+    h_lin, cs, rs = _circle_h(centers, radii, aggregation, beta)
+
+    def f_lin(xs: Rows, us: Rows):
+        px, pz, th, vx, vz, om = xs
+        t1, t2 = us
+        thrust = t1 + t2
+        s, c = torch.sin(th), torch.cos(th)
+        ax = _div((-thrust) * s, mass)
+        az = _div(thrust * c, mass) - gravity
+        al = _div((t2 - t1) * arm, inertia)
+
+        def tangent(dxs: Rows, dus: Rows) -> Rows:
+            dpx, dpz, dth, dvx, dvz, dom = dxs
+            du1, du2 = dus
+            dthrust = du1 + du2
+            ds = dth * c
+            dc = -(dth * s)
+            dax = _div((-dthrust) * s + (-thrust) * ds, mass)
+            daz = _div(dthrust * c + thrust * dc, mass)
+            dal = _div((du2 - du1) * arm, inertia)
+            return (dpx + dt * dvx, dpz + dt * dvz, dth + dt * dom,
+                    dvx + dt * dax, dvz + dt * daz, dom + dt * dal)
+
+        return (px + dt * vx, pz + dt * vz, th + dt * om,
+                vx + dt * ax, vz + dt * az, om + dt * al), tangent
+
+    spec = LaneSpec(family="quadrotor2d", dt=float(dt), centers=cs, radii=rs, beta=float(beta),
+                    mass=float(mass), inertia=float(inertia), arm=float(arm),
+                    gravity=float(gravity))
+    return ComponentSystem(n=6, m=2, f_lin=f_lin, h_lin=h_lin, u_min=(t_min, t_min),
+                           u_max=(t_max, t_max), spec=spec)
