@@ -5,17 +5,18 @@
 
 The paths are bench.py's paper workload (run_paper_closed_loop_lanes: K1-K4), its
 BENCH_MODE=coupled workload (run_generic_closed_loop_lanes with adapt_nominal: K1, K2
-and the generic and coupled variants K5, K6 of the sensitivity kernels), and its
+and the generic and coupled variants K5, K6 of the sensitivity kernels), its
 BENCH_SYSTEM families, the double integrator, the planar quadrotor and the cart-pole
-on the paper loop (K1-K4 built for each system; presets.family_paper_setup).
+on the paper loop (K1-K4 built for each system; presets.family_paper_setup), and the
+port's CLI (python -m tube_mpc_tpu_torch.run_experiment) on the shipped configs, the
+families' in coupled mode (K1, K2 and K5/K6 built for each system).
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 
 1. device:   the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build:    nvcc builds the three kernel sources for each of the four systems (Dubins:
-             eight kernel variants, the families: K1-K4; float and double, each once
-             for each obstacle count, 1 to 8, the cart-pole's once) from csrc/, twelve
-             libraries in parallel, and prints each instantiation's registers and
-             spills;
+2. build:    nvcc builds the three kernel sources for each of the four systems (eight
+             kernel variants each; float and double, each once for each obstacle count,
+             1 to 8, the cart-pole's once) from csrc/, twelve libraries in parallel, and
+             prints each instantiation's registers and spills;
 3. kernels:  each kernel variant against its plain PyTorch version on the same
              inputs, at the main paths' shapes (B=16384, N=50, n̂=4, m=2, nα=7) in
              f64 and in f32. The inputs are those of a real closed-loop step (after
@@ -28,24 +29,36 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              1000 lanes and 37 steps of the same inputs, and there with 1 and with 8
              obstacles (each kernel is built for each count), and with 8 obstacles at
              the main shape too. Each variant is timed with CUDA events over 20
-             launches back to back, in f64 and in f32 (its plain version, 5, in f32),
-             and so are K2 at nα=1 and every variant with 8 obstacles at the main shape;
+             launches back to back, in f64 and in f32 (its plain version, 2, in f32,
+             while the CPU's loop64 workers run), and so are K2 at nα=1 and every
+             variant with 8 obstacles at the main shape;
    kernels_<family>, for each family: K1-K4 against their plain versions as in phase 3,
              on the inputs of a closed-loop step of the family's setup at B=16384, N=50
              in f64 and f32, each timed; also at B=1000, N=37, there with 1 and 8
              obstacles for the families that have obstacles;
+   kernels_<family>_generic: the same for K5/K6 on a coupled step of the family's
+             config with adaptation.adapt_nominal: true (coupled_setup); a backward
+             sweep whose inputs have no control at a bound is also held with the
+             controls clamped to their quartiles;
+   kernels_<family>_cli: K1, K2 (also at nα=1) and K5/K6 on such a step at B=16384 and
+             the N of the family's config (30, 200, 40), the shapes the cli phase
+             gives them, in f32 as the CLI runs, each timed;
 4. loop64:   a short f64 paper loop (B=256, N=50, H=5) through the kernels on the
              card and through the plain versions on the CPU, held at the tolerances
              of tests/test_lane_closed_loop.py:45-50;
 5. loop64_coupled: the same for the coupled loop, held at the tolerances of
-             tests/test_lane_generic.py:219-225, with the final raw parameters;
+             tests/test_lane_generic.py:88-95, 219-225, with the final raw parameters;
    loop64_<family>: phase 4 on each family's setup. Where the card parts from the CPU
-             (the cart-pole's f64 swing-up is chaotic: a 1e-15 perturbation of its
-             start and disturbances grows to O(1) within five steps on the CPU alone), the card
-             must agree with the CPU on the steps on which the CPU agrees with itself
-             under that perturbation (at least one), and the loop through the kernels
-             must agree with the loop through the plain versions on the card on every
-             step;
+             on a chaotic loop (CHAOTIC: the cart-pole's f64 swing-up, where a 1e-15
+             perturbation of its start and disturbances grows to O(1) within five steps
+             on the CPU alone), the card must agree with the CPU on the steps on which
+             the CPU agrees with itself under that perturbation (at least one), and the
+             loop through the kernels must agree with the loop through the plain
+             versions on the card on every step;
+   loop64_<family>_coupled: the same for the family's coupled loop (coupled_setup),
+             with the final raw parameters. The CPU's side of every loop64 phase (and
+             of a chaotic one's perturbed run) runs in a worker process (cpu_loop64),
+             all of them beside the card's phases;
 6. main:     the full-width paper path, B=16384, N=50, H=300 in f32, disturbances
              from a seeded torch.Generator on the card; every paper kernel must have
              launched in this run (the launch counts are set to 0 just before it), K3
@@ -58,13 +71,18 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    main_<family>: the full-width paper path of each family, B=16384, N=50, H=300 in f32
              (the counts set to 0 just before each): K1-K4 launched, K3 and K4 exactly
              H times, at least 99% of the lanes finite;
-8. profile:  torch.profiler over five full-width steps of the Dubins paths: the device's
+8. cli:      the port's CLI in-process at --batch 16384 on configs/dubins.yaml and on a
+             coupled copy of each family's config, at each config's own N and H
+             (cli_phase: artifacts, summary keys, each run's kernels launched from its
+             own system's libraries);
+9. profile:  torch.profiler over five full-width steps of the Dubins paths: the device's
              busy share and the device time of each kernel variant and of PyTorch's
              own kernels.
 
 Then it prints the `kernels` JSON line (launches from the main path for K1-K4, from
-the coupled path for K5/K6, from main_<family> for each family's K1-K4, named
-`<kernel>_<family>`), the card's name and power limit, and, as the last line,
+the coupled path for K5/K6, from main_<family> for each family's K1-K4 and from cli for
+its K5/K6, named `<kernel>_<family>`; each row's times and bound at B=16384, N=50), the
+card's name and power limit, and, as the last line,
 {"ok": true, "device": {...}}. With no card it exits non-zero at once. It takes no
 arguments: every size is fixed below, so a result line always stands for the whole
 run at full width.
@@ -74,6 +92,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import multiprocessing
+import os
 import re
 import subprocess
 import sys
@@ -93,7 +113,7 @@ SEED = 0  # every random number here comes from torch.Generator seeded from it
 B, N, H = 16384, 50, 300  # the main paths: bench.py's paper and coupled workloads, full width and depth
 RAGGED_B, RAGGED_N = 1000, 37  # every kernel also here: B not a multiple of 32, N not of 3
 RUNS = 20                 # timed runs per kernel
-PLAIN_RUNS = 5            # timed runs per plain version (one small PyTorch kernel per operation)
+PLAIN_RUNS = 2            # timed runs per plain version (one small PyTorch kernel per operation)
 LOOP64_B, LOOP64_H = 256, 5
 PROFILE_H = 5
 
@@ -146,11 +166,16 @@ LOOP_TOL = {  # tests/test_lane_closed_loop.py:45-50
     "u_bar": (1e-7, 1e-8), "b_real": (1e-7, 1e-8), "loss": (1e-7, 1e-8),
     "Q_hist": (1e-8, 1e-11), "R_hist": (1e-8, 1e-11), "qb_hist": (1e-8, 1e-11),
 }
-COUPLED_LOOP_TOL = {  # tests/test_lane_generic.py:219-225; the final raw parameters as Q/R
+COUPLED_LOOP_TOL = {  # tests/test_lane_generic.py:88-95, 219-225; the final raw parameters
     "x_real": (1e-7, 1e-8), "u_real": (1e-7, 1e-8), "x_bar": (1e-7, 1e-8),
-    "u_bar": (1e-7, 1e-7), "Q_hist": (1e-7, 1e-10), "R_hist": (1e-7, 1e-10),
+    "u_bar": (1e-7, 1e-7), "b_real": (1e-7, 1e-8), "loss": (1e-7, 1e-8),
+    "Q_hist": (1e-7, 1e-10), "R_hist": (1e-7, 1e-10), "qb_hist": (1e-7, 1e-10),
     "raw_aux": (1e-7, 1e-10), "raw_nom": (1e-7, 1e-10),
 }
+# The systems whose f64 loop is chaotic over LOOP64_H steps: the cart-pole's swing-up (a
+# 1e-15 perturbation of its start and disturbances grows to O(1) within five steps on the
+# CPU alone). Only these are held by hold_loop64's rule for a chaotic loop.
+CHAOTIC = ("cartpole",)
 
 
 def log(msg: str) -> None:
@@ -263,13 +288,19 @@ def max_err(torch, got, ref, rtol, atol_frac):
 REG_SENS, ACTIVE_TOL = 1e-9, 1e-8   # the sensitivity's reg and active-set tolerance
 
 
-def coupled_setup(torch, H_, where, dtype):
+def coupled_setup(torch, H_, where, dtype, family="dubins", N_=N):
     """bench.py's BENCH_MODE=coupled configuration (bench.py:229-255): the paper
-    setup, the clipped adaptation, adapt_nominal, its raw parameters, eps=1e-4."""
-    from tube_mpc_tpu_torch.presets import dubins_paper_setup
+    setup, the clipped adaptation, adapt_nominal, its raw parameters, eps=1e-4; for a
+    family, configs/<family>.yaml with adaptation.adapt_nominal: true as the CLI runs it
+    (presets.family_coupled_setup), at the horizon N_. Returns (setup, its
+    TubeMPCConfig, raw θ̄, raw θ)."""
+    from tube_mpc_tpu_torch.presets import dubins_paper_setup, family_coupled_setup
     from tube_mpc_tpu_torch.tube.params import AdaptConfig, RawAuxTheta, RawNominalTheta
 
-    s = dubins_paper_setup(N=N, H=H_, device=where, dtype=dtype)
+    if family != "dubins":
+        s, raw_nom, raw_aux = family_coupled_setup(family, N=N_, H=H_, device=where, dtype=dtype)
+        return s, s.cfg, raw_nom, raw_aux
+    s = dubins_paper_setup(N=N_, H=H_, device=where, dtype=dtype)
     cfg = dataclasses.replace(s.cfg, adapt=AdaptConfig(
         lr=5e-2, momentum=0.9, steps=1, grad_clip_norm=1.0, project=True), adapt_nominal=True)
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=where)
@@ -282,18 +313,50 @@ def coupled_setup(torch, H_, where, dtype):
     return s, cfg, raw_nom, raw_aux
 
 
+def solver_inputs(pb, reg, system, C, x_hat, U_ws, X_ref, U_ref):
+    """K1's and K2's inputs in the first iteration of an ancillary solve from x_hat [B, n̂]
+    with the warm start U_ws toward the reference (X_ref [B, N+1, nx], U_ref), on the
+    const block C: (K1's, K2's)."""
+    from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
+    from tube_mpc_tpu_torch.ops.cuda.lane_solver import rollout
+    from tube_mpc_tpu_torch.tube.lane_interface import _rows, _with_barrier_row
+
+    x0, U0 = _rows(x_hat), _rows(system.clamp(U_ws))
+    Xr, Ur = _rows(_with_barrier_row(X_ref)), _rows(U_ref)
+    X0 = rollout(pb, x0, U0, Xr, Ur, C)
+    nh, m = pb.n_hat, pb.m
+    phix = C[nh + m:2 * nh + m] * (X0[-1] - Xr[-1])   # terminal rows of C
+    k1 = (X0[:-1], U0, Xr[:-1], Ur, C, phix)
+    K, kff = WRAPPERS["ric"](pb, reg, *k1)
+    return k1, (x0, X0[:-1], U0, K, kff, Xr[:-1], Xr[-1], Ur, C)
+
+
+def solver_fns(q, cfg):
+    """{kernel: (its wrapper, its plain version)} of K1 and K2 on the problem q with the
+    reg and alphas of cfg, and K2 at the rollout's nα=1 as "fwd nα=1"."""
+    from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
+    from tube_mpc_tpu_torch.ops.cuda.lane_solver import fwd_plain, ric_plain
+
+    return {
+        "ric": (lambda *t: WRAPPERS["ric"](q, cfg.reg, *t), lambda *t: ric_plain(q, cfg.reg, *t)),
+        "fwd": (lambda *t: WRAPPERS["fwd"](q, cfg.alphas, *t),
+                lambda *t: fwd_plain(q, cfg.alphas, *t)),
+        "fwd nα=1": (lambda *t: WRAPPERS["fwd"](q, (1.0,), *t),
+                     lambda *t: fwd_plain(q, (1.0,), *t)),
+    }
+
+
 def paper_step(torch, dev, dtype, family="dubins"):
     """The four paper kernels' inputs in one real closed-loop step of the paper setup
     (Dubins', or a family's from presets.family_paper_setup) at full width: three
     disturbed steps first, then this step's nominal solve, the first iteration of its
     ancillary solve, and the sensitivity of its solution.
-    Returns (the problem, its eps, make, {kernel: inputs}, the ancillary U rows, what):
+    Returns (the problem, its eps, make, {kernel: inputs}, what):
     make(q) gives {kernel: (its wrapper, its plain version)} on the problem q, and K2 at
     the rollout's nα=1 as "fwd nα=1"."""
     from tube_mpc_tpu_torch.ops.costs import CostWeights
     from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
     from tube_mpc_tpu_torch.ops.cuda.lane_sensitivity import sbwd_plain, sfwd_plain
-    from tube_mpc_tpu_torch.ops.cuda.lane_solver import fwd_plain, ric_plain, rollout
     from tube_mpc_tpu_torch.presets import dubins_paper_setup, family_paper_setup
     from tube_mpc_tpu_torch.tube.lane_closed_loop import make_paper_lane_step, paper_lane_init_state
     from tube_mpc_tpu_torch.tube.lane_interface import (
@@ -324,16 +387,9 @@ def paper_step(torch, dev, dtype, family="dubins"):
     a = state.adapt
     w_aux = CostWeights(Q=a.Q, R=a.R, Qf=a.Q, qb=a.qb)
     C = _build_C(pb, w_aux, s.bp, B, dtype, dev)
-    x0 = _rows(x_hat)
-    U0 = _rows(s.system.clamp(state.U_aux_ws))
-    Xr = _rows(_with_barrier_row(X_nom[..., :nx]))
-    Ur = _rows(U_nom)
-    X0 = rollout(pb, x0, U0, Xr, Ur, C)
-    nh, m = pb.n_hat, pb.m
-    phix = C[nh + m:2 * nh + m] * (X0[-1] - Xr[-1])   # terminal rows of C
-    k1 = (X0[:-1], U0, Xr[:-1], Ur, C, phix)
-    K, kff = WRAPPERS["ric"](pb, s.cfg.reg, *k1)
-    k2 = (x0, X0[:-1], U0, K, kff, Xr[:-1], Xr[-1], Ur, C)
+    k1, k2 = solver_inputs(pb, s.cfg.reg, s.system, C, x_hat, state.U_aux_ws,
+                           X_nom[..., :nx], U_nom)
+    Xr, Ur = _rows(_with_barrier_row(X_nom[..., :nx])), _rows(U_nom)
     X_aux, U_aux = tube_ilqr_solve_lanes(
         pb, s.cfg.aux_ilqr(), w=w_aux, bp=s.bp, x_hat0=x_hat, U_init=state.U_aux_ws,
         X_ref=X_nom[..., :nx], U_ref=U_nom, device=dev)
@@ -346,20 +402,15 @@ def paper_step(torch, dev, dtype, family="dubins"):
     def make(q):
         """{kernel: (its wrapper, its plain version)} on the problem q."""
         return {
-            "ric": (lambda *t: WRAPPERS["ric"](q, s.cfg.reg, *t),
-                    lambda *t: ric_plain(q, s.cfg.reg, *t)),
-            "fwd": (lambda *t: WRAPPERS["fwd"](q, s.cfg.alphas, *t),
-                    lambda *t: fwd_plain(q, s.cfg.alphas, *t)),
+            **solver_fns(q, s.cfg),
             "sbwd": (lambda *t: WRAPPERS["sbwd"](q, REG_SENS, ACTIVE_TOL, *t),
                      lambda *t: sbwd_plain(q, REG_SENS, ACTIVE_TOL, *t)),
             "sfwd": (lambda *t: WRAPPERS["sfwd"](q, *t), lambda *t: sfwd_plain(q, *t)),
-            "fwd nα=1": (lambda *t: WRAPPERS["fwd"](q, (1.0,), *t),
-                         lambda *t: fwd_plain(q, (1.0,), *t)),
         }
 
     what = "paper setup" if family == "dubins" else f"{family} paper setup"
-    return (pb, s.eps, make, {"ric": k1, "fwd": k2, "sbwd": k3, "sfwd": k4}, Ua,
-            f"{what}, {len(s.cfg.alphas)} alphas")
+    return (pb, s.eps, make, {"ric": k1, "fwd": k2, "sbwd": k3, "sfwd": k4},
+            f"{what} at B={B}, N={N}, {len(s.cfg.alphas)} alphas")
 
 
 def with_obstacles(pb, centers, eps):
@@ -390,6 +441,95 @@ def run_paper_loop(s, w, where):
         bp=s.bp, x0=s.x0, target=s.target, w_seqs=w, eps=s.eps, device=where)
 
 
+def run_coupled(s, cfg, raw_nom, raw_aux, w, where):
+    """The generic loop of coupled_setup's (s, cfg, raw θ̄, raw θ) under the disturbances w,
+    on `where`: (log, (raw θ, raw θ̄) at the end)."""
+    from tube_mpc_tpu_torch.tube.lane_closed_loop import run_generic_closed_loop_lanes
+
+    return run_generic_closed_loop_lanes(
+        s.system, s.aug, s.sys_c, cfg, raw_nom=raw_nom, raw_aux_init=raw_aux, x0=s.x0,
+        target=s.target, w_seqs=w, eps=s.eps, device=where)
+
+
+# The f64 loops held on the card against the CPU (phases loop64*): (kind, family) -> the
+# seed of their disturbances.
+LOOP64_CASES = {("paper", "dubins"): SEED + 2, ("coupled", "dubins"): SEED + 5,
+                **{("paper", f): SEED + 20 + i for i, f in enumerate(FAMILIES)},
+                **{("coupled", f): SEED + 50 + i for i, f in enumerate(FAMILIES)}}
+
+
+def loop64_case(torch, kind, family, where, H_=LOOP64_H, scale=1.0):
+    """(setup, run, w) of the f64 loop `kind` ("paper" or "coupled") of `family` at B=LOOP64_B,
+    N, H=H_ on `where`: run(setup, w, where) runs it under the disturbances w. With `scale`,
+    the start x0 and the disturbances are multiplied by it (1 + 1e-15: a perturbation of
+    their last bits)."""
+    from tube_mpc_tpu_torch.presets import dubins_paper_setup, family_paper_setup
+
+    f64 = torch.float64
+    if kind == "paper":
+        st = (dubins_paper_setup(N=N, H=H_, device=where, dtype=f64) if family == "dubins"
+              else family_paper_setup(family, N=N, H=H_, device=where, dtype=f64))
+        st = dataclasses.replace(st, x0=st.x0 * scale)
+        run, s = run_paper_loop, st
+    else:
+        st = coupled_setup(torch, H_, where, f64, family)
+        st = (dataclasses.replace(st[0], x0=st[0].x0 * scale), *st[1:])
+        run, s = (lambda st_, w_, where_: run_coupled(*st_, w_, where_)), st[0]
+    gen = torch.Generator().manual_seed(LOOP64_CASES[kind, family])
+    w = s.system.sample_disturbance(gen, (LOOP64_B, H_), dtype=f64).to(where) * scale
+    return st, run, w
+
+
+def tree_map(fn, tree):
+    """fn on every leaf of a tree of tuples and named tuples."""
+    if isinstance(tree, tuple):
+        leaves = [tree_map(fn, v) for v in tree]
+        return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(leaves)
+    return fn(tree)
+
+
+def cpu_loop64(kind, family, H_=LOOP64_H, scale=1.0):
+    """The CPU's f64 loop of loop64_case (the plain versions), in a worker process: (its
+    result as numpy arrays, its seconds). The workers run beside the card's phases, one
+    thread each."""
+    import torch
+
+    torch.set_num_threads(1)
+    st, run, w = loop64_case(torch, kind, family, "cpu", H_, scale)
+    t0 = time.perf_counter()
+    out = run(st, w, "cpu")
+    return tree_map(lambda t: t.numpy(), out), time.perf_counter() - t0
+
+
+def loop_fields(out):
+    """{field: tensor} of a loop's result: a ClosedLoopLog's fields [B, H, ...] and, for
+    the generic loop's (log, (raw_aux, raw_nom)), the final raw leaves too."""
+    if hasattr(out, "_fields"):
+        return out._asdict()
+    fields = out[0]._asdict()
+    for tree, raws in zip(("raw_aux", "raw_nom"), out[1]):
+        fields.update({f"{tree}.{k}": v for k, v in raws._asdict().items()})
+    return fields
+
+
+def loop_diffs(got, ref, steps, tol):
+    """{field: (max |got - ref|, within tol)}: the log fields over the first `steps`
+    steps, and the final raw leaves when `steps` is the whole run."""
+    a_f, b_f, out = loop_fields(got), loop_fields(ref), {}
+    H_run = b_f["x_real"].shape[1]
+    for field, b in b_f.items():
+        rtol, atol = tol[field.split(".")[0]]
+        a = a_f[field]
+        if field.startswith("raw_"):
+            if steps < H_run:
+                continue
+        else:
+            a, b = a[:, :steps], b[:, :steps]
+        d = (a.cpu() - b.cpu()).abs()
+        out[field] = (float(d.max()), bool((d <= atol + rtol * b.cpu().abs()).all()))
+    return out
+
+
 @contextlib.contextmanager
 def plain_on_card():
     """The kernel wrappers run their plain versions on CUDA tensors too, within: a loop
@@ -405,11 +545,13 @@ def plain_on_card():
         lane_solver.on_cpu, lane_sensitivity.on_cpu = saved
 
 
-def coupled_step(torch, dev, dtype):
-    """The four K5/K6 variants' inputs in one real step of the coupled setup at full
-    width: three disturbed steps first, then this step's two solves, the ancillary
-    sweeps (K5 generic, K6 with the reference cotangents) and the nominal sweeps fed
-    those cotangents (K5 with upper rows, K6 generic). Returns what paper_step does."""
+def coupled_step(torch, dev, dtype, family="dubins", N_=N, solver=False):
+    """The four K5/K6 variants' inputs in one real step of the coupled setup (Dubins',
+    or a family's from coupled_setup) at full width and the horizon N_: three disturbed
+    steps first, then this step's two solves, the ancillary sweeps (K5 generic, K6 with
+    the reference cotangents) and the nominal sweeps fed those cotangents (K5 with upper
+    rows, K6 generic); with `solver`, K1's and K2's inputs too (the first iteration of
+    the ancillary solve). Returns what paper_step does."""
     from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
     from tube_mpc_tpu_torch.ops.cuda.lane_sensitivity import sbwd_plain, sbwd_upper_plain, sfwd_plain
     from tube_mpc_tpu_torch.tube.lane_closed_loop import (
@@ -418,13 +560,15 @@ def coupled_step(torch, dev, dtype):
         _build_C, _rows, _with_barrier_row, make_lane_problem, tube_ilqr_solve_lanes,
         tube_sensitivity_grads_lanes_generic)
 
-    s, cfg, raw_nom, raw_aux = coupled_setup(torch, 4, dev, dtype)
-    pb = make_lane_problem(s.sys_c, eps=1e-4)
+    s, cfg, raw_nom, raw_aux = coupled_setup(torch, 4, dev, dtype, family, N_)
+    nx, nu = s.system.nx, s.system.nu
+    pb = make_lane_problem(s.sys_c, eps=s.eps)
     step = make_generic_lane_step(s.system, s.aug, pb, cfg, target=s.target, B=B,
                                   dtype=dtype, device=dev)
     state = generic_lane_init_state(s.system, s.aug, cfg, raw_nom=raw_nom,
                                     raw_aux_init=raw_aux, x0=s.x0, B=B, dtype=dtype)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    seed = SEED + 4 if family == "dubins" else SEED + 40 + FAMILIES.index(family)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     w = s.system.sample_disturbance(gen, (B, 3), dtype=dtype)
     for t in range(3):
         state, _ = step(state, w[:, t])
@@ -432,23 +576,27 @@ def coupled_step(torch, dev, dtype):
     w_aux, bp_aux = _aux_params(state.raw_aux, zero_t)
     w_nom, bp_nom = _nom_params(state.raw_nom)
     x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
-    X_ref_nom = s.target[None, None].expand(B, N + 1, 3)
-    U_ref_nom = torch.zeros((B, N, 2), dtype=dtype, device=dev)
+    X_ref_nom = s.target[None, None].expand(B, N_ + 1, nx)
+    U_ref_nom = torch.zeros((B, N_, nu), dtype=dtype, device=dev)
     X_nom, U_nom = tube_ilqr_solve_lanes(
         pb, cfg.nominal_ilqr(), w=w_nom, bp=bp_nom, x_hat0=x_hat_bar,
         U_init=state.U_nom_ws, X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev)
     x_hat = torch.cat([state.x, state.b[:, None]], dim=-1)
     X_aux, U_aux = tube_ilqr_solve_lanes(
         pb, cfg.aux_ilqr(), w=w_aux, bp=bp_aux, x_hat0=x_hat, U_init=state.U_aux_ws,
-        X_ref=X_nom[..., :3], U_ref=U_nom, device=dev)
+        X_ref=X_nom[..., :nx], U_ref=U_nom, device=dev)
     Xa, Ua = _rows(X_aux), _rows(U_aux)
-    Xr, Ur = _rows(_with_barrier_row(X_nom[..., :3])), _rows(U_nom)
+    Xr, Ur = _rows(_with_barrier_row(X_nom[..., :nx])), _rows(U_nom)
     Ca = _build_C(pb, w_aux, bp_aux, B, dtype, dev)
+    inputs = {}
+    if solver:
+        inputs["ric"], inputs["fwd"] = solver_inputs(pb, cfg.reg, s.system, Ca, x_hat,
+                                                     state.U_aux_ws, X_nom[..., :nx], U_nom)
     k5g = (Ua, Xa[:-1], Xr[:-1], Ca, Xa[-1], Xr[-1])
     K, kff, tVx, Vxx, LogS = WRAPPERS["sbwd_generic"](pb, REG_SENS, ACTIVE_TOL, *k5g)
     k6r = (K, kff, Xa[:-1], Xr[:-1], Ua, Ur, Ca, Xa[-1], Xr[-1], tVx, Vxx, LogS)
     _, g_Xref, g_Uref = tube_sensitivity_grads_lanes_generic(
-        pb, w=w_aux, bp=bp_aux, X_hat=X_aux, U=U_aux, X_ref=X_nom[..., :3], U_ref=U_nom,
+        pb, w=w_aux, bp=bp_aux, X_hat=X_aux, U=U_aux, X_ref=X_nom[..., :nx], U_ref=U_nom,
         reg=REG_SENS, emit_ref_grads=True, device=dev)
     gX, gU = _rows(g_Xref), _rows(g_Uref)
     Xn, Un = _rows(X_nom), _rows(U_nom)
@@ -462,6 +610,7 @@ def coupled_step(torch, dev, dtype):
     def make(q):
         """{kernel: (its wrapper, its plain version)} on the problem q."""
         return {
+            **solver_fns(q, cfg),
             "sbwd_generic": (lambda *t: WRAPPERS["sbwd_generic"](q, REG_SENS, ACTIVE_TOL, *t),
                              lambda *t: sbwd_plain(q, REG_SENS, ACTIVE_TOL, *t, generic=True)),
             "sbwd_upper": (lambda *t: WRAPPERS["sbwd_upper"](q, REG_SENS, ACTIVE_TOL, *t),
@@ -472,8 +621,113 @@ def coupled_step(torch, dev, dtype):
                          lambda *t: sfwd_plain(q, *t[:9], value=t[9:], emit_ref_grads=True)),
         }
 
-    return (pb, 1e-4, make, {"sbwd_generic": k5g, "sbwd_upper": k5u, "sfwd_generic": k6g,
-                             "sfwd_ref": k6r}, Ua, "coupled setup")
+    what = "coupled setup" if family == "dubins" else f"{family} coupled setup"
+    inputs.update(sbwd_generic=k5g, sbwd_upper=k5u, sfwd_generic=k6g, sfwd_ref=k6r)
+    return pb, s.eps, make, inputs, f"{what} at B={B}, N={N_}, {len(cfg.alphas)} alphas"
+
+
+# the keys of the runner's summary (tube_mpc_tpu/runners.py:350-369, _finish_lanes)
+SUMMARY_KEYS = {"system", "mode", "engine", "dtype", "H", "N", "batch", "final_state",
+                "final_barrier_state", "final_loss", "final_loss_mean_finite",
+                "final_loss_median_finite", "finite_lane_frac", "wall_time_s", "solves_per_sec"}
+
+
+def cli_phase(torch, dev, t_start):
+    """Phase 8: `python -m tube_mpc_tpu_torch.run_experiment --config <file> --batch B`,
+    called in-process (main(argv)) on the card at each config's own N and H, into a
+    temporary directory that it then removes: configs/dubins.yaml as shipped (paper
+    mode), and a copy of each family's config with adaptation.adapt_nominal: true (the
+    coupled generic path). The run must return; every artifact must have its shape and
+    the summary every key; each run must launch its kernels from its own system's
+    libraries only (launch_counts(by_system=True)): K1 and K2, and K3/K4 H times
+    (Dubins' paper run) or each K5/K6 variant adapt.steps times a step (a family's);
+    solves_per_sec and finite_lane_frac, printed as records, must be finite numbers.
+    Returns {config: {kernel: its launches in that run}}."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import yaml
+
+    from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
+    from tube_mpc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from tube_mpc_tpu_torch.run_experiment import main as cli_main
+    from tube_mpc_tpu_torch.utils.config import parse_config, read_yaml
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    counts, problems = {}, []
+    try:
+        runs = [("dubins", "configs/dubins.yaml")]
+        for family in FAMILIES:
+            raw = read_yaml(f"configs/{family}.yaml")
+            raw["adaptation"]["adapt_nominal"] = True
+            path = os.path.join(tmp, f"{family}_coupled.yaml")
+            with open(path, "w", encoding="utf-8") as f:
+                yaml.safe_dump(raw, f)
+            runs.append((family, path))
+        for name, path in runs:
+            cfg = parse_config(read_yaml(path))
+            Hc, Nc, steps = cfg.system.task_horizon_H, cfg.system.horizon_N, cfg.adaptation.steps
+            run_dir = os.path.join(tmp, name)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = cli_main(["--config", path, "--batch", str(B), "--run-dir", run_dir])
+            elapsed = time.perf_counter() - t0
+            by_system = launch_counts(by_system=True)
+            c = counts[name] = {k: by_system.get((k, name), 0) for k in WRAPPERS}
+            others = {f"{k}_{fam}": n for (k, fam), n in by_system.items() if fam != name}
+            summary = res["summary"]
+            nx, nu = res["log"].x_real.shape[-1], res["log"].u_real.shape[-1]
+            del res
+            sps, fin = summary.get("solves_per_sec"), summary.get("finite_lane_frac")
+            log(f"[cli] {path} (mode {summary.get('mode')}): B={B}, N={Nc}, H={Hc} f32: run "
+                f"{summary.get('wall_time_s')!r} s, solves_per_sec {sps!r}, finite_lane_frac "
+                f"{fin!r}; the call with its artifacts {elapsed:.3f} s, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+            log(f"[cli] {name} launches from its libraries: {json.dumps(c)}; from others: "
+                f"{json.dumps(others)}")
+            if others:
+                problems.append(f"{name}: launches from other systems' libraries {others}")
+            want = {"x_real": (Hc, nx), "u_real": (Hc, nu), "x_bar": (Hc, nx), "u_bar": (Hc, nu),
+                    "b_real": (Hc,), "loss": (Hc,), "Qa_history": (Hc, nx),
+                    "Ra_history": (Hc, nu), "qba_history": (Hc,)}
+            batch = {"x_real": nx, "u_real": nu, "x_bar": nx, "u_bar": nu, "b_real": None,
+                     "loss": None, "Q_hist": nx, "R_hist": nu, "qb_hist": None}
+            want.update({f"{k}_batch": (B, Hc) + ((d,) if d else ()) for k, d in batch.items()})
+            for art, shape in want.items():
+                f = os.path.join(run_dir, f"{art}.npy")
+                got = np.load(f, mmap_mode="r") if os.path.exists(f) else None
+                if got is None or got.shape != shape or got.dtype != np.float64:
+                    problems.append(f"{name}: {art}.npy is "
+                                    f"{None if got is None else (got.shape, got.dtype)}, "
+                                    f"not {shape} float64")
+            for js in ("config_used.json", "results_summary.json"):
+                if not os.path.exists(os.path.join(run_dir, js)):
+                    problems.append(f"{name}: no {js}")
+            if set(summary) != SUMMARY_KEYS:
+                problems.append(f"{name}: summary keys {sorted(set(summary) ^ SUMMARY_KEYS)}")
+            if not all(isinstance(v, float) and math.isfinite(v) for v in (sps, fin)):
+                problems.append(f"{name}: solves_per_sec {sps!r}, finite_lane_frac {fin!r}")
+            want_n = {"ric": None, "fwd": None}
+            if name == "dubins":
+                want_n.update(sbwd=Hc, sfwd=Hc)
+            else:
+                want_n.update({k: Hc * steps for k in COUPLED})
+            for k, n in want_n.items():
+                if c[k] == 0 or (n is not None and c[k] != n):
+                    problems.append(f"{name}: {k} launched {c[k]} times"
+                                    + ("" if n is None else f", not {n}"))
+            shutil.rmtree(run_dir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if problems:
+        raise SystemExit(f"chip_smoke: the CLI runs failed their checks: {problems}")
+    log(f"[cli] done at {time.perf_counter() - t_start:.0f} s")
+    return counts
 
 
 def main() -> int:
@@ -482,21 +736,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # the CPU's f64 loops (loop64*) run in worker processes beside the card's phases; every
+    # worker is stopped on the way out, whatever the phases did
+    workers = max(1, min(len(LOOP64_CASES) + 2 * len(CHAOTIC), (os.cpu_count() or 2) - 1))
+    pool = multiprocessing.get_context("spawn").Pool(workers)
+    try:
+        return run_phases(torch, pool)
+    finally:
+        pool.terminate()
+        pool.join()
 
+
+def run_phases(torch, pool) -> int:
     from tube_mpc_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
     from tube_mpc_tpu_torch.presets import dubins_paper_setup, family_paper_setup
-    from tube_mpc_tpu_torch.tube.lane_closed_loop import run_generic_closed_loop_lanes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
     t_start = time.perf_counter()
-
-    def run_coupled(s, cfg, raw_nom, raw_aux, w, where):
-        return run_generic_closed_loop_lanes(
-            s.system, s.aug, s.sys_c, cfg, raw_nom=raw_nom, raw_aux_init=raw_aux, x0=s.x0,
-            target=s.target, w_seqs=w, eps=1e-4, device=where)
 
     # ---- 1. device ------------------------------------------------------------
     log(f"[device] {card}")
@@ -512,6 +771,23 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {name}: {kernel_label(line.strip())}")
+    cpu_runs = {case: pool.apply_async(cpu_loop64, case) for case in LOOP64_CASES}
+    # a chaotic loop's CPU side also with its start and disturbances times 1 + 1e-15
+    cpu_perturbed = {(kind, family): pool.apply_async(cpu_loop64, (kind, family, LOOP64_H,
+                                                                    1.0 + 1e-15))
+                     for kind, family in LOOP64_CASES if family in CHAOTIC}
+
+    def loop64_logs(phase, kind, family):
+        """({"cpu": the CPU's f64 loop of loop64_case, from its worker, dev: the card's},
+        the card's setup, run and w)."""
+        out, cpu_s = cpu_runs[kind, family].get()
+        st, run, w = loop64_case(torch, kind, family, dev)
+        t0 = time.perf_counter()
+        card_out = run(st, w, dev)
+        torch.cuda.synchronize()
+        log(f"[{phase}] B={LOOP64_B}, N={N}, H={LOOP64_H} f64: {cpu_s:.1f} s on the cpu (a "
+            f"worker process), {time.perf_counter() - t0:.1f} s on {dev}")
+        return {"cpu": tree_map(torch.as_tensor, out), dev: card_out}, st, run, w
 
     # ---- 3. kernels against their plain versions --------------------------------
     RAGGED_AT = f"B={RAGGED_B}, N={RAGGED_N}"
@@ -525,16 +801,18 @@ def main() -> int:
         """The first RAGGED_N steps and RAGGED_B lanes of a [N, rows, B] or [rows, B] input."""
         return (t[:RAGGED_N, :, :RAGGED_B] if t.ndim == 3 else t[:, :RAGGED_B]).contiguous()
 
-    def held(make, pb, eps, inputs):
+    def held(make, pb, eps, inputs, more_shapes):
         """The checks of the kernels of `inputs` ({kernel: its inputs}) on one step's inputs:
-        (calls {kernel: (wrapper, plain version, inputs)} at the main shape, extra [(label,
-        kernel, wrapper, plain version, inputs, timed)]). Every kernel is built for each
-        obstacle count (the paper has 5), so the extra checks also take the first and the
-        last instantiation, with the system's first obstacle alone and with more up to
-        eight, at the ragged shape; Dubins' last also at the main shape, timed. The
-        cart-pole has no obstacles, so only the ragged shape."""
+        (calls {kernel: (wrapper, plain version, inputs)} at the step's shape, extra [(label,
+        kernel, wrapper, plain version, inputs, timed)]). With `more_shapes`: every kernel
+        is built for each obstacle count (the paper has 5), so the extra checks also take
+        the first and the last instantiation, with the system's first obstacle alone and
+        with more up to eight, at the ragged shape; Dubins' last also at the main shape,
+        timed. The cart-pole has no obstacles, so only the ragged shape."""
         main = make(pb)
         calls = {k: (*main[k], t) for k, t in inputs.items()}
+        if not more_shapes:
+            return calls, []
         extra = [(f"{k} at {RAGGED_AT}", k, *main[k], tuple(map(ragged, t)), False)
                  for k, t in inputs.items()]
         sp = pb.spec
@@ -552,38 +830,52 @@ def main() -> int:
                           for k, t in inputs.items()]
         return calls, extra
 
-    def checks(step_of, dtype):
+    def checks(step_of, dtype, more_shapes):
         """(calls, extra, controls at a bound, what, the problem) of one step's inputs
-        (paper_step or coupled_step); K2 also at the rollout's nα=1. Where no ancillary
-        control of the step lies at a bound (a family's step may have none), K3 is also
-        held on the same inputs with the ancillary controls clamped to their quartiles,
-        which become the problem's bounds, so that the active set runs."""
-        pb, eps, make, inputs, Ua, what = step_of(torch, dev, dtype)
-        calls, extra = held(make, pb, eps, inputs)
+        (paper_step or coupled_step); K2 also at the rollout's nα=1. Where no control of a
+        backward sweep's (K3, K5) inputs lies at a bound (a family's step may have none),
+        that sweep is also held on the same inputs with the controls clamped to their
+        quartiles, which become the problem's bounds, so that the active set runs; the
+        count returned is the least over the sweeps. With `more_shapes`, held's extra
+        shapes and obstacle counts, and the clamped sweep at the ragged shape; without, at
+        the step's own."""
+        pb, eps, make, inputs, what = step_of(torch, dev, dtype)
+        calls, extra = held(make, pb, eps, inputs, more_shapes)
+        cut, cut_at = (ragged, f" at {RAGGED_AT}") if more_shapes else ((lambda t: t), "")
         if "fwd" in inputs:
             fwd1 = make(pb)["fwd nα=1"]
-            extra = [("fwd nα=1", "fwd", *fwd1, inputs["fwd"], True),
-                     (f"fwd nα=1 at {RAGGED_AT}", "fwd", *fwd1, tuple(map(ragged, inputs["fwd"])),
-                      False)] + extra
-        n_bound = at_bound(pb, Ua)
-        if n_bound == 0 and "sbwd" in inputs:
-            rows = Ua.transpose(0, 1).reshape(pb.m, -1).float()
-            lo = tuple(float(torch.quantile(r, 0.25)) for r in rows)
-            hi = tuple(float(torch.quantile(r, 0.75)) for r in rows)
-            pbc = dataclasses.replace(pb, u_min=lo, u_max=hi)
-            U_c = torch.minimum(torch.as_tensor(hi, dtype=dtype, device=dev)[:, None],
-                                torch.maximum(torch.as_tensor(lo, dtype=dtype, device=dev)[:, None],
-                                              Ua))
-            ins = (U_c,) + tuple(inputs["sbwd"][1:])
-            n_bound = at_bound(pbc, U_c)
-            log(f"[checks] {what}: no ancillary control at a bound; K3 also with the controls "
-                f"clamped to their quartiles {lo}..{hi}, {n_bound} of them at a bound")
-            extra.append((f"sbwd, controls clamped to their quartiles, at {RAGGED_AT}", "sbwd",
-                          *make(pbc)["sbwd"], tuple(map(ragged, ins)), False))
-        return calls, extra, n_bound, what, pb
+            head = [("fwd nα=1", "fwd", *fwd1, inputs["fwd"], True)]
+            if more_shapes:
+                head.append((f"fwd nα=1 at {RAGGED_AT}", "fwd", *fwd1,
+                             tuple(map(ragged, inputs["fwd"])), False))
+            extra = head + extra
+        counts = []
+        for name in ("sbwd", "sbwd_generic", "sbwd_upper"):
+            if name not in inputs:
+                continue
+            at_u = 3 if name == "sbwd_upper" else 0   # where U lies among the sweep's inputs
+            U = inputs[name][at_u]
+            n_bound = at_bound(pb, U)
+            if n_bound == 0:
+                rows = U.transpose(0, 1).reshape(pb.m, -1).float()
+                lo = tuple(float(torch.quantile(r, 0.25)) for r in rows)
+                hi = tuple(float(torch.quantile(r, 0.75)) for r in rows)
+                pbc = dataclasses.replace(pb, u_min=lo, u_max=hi)
+                U_c = torch.minimum(torch.as_tensor(hi, dtype=dtype, device=dev)[:, None],
+                                    torch.maximum(torch.as_tensor(lo, dtype=dtype,
+                                                                  device=dev)[:, None], U))
+                ins = list(inputs[name])
+                ins[at_u] = U_c
+                n_bound = at_bound(pbc, U_c)
+                log(f"[checks] {what}: no control of {name}'s inputs at a bound; {name} also "
+                    f"with the controls clamped to their quartiles {lo}..{hi}, {n_bound} of "
+                    f"them at a bound")
+                extra.append((f"{name}, controls clamped to their quartiles{cut_at}",
+                              name, *make(pbc)[name], tuple(map(cut, ins)), False))
+            counts.append(n_bound)
+        return calls, extra, min(counts), what, pb
 
     results = {}
-    main_ms = {}   # (type, kernel): ms per launch at the main shape
     failed = []
 
     def check(phase, dname, label, name, kernel, plain, inputs):
@@ -602,20 +894,23 @@ def main() -> int:
             failed.append(f"{dname} {label}")
         return got, err
 
-    def check_step(phase, step_of, dtype, suffix=""):
-        """Phase 3's checks and times of the kernels of one step's inputs in `dtype`; the
-        f32 results go to results[<kernel><suffix>]."""
+    def check_step(phase, step_of, dtype, suffix="", record=True):
+        """Phase 3's checks and times of the kernels of one step's inputs in `dtype`; with
+        `record`, also at the extra shapes and obstacle counts (held), and the f32 results,
+        with the plain versions' times and the bounds, go to results[<kernel><suffix>];
+        without, the kernels are held and timed at the step's own shape only."""
         dname = str(dtype).replace("torch.", "")
-        calls, extra, n_bound, what, pb = checks(step_of, dtype)
-        log(f"[{phase}] {dname}: inputs from a closed-loop step of the {what} at B={B}, "
-            f"N={N}; {n_bound} ancillary controls at a bound")
+        calls, extra, n_bound, what, pb = checks(step_of, dtype, record)
+        log(f"[{phase}] {dname}: inputs from a closed-loop step of the {what}; at least "
+            f"{n_bound} controls at a bound in every backward sweep's inputs")
         if n_bound == 0:
-            failed.append(f"{dname} {what}: no ancillary control at a bound, active set unchecked")
+            failed.append(f"{dname} {what}: no control at a bound, active set unchecked")
         nc = 2 * pb.n_hat + pb.m + 3
+        step_ms = {}   # kernel: ms per launch on the step's inputs
         for name, (kernel, plain, inputs) in calls.items():
             got, err = check(phase, dname, name, name, kernel, plain, inputs)
-            ms = main_ms[dname, name + suffix] = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
-            if dtype != torch.float32:
+            ms = step_ms[name] = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
+            if not record or dtype != torch.float32:
                 log(f"[{phase}] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back)")
                 continue
             plain_ms = device_time_ms(torch, lambda: plain(*inputs), PLAIN_RUNS, warmup=1)
@@ -632,7 +927,8 @@ def main() -> int:
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=in_bytes + out_bytes, ops=ops)
             log(f"[{phase}] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back), plain "
-                f"{plain_ms:.2f} ms (mean of {PLAIN_RUNS}); {in_bytes + out_bytes} bytes "
+                f"{plain_ms:.2f} ms (mean of {PLAIN_RUNS}, while the CPU's loop64 workers run); "
+                f"{in_bytes + out_bytes} bytes "
                 f"-> {t_bytes:.4f} ms, {ops} ops -> {t_ops:.4f} ms at peak "
                 f"({2 * t_ops:.4f} ms without fused multiply-adds)")
         for label, name, kernel, plain, inputs, timed in extra:
@@ -640,8 +936,7 @@ def main() -> int:
             if timed:
                 ms = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
                 log(f"[{phase}] {dname} {label}: {ms:.4f} ms (mean of {RUNS} back to back), "
-                    f"beside {main_ms[dname, name + suffix]:.4f} ms for {name} on the main "
-                    f"path's inputs")
+                    f"beside {step_ms[name]:.4f} ms for {name} on the step's inputs")
         del calls, extra
         torch.cuda.empty_cache()
 
@@ -652,144 +947,85 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
     log(f"[kernels] done at {time.perf_counter() - t_start:.0f} s")
 
-    # ---- the families' kernels against their plain versions ------------------------
+    # ---- the families' kernels against their plain versions: K1-K4 on a paper step,
+    # K5/K6 on a coupled step; and K1, K2, K5/K6 on a coupled step at the N of the
+    # family's config, which the cli phase runs (30, 200, 40), in f32 as the CLI does ----
+    from tube_mpc_tpu_torch.utils.config import load_config
+
+    both = (torch.float64, torch.float32)
     for family in FAMILIES:
-        t0 = time.perf_counter()
-        for dtype in (torch.float64, torch.float32):
-            check_step(f"kernels_{family}", lambda *a: paper_step(*a, family=family), dtype,
-                       suffix=f"_{family}")
-        if failed:
-            raise SystemExit(f"chip_smoke: {family}'s kernels disagree with their plain "
-                             f"versions: {failed}")
-        log(f"[kernels_{family}] done in {time.perf_counter() - t0:.0f} s, at "
-            f"{time.perf_counter() - t_start:.0f} s")
+        Nc = load_config(f"configs/{family}.yaml").system.horizon_N
+        for phase, step_of, dtypes, kw in (
+                (f"kernels_{family}", paper_step, both, {}),
+                (f"kernels_{family}_generic", coupled_step, both, {}),
+                (f"kernels_{family}_cli", coupled_step, (torch.float32,),
+                 dict(N_=Nc, solver=True))):
+            t0 = time.perf_counter()
+            for dtype in dtypes:
+                check_step(phase, lambda *a: step_of(*a, family=family, **kw), dtype,
+                           suffix=f"_{family}", record=not kw)
+            if failed:
+                raise SystemExit(f"chip_smoke: {family}'s kernels disagree with their plain "
+                                 f"versions: {failed}")
+            log(f"[{phase}] done in {time.perf_counter() - t0:.0f} s, at "
+                f"{time.perf_counter() - t_start:.0f} s")
 
-    # ---- 4. short f64 paper loop: kernels on the card vs plain versions on the CPU ----
-    logs = {}
-    for where in ("cpu", dev):
-        s = dubins_paper_setup(N=N, H=LOOP64_H, device=where, dtype=torch.float64)
-        w = s.system.sample_disturbance(torch.Generator().manual_seed(SEED + 2),
-                                        (LOOP64_B, LOOP64_H), dtype=torch.float64).to(where)
-        t0 = time.perf_counter()
-        out = run_paper_loop(s, w, where)
-        if where != "cpu":
-            torch.cuda.synchronize()
-        log(f"[loop64] B={LOOP64_B}, N={N}, H={LOOP64_H} f64 on {where}: "
-            f"{time.perf_counter() - t0:.1f} s")
-        logs[where] = out
-    bad = []
-    for field, (rtol, atol) in LOOP_TOL.items():
-        a, b = getattr(logs[dev], field).cpu(), getattr(logs["cpu"], field)
-        d = (a - b).abs()
-        ok = bool((d <= atol + rtol * b.abs()).all())
-        log(f"[loop64] {field}: max |card - cpu| = {float(d.max())!r} "
-            f"(rtol {rtol}, atol {atol}) -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            bad.append(field)
-    if bad:
-        raise SystemExit(f"chip_smoke: the f64 loop on the card disagrees with the plain loop: {bad}")
-
-    # ---- 5. short f64 coupled loop: the same for the coupled path ----------------------
-    logs = {}
-    for where in ("cpu", dev):
-        s, cfg, raw_nom, raw_aux = coupled_setup(torch, LOOP64_H, where, torch.float64)
-        w = s.system.sample_disturbance(torch.Generator().manual_seed(SEED + 5),
-                                        (LOOP64_B, LOOP64_H), dtype=torch.float64).to(where)
-        t0 = time.perf_counter()
-        out, raws = run_coupled(s, cfg, raw_nom, raw_aux, w, where)
-        if where != "cpu":
-            torch.cuda.synchronize()
-        log(f"[loop64_coupled] B={LOOP64_B}, N={N}, H={LOOP64_H} f64 on {where}: "
-            f"{time.perf_counter() - t0:.1f} s")
-        logs[where] = (out, raws)
-    bad = []
-    for field, (rtol, atol) in COUPLED_LOOP_TOL.items():
-        if field.startswith("raw_"):
-            i = 0 if field == "raw_aux" else 1
-            pairs = [(f"{field}.{f}", getattr(logs[dev][1][i], f).cpu(),
-                      getattr(logs["cpu"][1][i], f)) for f in logs["cpu"][1][i]._fields]
-        else:
-            pairs = [(field, getattr(logs[dev][0], field).cpu(), getattr(logs["cpu"][0], field))]
-        for label, a, b in pairs:
-            d = (a - b).abs()
-            ok = bool((d <= atol + rtol * b.abs()).all())
-            log(f"[loop64_coupled] {label}: max |card - cpu| = {float(d.max())!r} "
-                f"(rtol {rtol}, atol {atol}) -> {'ok' if ok else 'FAIL'}")
-            if not ok:
-                bad.append(label)
-    if bad:
-        raise SystemExit(f"chip_smoke: the f64 coupled loop on the card disagrees with the plain "
-                         f"loop: {bad}")
-    log(f"[loop64_coupled] done at {time.perf_counter() - t_start:.0f} s")
-
-    # ---- the families' short f64 loops: kernels on the card vs plain versions on the CPU ----
-    def loop_diffs(got, ref, steps):
-        """{log field: (max |got - ref| over the first `steps` steps, within LOOP_TOL)}."""
-        out = {}
-        for field, (rtol, atol) in LOOP_TOL.items():
-            a = getattr(got, field)[:, :steps].cpu()
-            b = getattr(ref, field)[:, :steps].cpu()
-            d = (a - b).abs()
-            out[field] = (float(d.max()), bool((d <= atol + rtol * b.abs()).all()))
-        return out
-
-    def logged(phase, what, diffs):
+    # ---- 4, 5 and the families' short f64 loops, paper and coupled: kernels on the card vs
+    # plain versions on the CPU --------------------------------------------------------
+    def logged(phase, what, diffs, tol):
+        """Log loop_diffs' `diffs`; return the fields that fail."""
         for field, (d, ok) in diffs.items():
-            rtol, atol = LOOP_TOL[field]
+            rtol, atol = tol[field.split(".")[0]]
             log(f"[{phase}] {field}: max |{what}| = {d!r} (rtol {rtol}, atol {atol}) -> "
                 f"{'ok' if ok else 'FAIL'}")
         return [f for f, (_, ok) in diffs.items() if not ok]
 
-    for family in FAMILIES:
-        phase = f"loop64_{family}"
-        logs = {}
-        for where in ("cpu", dev):
-            s = family_paper_setup(family, N=N, H=LOOP64_H, device=where, dtype=torch.float64)
-            gen = torch.Generator().manual_seed(SEED + 20 + FAMILIES.index(family))
-            w = s.system.sample_disturbance(gen, (LOOP64_B, LOOP64_H), dtype=torch.float64).to(where)
-            t0 = time.perf_counter()
-            out = run_paper_loop(s, w, where)
-            if where != "cpu":
-                torch.cuda.synchronize()
-            log(f"[{phase}] B={LOOP64_B}, N={N}, H={LOOP64_H} f64 on {where}: "
-                f"{time.perf_counter() - t0:.1f} s")
-            logs[where] = out
-        bad = logged(phase, "card - cpu", loop_diffs(logs[dev], logs["cpu"], LOOP64_H))
+    def hold_loop64(phase, kind, family, tol):
+        """The f64 loop of loop64_case on the card against the CPU's at `tol`. On a chaotic
+        loop (CHAOTIC) that the card parts from the CPU on, a last-bit difference of the
+        card's math library (sin, cos, exp, log) against the CPU's grows as a 1e-15
+        perturbation of the start and the disturbances does on the CPU alone. So there: the
+        steps T on which the CPU agrees with itself under that perturbation; the card must
+        agree with the CPU on those (T >= 1), and the kernels' loop with the plain
+        versions' loop on the card, on every step."""
+        logs, st_dev, run, w = loop64_logs(phase, kind, family)
+        bad = logged(phase, "card - cpu", loop_diffs(logs[dev], logs["cpu"], LOOP64_H, tol),
+                     tol)
         if not bad:
-            continue
-        # The loop parts from the CPU's. Where the loop itself is chaotic (the cart-pole's
-        # swing-up in f64 is), a last-bit difference of the card's math library (sin, cos,
-        # exp, log) against the CPU's grows as a 1e-15 perturbation of the start and the
-        # disturbances does on the CPU alone. So: the steps T on which the CPU agrees with
-        # itself under that perturbation; the card must agree with the CPU on those
-        # (T >= 1), and the kernels' loop with the plain versions' loop on the card, on
-        # every step.
-        s, w = family_paper_setup(family, N=N, H=LOOP64_H, device="cpu",
-                                  dtype=torch.float64), w.cpu()
-        pert = run_paper_loop(dataclasses.replace(s, x0=s.x0 * (1.0 + 1e-15)),
-                              w * (1.0 + 1e-15), "cpu")
+            return
+        if family not in CHAOTIC:
+            raise SystemExit(f"chip_smoke: {phase}: the f64 loop on the card disagrees with "
+                             f"the plain loop: {bad}")
+        pert = tree_map(torch.as_tensor, cpu_perturbed[kind, family].get()[0])
         T = 0
-        while T < LOOP64_H and all(ok for _, ok in loop_diffs(pert, logs["cpu"], T + 1).values()):
+        while T < LOOP64_H and all(
+                ok for _, ok in loop_diffs(pert, logs["cpu"], T + 1, tol).values()):
             T += 1
+        u_p, u_c = loop_fields(pert)["u_real"], loop_fields(logs["cpu"])["u_real"]
         log(f"[{phase}] the card parts from the CPU ({bad}); the CPU's loop with its start "
             f"and disturbances times 1 + 1e-15 stays within the tolerances of its own on {T} of "
             f"{LOOP64_H} steps: per step max |du| = "
-            f"{[float((pert.u_real - logs['cpu'].u_real)[:, t].abs().max()) for t in range(LOOP64_H)]}")
+            f"{[float((u_p - u_c)[:, t].abs().max()) for t in range(LOOP64_H)]}")
         log(f"[{phase}] the card against the CPU on the first {T} steps:")
-        bad = logged(phase, "card - cpu", loop_diffs(logs[dev], logs["cpu"], T)) if T else [
-            "the CPU agrees with itself on no step"]
-        s = family_paper_setup(family, N=N, H=LOOP64_H, device=dev, dtype=torch.float64)
+        bad = logged(phase, "card - cpu", loop_diffs(logs[dev], logs["cpu"], T, tol),
+                     tol) if T else ["the CPU agrees with itself on no step"]
         t0 = time.perf_counter()
         with plain_on_card():
-            plain = run_paper_loop(s, w.to(dev), dev)
+            plain = run(st_dev, w, dev)
         torch.cuda.synchronize()
         log(f"[{phase}] the plain versions' loop on {dev}: {time.perf_counter() - t0:.1f} s")
         bad += logged(phase, "kernels - plain versions, on the card,",
-                      loop_diffs(logs[dev], plain, LOOP64_H))
+                      loop_diffs(logs[dev], plain, LOOP64_H, tol), tol)
         if bad:
-            raise SystemExit(f"chip_smoke: {family}'s f64 loop on the card disagrees with the "
-                             f"plain loop: {bad}")
-    log(f"[loop64 families] done at {time.perf_counter() - t_start:.0f} s")
+            raise SystemExit(f"chip_smoke: {phase}: the f64 loop on the card disagrees with "
+                             f"the plain loop: {bad}")
+
+    for family in ("dubins",) + FAMILIES:
+        suffix = "" if family == "dubins" else f"_{family}"
+        hold_loop64(f"loop64{suffix}", "paper", family, LOOP_TOL)
+        hold_loop64(f"loop64{suffix}_coupled", "coupled", family, COUPLED_LOOP_TOL)
+        log(f"[loop64 {family}] done at {time.perf_counter() - t_start:.0f} s")
+    log(f"[loop64] all done at {time.perf_counter() - t_start:.0f} s")
 
     # ---- 6. the full-width paper path ---------------------------------------------
     s = dubins_paper_setup(N=N, H=H, device=dev, dtype=torch.float32)
@@ -896,7 +1132,10 @@ def main() -> int:
         del out
     log(f"[main families] done at {time.perf_counter() - t_start:.0f} s")
 
-    # ---- 8. where the time goes: torch.profiler over a few full-width steps ---------
+    # ---- 8. the CLI: the port's entry point on the shipped configs at full width -------
+    cli_counts = cli_phase(torch, dev, t_start)
+
+    # ---- 9. where the time goes: torch.profiler over a few full-width steps ---------
     from torch.profiler import ProfilerActivity, profile
 
     def profile_phase(label, run):
@@ -964,11 +1203,12 @@ def main() -> int:
                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"], library_ms=None))
     for family in FAMILIES:
-        for name in PAPER:
+        for name in PAPER + COUPLED:
             source, replaces = KERNELS[name][:2]
             r = results[f"{name}_{family}"]
+            launches = (family_counts[family] if name in PAPER else cli_counts[family])[name]
             line.append(dict(name=f"{name}_{family}", route="cuda", source=source,
-                             replaces=replaces, launches=family_counts[family][name],
+                             replaces=replaces, launches=launches,
                              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                              bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
     print(json.dumps({"kernels": line}))

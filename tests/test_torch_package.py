@@ -36,7 +36,7 @@ from tube_mpc_tpu_torch.ops.cuda import _build
 from tube_mpc_tpu_torch.ops.cuda import lane_sensitivity as sens
 from tube_mpc_tpu_torch.ops.cuda.lane_solver import kernel_consts, on_cpu
 from tube_mpc_tpu_torch.ops.lanes import dubins_components
-from tube_mpc_tpu_torch.presets import dubins_paper_setup
+from tube_mpc_tpu_torch.presets import dubins_paper_setup, family_paper_setup
 from tube_mpc_tpu_torch.tube.lane_closed_loop import (
     generic_lane_init_state,
     paper_lane_init_state,
@@ -88,6 +88,14 @@ def test_family_modules_are_held_by_the_no_jax_rule():
     held = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
     assert {"systems/double_integrator.py", "systems/quadrotor2d.py", "systems/cartpole.py",
             "systems/registry.py", "presets.py", "convert.py", "ops/lanes.py"} <= held
+
+
+def test_entry_point_modules_are_held_by_the_no_jax_rule():
+    """The no-JAX rule above covers the experiment entry point's modules: the config
+    layer, the run-directory artifacts, the finite check, the runner and the CLI."""
+    held = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    assert {"utils/__init__.py", "utils/config.py", "utils/io.py", "utils/debug.py",
+            "runners.py", "run_experiment.py"} <= held
 
 
 def test_package_imports_without_nvcc_and_builds_nothing():
@@ -230,8 +238,19 @@ def test_sensitivity_variants_launch_their_own_entry_points(monkeypatch):
         fn, n_tensors = launched[-1]
         assert fn == f"lane_{name}" and entries[fn] == n_tensors, (fn, n_tensors, entries)
         assert launch_counts() == {k: int(k in done) for k in KERNELS}
+        assert launch_counts(by_system=True) == {(k, "dubins"): 1 for k in done}
     assert set(entries) == {f"lane_{name}" for name in calls}
+    # a family's problem counts on that family's own counter
+    fam = family_paper_setup("double_integrator", N=N, H=2, device="cpu", dtype=torch.float64)
+    q = make_lane_problem(fam.sys_c, eps=fam.eps)
+    nh, m = q.n_hat, q.m
+    sens.sbwd_generic(q, 1e-9, 1e-8, t(N, m, B), t(N, nh, B), t(N, nh, B),
+                      t(2 * nh + m + 3, B).abs(), t(nh, B), t(nh, B))
+    assert launched[-1][0] == "lane_sbwd_generic"
+    assert launch_counts(by_system=True)[("sbwd_generic", "double_integrator")] == 1
+    assert launch_counts()["sbwd_generic"] == 2
     reset_launch_counts()
+    assert launch_counts(by_system=True) == {}
 
 
 @pytest.mark.parametrize("loop,change,match", [
@@ -309,15 +328,21 @@ def test_kernel_constants_refuse_a_cartpole_with_obstacles_and_generic_family_ke
     bad = cp._replace(spec=dataclasses.replace(cp.spec, centers=((0.0, 0.0),), radii=(1.0,)))
     with pytest.raises(ValueError, match="takes no obstacles"):
         kernel_consts(make_lane_problem(bad))
+    # the generic sensitivity kernels (K5) are built for every system: a family's wrapper
+    # launches its own entry point with its system's constants
     s = family_paper_setup("double_integrator", N=4, H=2, device="cpu", dtype=torch.float64)
     pb = make_lane_problem(s.sys_c, eps=s.eps)
     B, N = 2, 4
     t = lambda *shape: torch.ones(shape, dtype=torch.float64)
+    launched = []
     monkeypatch.setattr(sens, "on_cpu", lambda *ts: False)
-    monkeypatch.setattr(sens, "launch", lambda *a: pytest.fail("launched"))
-    with pytest.raises(ValueError, match="built for the Dubins system only"):
-        sens.sbwd_generic(pb, 1e-9, 1e-8, t(N, 2, B), t(N, 5, B), t(N, 5, B), t(15, B), t(5, B),
-                          t(5, B))
+    monkeypatch.setattr(sens, "launch", lambda lib, fn, dtype, dev, tensors, n, b, consts:
+                        launched.append((lib, fn, _build.FAMILIES[consts.system])))
+    out = sens.sbwd_generic(pb, 1e-9, 1e-8, t(N, 2, B), t(N, 5, B), t(N, 5, B), t(15, B),
+                            t(5, B), t(5, B))
+    assert launched == [("lane_sbwd", "lane_sbwd_generic", "double_integrator")]
+    assert [tuple(o.shape) for o in out] == [(N, 10, B), (N, 2, B), (N, 5, B), (N, 25, B),
+                                              (N, 1, B)]
 
 
 def test_build_needs_no_work_at_import_and_names_its_sources():

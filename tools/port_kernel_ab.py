@@ -95,7 +95,7 @@ def step_cases(torch, dev):
 
     cases = {}
     for step_of in (chip_smoke.paper_step, chip_smoke.coupled_step):
-        pb, _, make, inputs, _, _ = step_of(torch, dev, torch.float32)
+        pb, _, make, inputs, _ = step_of(torch, dev, torch.float32)
         fns = make(pb)
         for name, ins in inputs.items():
             cases[name] = (fns[name][0], ins)

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""The quickest check of the port's kernels on one NVIDIA card (~2.5 min with the build).
+"""The quickest check of the port's kernels on one NVIDIA card (~4 min with the build).
 
     python3 tools/port_quick_check.py     # from the repository root
 
 Builds every kernel library (each source for each system) and prints ptxas' registers and
 spills; then, for Dubins and each `bench.py` BENCH_SYSTEM family, holds K1-K4 against their
-plain versions on one closed-loop step's inputs (chip_smoke.paper_step) in f64 and f32, at
-the main shape (B=16384, N=50, each kernel timed over 10 launches) and at B=1000, N=37
-(there with 1 and 8 obstacles for the systems that have obstacles), at chip_smoke's
-tolerances, saying whether each agrees bitwise; last, five steps of each family's paper
-loop at full width, with the launch counts. It checks the kernels and nothing else of
-chip_smoke.py's contract: use it after a kernel edit, before the whole script. Exits 1 if
-any check fails.
+plain versions on one closed-loop step's inputs (chip_smoke.paper_step) and K5/K6 on one
+coupled step's (chip_smoke.coupled_step: Dubins' bench.py coupled setup, a family's config
+with adaptation.adapt_nominal: true) in f64 and f32, at the main shape (B=16384, N=50, each
+kernel timed over 10 launches) and at B=1000, N=37 (there with 1 and 8 obstacles for the
+systems that have obstacles), at chip_smoke's tolerances, saying whether each agrees
+bitwise; last, five steps of each family's paper and coupled loops at full width, with the
+launch counts. It checks the kernels and nothing else of chip_smoke.py's contract: use it
+after a kernel edit, before the whole script. Exits 1 if any check fails.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ def main() -> int:
 
     import chip_smoke as cs
     from tube_mpc_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
-    from tube_mpc_tpu_torch.presets import family_paper_setup
+    from tube_mpc_tpu_torch.presets import family_coupled_setup, family_paper_setup
+    from tube_mpc_tpu_torch.tube.lane_closed_loop import run_generic_closed_loop_lanes
 
     print(cs.nvidia_smi(), torch.__version__, torch.version.cuda, flush=True)
     t0 = time.perf_counter()
@@ -50,10 +52,12 @@ def main() -> int:
     def ragged(t):
         return (t[:cs.RAGGED_N, :, :cs.RAGGED_B] if t.ndim == 3 else t[:, :cs.RAGGED_B]).contiguous()
 
-    for family in ("dubins",) + cs.FAMILIES:
+    steps = [(family, step_of) for family in ("dubins",) + cs.FAMILIES
+             for step_of in (cs.paper_step, cs.coupled_step)]
+    for family, step_of in steps:
         for dtype in (torch.float64, torch.float32):
             dname = str(dtype).replace("torch.", "")
-            pb, eps, make, inputs, _, _ = cs.paper_step(torch, dev, dtype, family)
+            pb, eps, make, inputs, _ = step_of(torch, dev, dtype, family)
             variants = [("main", pb, lambda t: t)]
             if pb.spec.centers:
                 for c in (pb.spec.centers[:1],
@@ -79,16 +83,25 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     for family in cs.FAMILIES:
-        s = family_paper_setup(family, N=cs.N, H=5, device=dev, dtype=torch.float32)
-        w = s.system.sample_disturbance(torch.Generator(device=dev).manual_seed(1), (cs.B, 5),
-                                        dtype=torch.float32)
-        reset_launch_counts()
-        t1 = time.perf_counter()
-        out = cs.run_paper_loop(s, w, dev)
-        torch.cuda.synchronize()
-        print(f"[loop] {family} H=5: {time.perf_counter() - t1:.2f} s, finite "
-              f"{float(torch.isfinite(out.loss[:, -1]).float().mean())!r}, launches "
-              f"{launch_counts()}", flush=True)
+        for mode in ("paper", "coupled"):
+            if mode == "paper":
+                s = family_paper_setup(family, N=cs.N, H=5, device=dev, dtype=torch.float32)
+                run = lambda w: cs.run_paper_loop(s, w, dev)
+            else:
+                s, raw_nom, raw_aux = family_coupled_setup(family, N=cs.N, H=5, device=dev,
+                                                           dtype=torch.float32)
+                run = lambda w: run_generic_closed_loop_lanes(
+                    s.system, s.aug, s.sys_c, s.cfg, raw_nom=raw_nom, raw_aux_init=raw_aux,
+                    x0=s.x0, target=s.target, w_seqs=w, eps=s.eps, device=dev)[0]
+            w = s.system.sample_disturbance(torch.Generator(device=dev).manual_seed(1),
+                                            (cs.B, 5), dtype=torch.float32)
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            out = run(w)
+            torch.cuda.synchronize()
+            print(f"[loop] {family} {mode} H=5: {time.perf_counter() - t1:.2f} s, finite "
+                  f"{float(torch.isfinite(out.loss[:, -1]).float().mean())!r}, launches "
+                  f"{launch_counts()}", flush=True)
     print("[done]", round(time.perf_counter() - t0, 1), "s; fails:", fails, flush=True)
     return 1 if fails else 0
 

@@ -10,10 +10,9 @@
 // k+1 in its scaled form: tV_x, V_xx, LogS (at k = N-1 the terminal
 // initialisation). Instantiated: <false, false> (K3, paper), <true, false> (K5,
 // the ancillary sweep), <true, true> (K5, the coupled nominal sweep), each for
-// 1 to 8 obstacles (NOBS, launched through with_system). The double integrator's, the
-// quadrotor's and the cart-pole's libraries build K3 only (their loop runs the paper
-// path); with one control (the cart-pole) the reduced solve is 1 / Q_m, as the JAX
-// kernel writes it, without resolve-or-zero.
+// 1 to 8 obstacles (NOBS, launched through with_system; the cart-pole's once), in every
+// system's library; with one control (the cart-pole) the reduced solve is 1 / Q_m, as
+// the JAX kernel writes it, without resolve-or-zero.
 //
 // What bounds it on an H100 (Dubins, B=16384, N=50, f32): per lane and step K3 reads 10
 // values and writes 10, 66 MB a sweep; K5 also writes the 21 carry values and, with
@@ -317,8 +316,7 @@ int launch_sbwd(const void* gX, const void* gU, const void* gXN, const void* U, 
 
 // C entry points, one per variant and type: the tensors in the order of the
 // Python wrapper (ops/cuda/lane_sensitivity.py), then N, B, the constants and
-// the stream. Each returns cudaGetLastError() after the launch. The generic variants
-// (K5) are built into Dubins' library only.
+// the stream. Each returns cudaGetLastError() after the launch.
 #define LANE_SBWD_ENTRIES(T, SUFFIX)                                                          \
   int lane_sbwd_##SUFFIX(const void* U, const void* X, const void* Xr, const void* C,         \
                          const void* XN, const void* XrN, void* K, void* kff, int N, int B,   \
@@ -346,8 +344,6 @@ int launch_sbwd(const void* gX, const void* gU, const void* gXN, const void* U, 
 extern "C" {
 LANE_SBWD_ENTRIES(float, f32)
 LANE_SBWD_ENTRIES(double, f64)
-#if LANE_SYSTEM == 0
 LANE_SBWD_GENERIC_ENTRIES(float, f32)
 LANE_SBWD_GENERIC_ENTRIES(double, f64)
-#endif
 }  // extern "C"

@@ -12,8 +12,7 @@
 // reference cotangents -C dx, -C dv at each k and -C_N dx_N. Instantiated:
 // <false, false> (K4, paper), <true, false> (K6, the nominal sweep), <true, true>
 // (K6, the ancillary sweep of the coupled chain), each for 1 to 8 obstacles (NOBS,
-// launched through with_system). The double integrator's, the quadrotor's and the
-// cart-pole's libraries build K4 only (their loop runs the paper path).
+// launched through with_system; the cart-pole's once), in every system's library.
 //
 // What bounds it on an H100 (Dubins, B=16384, N=50, f32): per lane and step K4 reads 22
 // values, 72 MB a sweep; K6 reads the 21 carry rows K5 wrote and, with EMIT, writes 6
@@ -304,8 +303,7 @@ int launch_sfwd(const void* K, const void* kff, const void* X, const void* Xr, c
 
 // C entry points, one per variant and type: the tensors in the order of the
 // Python wrapper (ops/cuda/lane_sensitivity.py), then N, B, the constants and
-// the stream. Each returns cudaGetLastError() after the launch. The generic variants
-// (K6) are built into Dubins' library only.
+// the stream. Each returns cudaGetLastError() after the launch.
 #define LANE_SFWD_ENTRIES(T, SUFFIX)                                                          \
   int lane_sfwd_##SUFFIX(const void* K, const void* kff, const void* X, const void* Xr,       \
                          const void* U, const void* Ur, const void* C, const void* XN,        \
@@ -340,8 +338,6 @@ int launch_sfwd(const void* K, const void* kff, const void* X, const void* Xr, c
 extern "C" {
 LANE_SFWD_ENTRIES(float, f32)
 LANE_SFWD_ENTRIES(double, f64)
-#if LANE_SYSTEM == 0
 LANE_SFWD_GENERIC_ENTRIES(float, f32)
 LANE_SFWD_GENERIC_ENTRIES(double, f64)
-#endif
 }  // extern "C"

@@ -28,13 +28,13 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from ..lanes import FAMILIES
 from .lane_solver import (
     LaneProblem,
     _bp_from_C,
     _inv2,
     _rescale,
     check_kernel_inputs,
+    counted,
     jac_lin_plain,
     kernel_consts,
     launch,
@@ -220,14 +220,11 @@ def _launch(wrapper, fn: str, consts, ins, outs, N: int, B: int) -> Tuple[Tensor
     ``lane_<fn>`` of csrc/lane_sbwd.cu or lane_sfwd.cu on them; count the launch on
     ``wrapper``."""
     dtype = check_kernel_inputs(fn, ins)
-    if fn not in ("sbwd", "sfwd") and FAMILIES[consts.system] != "dubins":
-        raise ValueError(f"{fn}: the generic sensitivity kernels (K5, K6) are built for the "
-                         "Dubins system only")
     dev = next(iter(ins.values()))[1].device
     out = tuple(torch.empty(shape, dtype=dtype, device=dev) for shape in outs)
     launch(f"lane_{fn.split('_')[0]}", f"lane_{fn}", dtype, dev,
            tuple(t for _, t in ins.values()) + out, N, B, consts)
-    wrapper.launches += 1
+    counted(wrapper, consts)
     return out
 
 
@@ -338,7 +335,7 @@ def sfwd_ref(pb: LaneProblem, K: Tensor, kff: Tensor, X: Tensor, Xr: Tensor, U: 
 
 
 for _w in (sbwd, sbwd_generic, sbwd_upper, sfwd, sfwd_generic, sfwd_ref):
-    _w.launches = 0
+    _w.launches, _w.by_system = 0, {}
 
 
 def lane_sensitivity_grads(

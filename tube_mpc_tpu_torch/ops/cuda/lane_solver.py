@@ -363,6 +363,14 @@ def launch(lib: str, fn: str, dtype: torch.dtype, device: torch.device,
         raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
 
 
+def counted(wrapper, consts: LaneConsts) -> None:
+    """Count one launch of ``wrapper``'s kernel: in all (``launches``) and for the
+    system it was built for (``by_system``)."""
+    wrapper.launches += 1
+    family = FAMILIES[consts.system]
+    wrapper.by_system[family] = wrapper.by_system.get(family, 0) + 1
+
+
 # ---------------------------------------------------------------------------
 # Wrappers.
 # ---------------------------------------------------------------------------
@@ -382,11 +390,11 @@ def ric(pb: LaneProblem, reg: float, X: Tensor, U: Tensor, Xr: Tensor, Ur: Tenso
     K = torch.empty((N, m * nh, B), dtype=dtype, device=X.device)
     kff = torch.empty((N, m, B), dtype=dtype, device=X.device)
     launch("lane_solver", "lane_ric", dtype, X.device, (X, U, Xr, Ur, C, phix, K, kff), N, B, consts)
-    ric.launches += 1
+    counted(ric, consts)
     return K, kff
 
 
-ric.launches = 0
+ric.launches, ric.by_system = 0, {}
 
 
 def fwd(pb: LaneProblem, alphas: Sequence[float], x0: Tensor, Xo: Tensor, Uo: Tensor,
@@ -411,11 +419,11 @@ def fwd(pb: LaneProblem, alphas: Sequence[float], x0: Tensor, Xo: Tensor, Uo: Te
     cost = torch.empty((na, B), dtype=dtype, device=Xo.device)
     launch("lane_solver", "lane_fwd", dtype, Xo.device,
            (x0, Xo, Uo, K, kff, Xr, XrN, Ur, C, Xn, Un, cost), N, B, consts)
-    fwd.launches += 1
+    counted(fwd, consts)
     return Xn, Un, cost
 
 
-fwd.launches = 0
+fwd.launches, fwd.by_system = 0, {}
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """The shipped paper configurations: Dubins (port of tube_mpc_tpu/presets.py:22-86) and
 the double integrator, the planar quadrotor and the cart-pole as bench.py runs them
 (BENCH_SYSTEM, bench.py:143-181: ``build_experiment(load_config(configs/<name>.yaml),
-paper_mode=True)`` with N and H replaced)."""
+paper_mode=True)`` with N and H replaced, through the port's utils.config)."""
 from __future__ import annotations
 
 import dataclasses
 import math
+from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -14,13 +15,14 @@ from torch import Tensor
 from .device import DeviceLike, resolve_device, resolve_dtype
 from .ops.costs import CostWeights
 from .ops.dbas import AugmentedDynamics, BarrierParams, make_augmented
-from .ops.lanes import ComponentSystem, dubins_components
+from .ops.lanes import FAMILIES, ComponentSystem, dubins_components
 from .systems import registry
 from .systems.base import System
 from .systems.dubins import DubinsConfig, make_dubins
 from .systems.obstacles import CircleField
 from .tube.closed_loop import TubeMPCConfig
-from .tube.params import AdaptConfig, AuxAdapt
+from .tube.params import AdaptConfig, AuxAdapt, RawAuxTheta, RawNominalTheta
+from .utils.config import build_experiment, lane_components, load_config
 
 PAPER_OBSTACLES: Tuple[Tuple[float, float], ...] = (
     (4.0, 2.0), (2.0, 4.0), (4.0, 8.0), (8.0, 4.0), (6.0, 6.0),
@@ -113,42 +115,9 @@ def dubins_paper_setup(
     )
 
 
-# The shipped configs/<name>.yaml of each family, as bench.py runs them (BENCH_SYSTEM):
-# the numbers the JAX package reads from each file, held here as Python constants
-# (tests/test_torch_family_setup.py pins each against the JAX package's reading of the
-# file). Every family runs the inverse barrier with alpha, gamma and the tightening 0,
-# eps 1e-4, the smooth-min with beta 20 where it has obstacles, and tol 1e-3.
-FAMILY_CONFIGS: Dict[str, Dict[str, Any]] = {
-    "double_integrator": dict(
-        dt=0.05, nominal_max_iter=10, aux_max_iter=15, alphas=(1.0, 0.5, 0.25, 0.1, 0.0),
-        control_bounds={"a_max": 5.0}, extra={},
-        w_low=(-0.02,) * 4, w_high=(0.02,) * 4, target=(10.0, 10.0, 0.0, 0.0), x0=None,
-        obstacles=(((4.0, 4.0), 1.2), ((7.0, 6.5), 1.0)),
-        Q=(1.0, 1.0, 0.1, 0.1), R=(0.1, 0.1), qb=1.0, Qf=(100.0, 100.0, 10.0, 10.0),
-        aux_Q=(1.0, 1.0, 1.0, 1.0), aux_R=(1.0, 1.0), aux_qb=1.0, lr=1e-2,
-    ),
-    "quadrotor2d": dict(
-        dt=0.02, nominal_max_iter=10, aux_max_iter=15,
-        alphas=(1.0, 0.5, 0.25, 0.1, 0.05, 0.0),
-        control_bounds={"t_min": 0.0, "t_max": 8.0}, extra={},
-        w_low=(-0.02,) * 6, w_high=(0.02,) * 6, target=(8.0, 8.0, 0.0, 0.0, 0.0, 0.0), x0=None,
-        obstacles=(((3.0, 3.0), 1.0), ((5.5, 5.0), 1.0), ((3.5, 6.5), 0.8), ((6.5, 2.5), 0.8)),
-        Q=(1.0, 1.0, 0.5, 0.1, 0.1, 0.1), R=(0.05, 0.05), qb=1.0,
-        Qf=(200.0, 200.0, 50.0, 10.0, 10.0, 10.0),
-        aux_Q=(1.0,) * 6, aux_R=(1.0, 1.0), aux_qb=1.0, lr=1e-3,
-    ),
-    "cartpole": dict(
-        dt=0.02, nominal_max_iter=15, aux_max_iter=15,
-        alphas=(1.0, 0.5, 0.25, 0.1, 0.05, 0.0),
-        control_bounds={"f_max": 20.0}, extra={"x_lim": 2.4},
-        w_low=(-0.01,) * 4, w_high=(0.01,) * 4, target=(0.0, 0.0, 0.0, 0.0),
-        x0=(0.0, 0.0, 3.0, 0.0), obstacles=(),
-        Q=(1.0, 0.1, 5.0, 0.1), R=(0.01,), qb=0.1, Qf=(10.0, 1.0, 50.0, 1.0),
-        aux_Q=(1.0,) * 4, aux_R=(1.0,), aux_qb=0.1, lr=1e-4,
-    ),
-}
-FAMILY_ADAPT = dict(momentum=0.9, steps=1, grad_clip_norm=1.0, project=True)
-FAMILY_EPS, FAMILY_BETA = 1e-4, 20.0
+# bench.py's BENCH_SYSTEM families: each runs its shipped configs/<name>.yaml
+CONFIGS = Path(__file__).resolve().parents[1] / "configs"
+FAMILY_NAMES: Tuple[str, ...] = tuple(f for f in FAMILIES if f != "dubins")
 
 
 def build_family_setup(
@@ -193,6 +162,27 @@ def build_family_setup(
     )
 
 
+def _family_setup(name: str, *, N: int, H: int, device: DeviceLike, dtype,
+                  adapt_nominal: bool):
+    """(setup, ExperimentConfig) of configs/<name>.yaml in ``dtype`` on ``device``, its
+    adaptation.adapt_nominal set to ``adapt_nominal``, built in paper mode unless the
+    nominal θ̄ adapts, with N and H replaced."""
+    if name not in FAMILY_NAMES:
+        raise ValueError(f"no paper setup for {name!r}; have {sorted(FAMILY_NAMES)}")
+    cfg = load_config(str(CONFIGS / f"{name}.yaml"))
+    cfg = dataclasses.replace(
+        cfg, use_float64=resolve_dtype(dtype) == torch.float64,
+        adaptation=dataclasses.replace(cfg.adaptation, adapt_nominal=adapt_nominal))
+    built = build_experiment(cfg, paper_mode=not adapt_nominal, device=device)
+    setup = PaperSetup(
+        system=built.system, aug=built.aug, sys_c=lane_components(cfg),
+        cfg=dataclasses.replace(built.tube_cfg, N=N, H=H), w_nominal=built.w_nominal,
+        aux_init=built.aux_init, bp=built.bp, x0=built.x0, target=built.target,
+        field=built.field, eps=cfg.dbas.eps,
+    )
+    return setup, cfg
+
+
 def family_paper_setup(
     name: str,
     *,
@@ -201,29 +191,26 @@ def family_paper_setup(
     device: DeviceLike = None,
     dtype=torch.float32,
 ) -> PaperSetup:
-    """bench.py's BENCH_SYSTEM=<name> setup: configs/<name>.yaml in paper mode (reg
-    1e-6, tol 1e-3, the file's alphas, iteration caps, weights and adaptation) with N and
-    H replaced; x0 from the file (cart-pole) or the registry's default_x0."""
-    if name not in FAMILY_CONFIGS:
-        raise ValueError(f"no paper setup for {name!r}; have {sorted(FAMILY_CONFIGS)}")
-    c = FAMILY_CONFIGS[name]
-    dev = resolve_device(device)
-    dtype = resolve_dtype(dtype)
-    t = lambda v: torch.as_tensor(v, dtype=dtype, device=dev)
-    cfg = TubeMPCConfig(
-        N=N, H=H, nominal_max_iter=c["nominal_max_iter"], aux_max_iter=c["aux_max_iter"],
-        tol=1e-3, reg=1e-6, alphas=tuple(c["alphas"]),
-        adapt=AdaptConfig(lr=c["lr"], **FAMILY_ADAPT),
-    )
-    nx = len(c["target"])
-    x0 = t(c["x0"]) if c["x0"] is not None else registry.default_x0(
-        name, nx, device=dev, dtype=dtype)
-    return build_family_setup(
-        name, cfg=cfg,
-        w_nominal=CostWeights.create(c["Q"], c["R"], c["Qf"], c["qb"], device=dev, dtype=dtype),
-        aux_init=AuxAdapt(Q=t(c["aux_Q"]), R=t(c["aux_R"]), qb=t(c["aux_qb"])),
-        bp=BarrierParams.create(0.0, 0.0, 0.0, device=dev, dtype=dtype),
-        x0=x0, target=t(c["target"]), dt=c["dt"], control_bounds=c["control_bounds"],
-        w_low=c["w_low"], w_high=c["w_high"], obstacles=c["obstacles"], beta=FAMILY_BETA,
-        eps=FAMILY_EPS, extra=c["extra"],
-    )
+    """bench.py's BENCH_SYSTEM=<name> setup: configs/<name>.yaml, read by
+    utils.config.load_config and built in paper mode (reg 1e-6, and the file's tol,
+    alphas, iteration caps, weights, eps and adaptation; x0 from the file or the
+    registry's default_x0), with N and H replaced."""
+    return _family_setup(name, N=N, H=H, device=device, dtype=dtype, adapt_nominal=False)[0]
+
+
+def family_coupled_setup(
+    name: str,
+    *,
+    N: int = 50,
+    H: int = 300,
+    device: DeviceLike = None,
+    dtype=torch.float32,
+) -> Tuple[PaperSetup, RawNominalTheta, RawAuxTheta]:
+    """configs/<name>.yaml with adaptation.adapt_nominal: true, as the CLI runs it: the
+    generic loop's coupled chain (setup.cfg.adapt_nominal, reg the file's ilqr_reg) from
+    the file's numbers taken as raw θ̄ and θ (runners.raw_thetas), with N and H replaced:
+    (setup, raw θ̄, raw θ)."""
+    from .runners import raw_thetas
+
+    setup, cfg = _family_setup(name, N=N, H=H, device=device, dtype=dtype, adapt_nominal=True)
+    return (setup, *raw_thetas(cfg, setup.x0.device))

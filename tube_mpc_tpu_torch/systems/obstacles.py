@@ -1,10 +1,13 @@
 """Circular-obstacle safety value h(x) > 0 in feature-last form (port of
-tube_mpc_tpu/systems/obstacles.py:23-90, smooth-min aggregation).
+tube_mpc_tpu/systems/obstacles.py:23-90, 118-149): the smooth-min, the exact min and
+the single-obstacle aggregations.
 
 This is the ``logsumexp`` form that the closed loop's propagation uses
 (``aug.f_hat`` and ``aug.init_b0``). The lane kernels use the min-shifted
 component form of ops/lanes.py instead; the two agree only to rounding and are
-kept apart on purpose.
+kept apart on purpose. The kernels take the smooth-min only; the other two are here
+so that a config that asks for them builds as in the JAX package, and
+utils/config.validate_for_engine refuses it before any kernel is built.
 """
 from __future__ import annotations
 
@@ -38,8 +41,19 @@ def h_smoothmin(x: Tensor, field: CircleField, *, beta: float = 20.0) -> Tensor:
     return -(1.0 / beta) * _logsumexp(-beta * h_circles_each(x, field))
 
 
+def h_min(x: Tensor, field: CircleField) -> Tensor:
+    """min_i h_i(x)."""
+    return torch.amin(h_circles_each(x, field), dim=-1)
+
+
 def make_h(field: CircleField, *, aggregation: str = "smoothmin",
            beta: float = 20.0) -> Callable[[Tensor], Tensor]:
-    if aggregation != "smoothmin":
-        raise ValueError(f"aggregation {aggregation!r} is not ported; use 'smoothmin'")
-    return lambda x: h_smoothmin(x, field, beta=beta)
+    if aggregation == "smoothmin":
+        return lambda x: h_smoothmin(x, field, beta=beta)
+    if aggregation == "min":
+        return lambda x: h_min(x, field)
+    if aggregation == "single":
+        if field.centers.shape[0] != 1:
+            raise ValueError("aggregation='single' requires exactly one obstacle")
+        return lambda x: h_circles_each(x, field)[..., 0]
+    raise ValueError(f"Unknown obstacle aggregation: {aggregation}")
