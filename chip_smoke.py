@@ -9,14 +9,17 @@ and the generic and coupled variants K5, K6 of the sensitivity kernels), its
 BENCH_SYSTEM families, the double integrator, the planar quadrotor and the cart-pole
 on the paper loop (K1-K4 built for each system; presets.family_paper_setup), and the
 port's CLI (python -m tube_mpc_tpu_torch.run_experiment) on the shipped configs, the
-families' in coupled mode (K1, K2 and K5/K6 built for each system).
+families' in coupled mode (K1, K2 and K5/K6 built for each system), and on four configs
+derived from them that take the lane engine's other branches, the exact-min obstacle
+aggregation and the log barrier (MINLOG: K1-K6 built for each in a library of its own).
 Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 
 1. device:   the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build:    nvcc builds the three kernel sources for each of the four systems (eight
              kernel variants each; float and double, each once for each obstacle count,
-             1 to 8, the cart-pole's once) from csrc/, twelve libraries in parallel, and
-             prints each instantiation's registers and spills;
+             1 to 8, the cart-pole's once) from csrc/, and for each MINLOG variant,
+             twenty-four libraries in parallel, and prints each instantiation's registers
+             and spills;
 3. kernels:  each kernel variant against its plain PyTorch version on the same
              inputs, at the main paths' shapes (B=16384, N=50, n̂=4, m=2, nα=7) in
              f64 and in f32. The inputs are those of a real closed-loop step (after
@@ -43,6 +46,15 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    kernels_<family>_cli: K1, K2 (also at nα=1) and K5/K6 on such a step at B=16384 and
              the N of the family's config (30, 200, 40), the shapes the cli phase
              gives them, in f32 as the CLI runs, each timed;
+   kernels_<variant>, for each MINLOG configuration: its library's K1-K4 on a paper step
+             and K5/K6 on a coupled step of the configuration at B=16384 and its own N
+             (50, 30, 200, 40), in f64 and f32, each timed (the plain version by its
+             check's one call), and at B=1000, N=37, there with 1 and 8 obstacles where
+             the system has circles; and every kernel with the branch lanes
+             (branch_checks: lanes on the bisector of two equal obstacles, where the min
+             chain ties, and lanes with h - tight < eps, where the log barrier's tangent
+             is 0), whose counts are printed and must not be 0 where the library has the
+             branch;
 4. loop64:   a short f64 paper loop (B=256, N=50, H=5) through the kernels on the
              card and through the plain versions on the CPU, held at the tolerances
              of tests/test_lane_closed_loop.py:45-50;
@@ -59,6 +71,8 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              with the final raw parameters. The CPU's side of every loop64 phase (and
              of a chaotic one's perturbed run) runs in a worker process (cpu_loop64),
              all of them beside the card's phases;
+   loop64_dubins_min_log, loop64_cartpole_log_coupled: phases 4 and 5 on the Dubins
+             min + log configuration's paper loop and the cart-pole log one's coupled loop;
 6. main:     the full-width paper path, B=16384, N=50, H=300 in f32, disturbances
              from a seeded torch.Generator on the card; every paper kernel must have
              launched in this run (the launch counts are set to 0 just before it), K3
@@ -75,13 +89,18 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              coupled copy of each family's config, at each config's own N and H
              (cli_phase: artifacts, summary keys, each run's kernels launched from its
              own system's libraries);
+   cli_minlog: the same on the four MINLOG configurations, each as derived and in its
+             other mode (adapt_nominal flipped), so that every kernel of each library
+             runs, each run's kernels launched from its own variant's libraries only;
 9. profile:  torch.profiler over five full-width steps of the Dubins paths: the device's
              busy share and the device time of each kernel variant and of PyTorch's
              own kernels.
 
 Then it prints the `kernels` JSON line (launches from the main path for K1-K4, from
 the coupled path for K5/K6, from main_<family> for each family's K1-K4 and from cli for
-its K5/K6, named `<kernel>_<family>`; each row's times and bound at B=16384, N=50), the
+its K5/K6, named `<kernel>_<family>`; each row's times and bound at B=16384, N=50; and
+each MINLOG variant's kernels, `<kernel>_<variant>`, launched by cli_minlog, at the
+configuration's N), the
 card's name and power limit, and, as the last line,
 {"ok": true, "device": {...}}. With no card it exits non-zero at once. It takes no
 arguments: every size is fixed below, so a result line always stands for the whole
@@ -119,6 +138,25 @@ PROFILE_H = 5
 
 # bench.py's BENCH_SYSTEM families (bench.py:143-181) on the paper loop
 FAMILIES = ("double_integrator", "quadrotor2d", "cartpole")
+# The lane engine's other branches, the exact-min aggregation and the log barrier: four
+# configurations derived from the shipped ones, each its own library variant (_build.VARIANTS):
+# variant -> (file, {"section.key": value, None to delete the key}). Each runs at its file's
+# N and H; the double integrator's, without the key, takes EnvironmentConfig's default, "min".
+MINLOG = {
+    "dubins_min_log": ("configs/dubins.yaml", {"environment.obstacle_aggregation": "min",
+                                               "dbas.barrier_type": "log"}),
+    "double_integrator_min": ("configs/double_integrator.yaml",
+                              {"environment.obstacle_aggregation": None,
+                               "adaptation.adapt_nominal": True}),
+    "quadrotor2d_min_log": ("configs/quadrotor2d.yaml",
+                            {"environment.obstacle_aggregation": "min",
+                             "dbas.barrier_type": "log", "adaptation.adapt_nominal": True}),
+    "cartpole_log": ("configs/cartpole.yaml", {"dbas.barrier_type": "log",
+                                               "adaptation.adapt_nominal": True}),
+}
+# The obstacles of the branch checks: a lane at px = 5 lies on their bisector, where the min
+# chain's two sides tie (weights 1/2); at (5, 5) also h = 0, below eps.
+TIE_CENTERS = ((4.0, 5.0), (6.0, 5.0))
 # the extra obstacles of the 8-obstacle instantiation checks (each system's own come first)
 EXTRA_CENTERS = ((2.0, 8.0), (8.0, 2.0), (5.0, 9.0), (9.0, 5.0), (1.0, 6.5), (6.5, 1.0))
 
@@ -288,15 +326,60 @@ def max_err(torch, got, ref, rtol, atol_frac):
 REG_SENS, ACTIVE_TOL = 1e-9, 1e-8   # the sensitivity's reg and active-set tolerance
 
 
+def minlog_raw(variant):
+    """The YAML of a MINLOG configuration, as plain values."""
+    from tube_mpc_tpu_torch.utils.config import read_yaml
+
+    path, changes = MINLOG[variant]
+    raw = read_yaml(path)
+    for key, value in changes.items():
+        section, leaf = key.split(".")
+        if value is None:
+            raw[section].pop(leaf)
+        else:
+            raw[section][leaf] = value
+    return raw
+
+
+def minlog_config(variant, adapt_nominal=None):
+    """The ExperimentConfig of a MINLOG configuration, its adaptation.adapt_nominal set to
+    `adapt_nominal` unless None."""
+    from tube_mpc_tpu_torch.utils.config import parse_config
+
+    cfg = parse_config(minlog_raw(variant))
+    if adapt_nominal is None:
+        return cfg
+    return dataclasses.replace(cfg, adaptation=dataclasses.replace(cfg.adaptation,
+                                                                   adapt_nominal=adapt_nominal))
+
+
+def paper_setup(family, N_, H_, where, dtype):
+    """The paper setup of `family` at N_, H_: Dubins' presets.dubins_paper_setup, a family's
+    presets.family_paper_setup, a MINLOG configuration's in paper mode."""
+    from tube_mpc_tpu_torch.presets import config_setup, dubins_paper_setup, family_paper_setup
+
+    if family == "dubins":
+        return dubins_paper_setup(N=N_, H=H_, device=where, dtype=dtype)
+    if family in MINLOG:
+        return config_setup(minlog_config(family, adapt_nominal=False), N=N_, H=H_,
+                            device=where, dtype=dtype)
+    return family_paper_setup(family, N=N_, H=H_, device=where, dtype=dtype)
+
+
 def coupled_setup(torch, H_, where, dtype, family="dubins", N_=N):
     """bench.py's BENCH_MODE=coupled configuration (bench.py:229-255): the paper
     setup, the clipped adaptation, adapt_nominal, its raw parameters, eps=1e-4; for a
     family, configs/<family>.yaml with adaptation.adapt_nominal: true as the CLI runs it
-    (presets.family_coupled_setup), at the horizon N_. Returns (setup, its
-    TubeMPCConfig, raw θ̄, raw θ)."""
-    from tube_mpc_tpu_torch.presets import dubins_paper_setup, family_coupled_setup
+    (presets.family_coupled_setup), and the same for a MINLOG configuration, at the
+    horizon N_. Returns (setup, its TubeMPCConfig, raw θ̄, raw θ)."""
+    from tube_mpc_tpu_torch.presets import (
+        config_coupled_setup, dubins_paper_setup, family_coupled_setup)
     from tube_mpc_tpu_torch.tube.params import AdaptConfig, RawAuxTheta, RawNominalTheta
 
+    if family in MINLOG:
+        s, raw_nom, raw_aux = config_coupled_setup(minlog_config(family), N=N_, H=H_,
+                                                   device=where, dtype=dtype)
+        return s, s.cfg, raw_nom, raw_aux
     if family != "dubins":
         s, raw_nom, raw_aux = family_coupled_setup(family, N=N_, H=H_, device=where, dtype=dtype)
         return s, s.cfg, raw_nom, raw_aux
@@ -346,29 +429,26 @@ def solver_fns(q, cfg):
     }
 
 
-def paper_step(torch, dev, dtype, family="dubins"):
+def paper_step(torch, dev, dtype, family="dubins", N_=N):
     """The four paper kernels' inputs in one real closed-loop step of the paper setup
-    (Dubins', or a family's from presets.family_paper_setup) at full width: three
-    disturbed steps first, then this step's nominal solve, the first iteration of its
-    ancillary solve, and the sensitivity of its solution.
+    (paper_setup: Dubins', a family's, a MINLOG configuration's) at full width and the
+    horizon N_: three disturbed steps first, then this step's nominal solve, the first
+    iteration of its ancillary solve, and the sensitivity of its solution.
     Returns (the problem, its eps, make, {kernel: inputs}, what):
     make(q) gives {kernel: (its wrapper, its plain version)} on the problem q, and K2 at
     the rollout's nα=1 as "fwd nα=1"."""
     from tube_mpc_tpu_torch.ops.costs import CostWeights
     from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
     from tube_mpc_tpu_torch.ops.cuda.lane_sensitivity import sbwd_plain, sfwd_plain
-    from tube_mpc_tpu_torch.presets import dubins_paper_setup, family_paper_setup
     from tube_mpc_tpu_torch.tube.lane_closed_loop import make_paper_lane_step, paper_lane_init_state
     from tube_mpc_tpu_torch.tube.lane_interface import (
         _build_C, _rows, _with_barrier_row, make_lane_problem, tube_ilqr_solve_lanes)
 
-    if family == "dubins":
-        s, seed = dubins_paper_setup(N=N, H=4, device=dev, dtype=dtype), SEED + 1
-    else:
-        s = family_paper_setup(family, N=N, H=4, device=dev, dtype=dtype)
-        seed = SEED + 10 + FAMILIES.index(family)
+    s = paper_setup(family, N_, 4, dev, dtype)
+    seed = {"dubins": SEED + 1, **{f: SEED + 10 + i for i, f in enumerate(FAMILIES)},
+            **{v: SEED + 60 + i for i, v in enumerate(MINLOG)}}[family]
     nx, nu = s.system.nx, s.system.nu
-    pb = make_lane_problem(s.sys_c, eps=s.eps)
+    pb = make_lane_problem(s.sys_c, barrier_type=s.barrier_type, eps=s.eps)
     step = make_paper_lane_step(s.system, s.aug, pb, s.cfg, w_nominal=s.w_nominal, bp=s.bp,
                                 target=s.target, B=B, dtype=dtype, device=dev)
     state = paper_lane_init_state(s.system, s.aug, s.cfg, aux_init=s.aux_init, bp=s.bp,
@@ -378,8 +458,8 @@ def paper_step(torch, dev, dtype, family="dubins"):
     for t in range(3):
         state, _ = step(state, w[:, t])
     x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
-    X_ref_nom = s.target[None, None].expand(B, N + 1, nx)
-    U_ref_nom = torch.zeros((B, N, nu), dtype=dtype, device=dev)
+    X_ref_nom = s.target[None, None].expand(B, N_ + 1, nx)
+    U_ref_nom = torch.zeros((B, N_, nu), dtype=dtype, device=dev)
     X_nom, U_nom = tube_ilqr_solve_lanes(
         pb, s.cfg.nominal_ilqr(), w=s.w_nominal, bp=s.bp, x_hat0=x_hat_bar,
         U_init=state.U_nom_ws, X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev)
@@ -410,16 +490,18 @@ def paper_step(torch, dev, dtype, family="dubins"):
 
     what = "paper setup" if family == "dubins" else f"{family} paper setup"
     return (pb, s.eps, make, {"ric": k1, "fwd": k2, "sbwd": k3, "sfwd": k4},
-            f"{what} at B={B}, N={N}, {len(s.cfg.alphas)} alphas")
+            f"{what} at B={B}, N={N_}, {len(s.cfg.alphas)} alphas")
 
 
 def with_obstacles(pb, centers, eps):
-    """The lane problem of pb's system with the circle obstacles `centers`, radius 1."""
+    """The lane problem of pb's system, aggregation and barrier with the circle obstacles
+    `centers`, radius 1."""
     from tube_mpc_tpu_torch.ops import lanes
     from tube_mpc_tpu_torch.tube.lane_interface import make_lane_problem
 
     sp = pb.spec
-    kw = dict(centers=centers, radii=[1.0] * len(centers), beta=sp.beta)
+    kw = dict(centers=centers, radii=[1.0] * len(centers), beta=sp.beta,
+              aggregation=sp.aggregation)
     if sp.family == "dubins":
         sys_c = lanes.dubins_components(dt=sp.dt, v_min=pb.u_min[0], v_max=pb.u_max[0],
                                         omega_max=pb.u_max[1], **kw)
@@ -429,7 +511,7 @@ def with_obstacles(pb, centers, eps):
         sys_c = lanes.quadrotor2d_components(
             dt=sp.dt, mass=sp.mass, inertia=sp.inertia, arm=sp.arm, gravity=sp.gravity,
             t_min=pb.u_min[0], t_max=pb.u_max[0], **kw)
-    return make_lane_problem(sys_c, eps=eps)
+    return make_lane_problem(sys_c, barrier_type=pb.barrier_type, eps=eps)
 
 
 def run_paper_loop(s, w, where):
@@ -438,7 +520,8 @@ def run_paper_loop(s, w, where):
 
     return run_paper_closed_loop_lanes(
         s.system, s.aug, s.sys_c, s.cfg, w_nominal=s.w_nominal, aux_init=s.aux_init,
-        bp=s.bp, x0=s.x0, target=s.target, w_seqs=w, eps=s.eps, device=where)
+        bp=s.bp, x0=s.x0, target=s.target, w_seqs=w, eps=s.eps, barrier_type=s.barrier_type,
+        device=where)
 
 
 def run_coupled(s, cfg, raw_nom, raw_aux, w, where):
@@ -448,14 +531,15 @@ def run_coupled(s, cfg, raw_nom, raw_aux, w, where):
 
     return run_generic_closed_loop_lanes(
         s.system, s.aug, s.sys_c, cfg, raw_nom=raw_nom, raw_aux_init=raw_aux, x0=s.x0,
-        target=s.target, w_seqs=w, eps=s.eps, device=where)
+        target=s.target, w_seqs=w, eps=s.eps, barrier_type=s.barrier_type, device=where)
 
 
 # The f64 loops held on the card against the CPU (phases loop64*): (kind, family) -> the
 # seed of their disturbances.
 LOOP64_CASES = {("paper", "dubins"): SEED + 2, ("coupled", "dubins"): SEED + 5,
                 **{("paper", f): SEED + 20 + i for i, f in enumerate(FAMILIES)},
-                **{("coupled", f): SEED + 50 + i for i, f in enumerate(FAMILIES)}}
+                **{("coupled", f): SEED + 50 + i for i, f in enumerate(FAMILIES)},
+                ("paper", "dubins_min_log"): SEED + 70, ("coupled", "cartpole_log"): SEED + 71}
 
 
 def loop64_case(torch, kind, family, where, H_=LOOP64_H, scale=1.0):
@@ -463,12 +547,9 @@ def loop64_case(torch, kind, family, where, H_=LOOP64_H, scale=1.0):
     N, H=H_ on `where`: run(setup, w, where) runs it under the disturbances w. With `scale`,
     the start x0 and the disturbances are multiplied by it (1 + 1e-15: a perturbation of
     their last bits)."""
-    from tube_mpc_tpu_torch.presets import dubins_paper_setup, family_paper_setup
-
     f64 = torch.float64
     if kind == "paper":
-        st = (dubins_paper_setup(N=N, H=H_, device=where, dtype=f64) if family == "dubins"
-              else family_paper_setup(family, N=N, H=H_, device=where, dtype=f64))
+        st = paper_setup(family, N, H_, where, f64)
         st = dataclasses.replace(st, x0=st.x0 * scale)
         run, s = run_paper_loop, st
     else:
@@ -562,12 +643,13 @@ def coupled_step(torch, dev, dtype, family="dubins", N_=N, solver=False):
 
     s, cfg, raw_nom, raw_aux = coupled_setup(torch, 4, dev, dtype, family, N_)
     nx, nu = s.system.nx, s.system.nu
-    pb = make_lane_problem(s.sys_c, eps=s.eps)
+    pb = make_lane_problem(s.sys_c, barrier_type=s.barrier_type, eps=s.eps)
     step = make_generic_lane_step(s.system, s.aug, pb, cfg, target=s.target, B=B,
                                   dtype=dtype, device=dev)
     state = generic_lane_init_state(s.system, s.aug, cfg, raw_nom=raw_nom,
                                     raw_aux_init=raw_aux, x0=s.x0, B=B, dtype=dtype)
-    seed = SEED + 4 if family == "dubins" else SEED + 40 + FAMILIES.index(family)
+    seed = {"dubins": SEED + 4, **{f: SEED + 40 + i for i, f in enumerate(FAMILIES)},
+            **{v: SEED + 80 + i for i, v in enumerate(MINLOG)}}[family]
     gen = torch.Generator(device=dev).manual_seed(seed)
     w = s.system.sample_disturbance(gen, (B, 3), dtype=dtype)
     for t in range(3):
@@ -632,17 +714,28 @@ SUMMARY_KEYS = {"system", "mode", "engine", "dtype", "H", "N", "batch", "final_s
                 "final_loss_median_finite", "finite_lane_frac", "wall_time_s", "solves_per_sec"}
 
 
-def cli_phase(torch, dev, t_start):
+def config_variant(cfg):
+    """The library variant (_build.VARIANTS) whose kernels a config's lane engine runs."""
+    from tube_mpc_tpu_torch.ops.cuda import _build
+
+    env, name = cfg.environment, cfg.system.name
+    circles = env.obstacles and name != "cartpole"
+    return _build.variant_name(name, env.obstacle_aggregation if circles else "smoothmin",
+                               cfg.dbas.barrier_type)
+
+
+def cli_phase(torch, dev, t_start, phase="cli", runs=None):
     """Phase 8: `python -m tube_mpc_tpu_torch.run_experiment --config <file> --batch B`,
     called in-process (main(argv)) on the card at each config's own N and H, into a
-    temporary directory that it then removes: configs/dubins.yaml as shipped (paper
-    mode), and a copy of each family's config with adaptation.adapt_nominal: true (the
-    coupled generic path). The run must return; every artifact must have its shape and
-    the summary every key; each run must launch its kernels from its own system's
-    libraries only (launch_counts(by_system=True)): K1 and K2, and K3/K4 H times
-    (Dubins' paper run) or each K5/K6 variant adapt.steps times a step (a family's);
-    solves_per_sec and finite_lane_frac, printed as records, must be finite numbers.
-    Returns {config: {kernel: its launches in that run}}."""
+    temporary directory that it then removes. `runs` is [(the run's name, its YAML as
+    plain values)]; by default configs/dubins.yaml as shipped (paper mode), and a copy of
+    each family's config with adaptation.adapt_nominal: true (the coupled generic path),
+    each named by its system. The run must return; every artifact must have its shape
+    and the summary every key; each run must launch its kernels from its own variant's
+    libraries only (config_variant; launch_counts(by_system=True)): K1 and K2, and K3/K4
+    H times (a paper-mode run) or each K5/K6 variant adapt.steps times a step (a coupled
+    run); solves_per_sec and finite_lane_frac, printed as records, must be finite
+    numbers. Returns {name: {kernel: its launches in that run}}."""
     import math
     import os
     import shutil
@@ -656,19 +749,21 @@ def cli_phase(torch, dev, t_start):
     from tube_mpc_tpu_torch.run_experiment import main as cli_main
     from tube_mpc_tpu_torch.utils.config import parse_config, read_yaml
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    counts, problems = {}, []
-    try:
-        runs = [("dubins", "configs/dubins.yaml")]
+    if runs is None:
+        runs = [("dubins", read_yaml("configs/dubins.yaml"))]
         for family in FAMILIES:
             raw = read_yaml(f"configs/{family}.yaml")
             raw["adaptation"]["adapt_nominal"] = True
-            path = os.path.join(tmp, f"{family}_coupled.yaml")
+            runs.append((family, raw))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    counts, problems = {}, []
+    try:
+        for name, raw in runs:
+            path = os.path.join(tmp, f"{name}.yaml")
             with open(path, "w", encoding="utf-8") as f:
                 yaml.safe_dump(raw, f)
-            runs.append((family, path))
-        for name, path in runs:
             cfg = parse_config(read_yaml(path))
+            variant = config_variant(cfg)
             Hc, Nc, steps = cfg.system.task_horizon_H, cfg.system.horizon_N, cfg.adaptation.steps
             run_dir = os.path.join(tmp, name)
             torch.cuda.synchronize()
@@ -678,20 +773,21 @@ def cli_phase(torch, dev, t_start):
             res = cli_main(["--config", path, "--batch", str(B), "--run-dir", run_dir])
             elapsed = time.perf_counter() - t0
             by_system = launch_counts(by_system=True)
-            c = counts[name] = {k: by_system.get((k, name), 0) for k in WRAPPERS}
-            others = {f"{k}_{fam}": n for (k, fam), n in by_system.items() if fam != name}
+            c = counts[name] = {k: by_system.get((k, variant), 0) for k in WRAPPERS}
+            others = {f"{k}_{var}": n for (k, var), n in by_system.items() if var != variant}
             summary = res["summary"]
             nx, nu = res["log"].x_real.shape[-1], res["log"].u_real.shape[-1]
             del res
             sps, fin = summary.get("solves_per_sec"), summary.get("finite_lane_frac")
-            log(f"[cli] {path} (mode {summary.get('mode')}): B={B}, N={Nc}, H={Hc} f32: run "
+            log(f"[{phase}] {name} (mode {summary.get('mode')}): B={B}, N={Nc}, H={Hc} f32: run "
                 f"{summary.get('wall_time_s')!r} s, solves_per_sec {sps!r}, finite_lane_frac "
                 f"{fin!r}; the call with its artifacts {elapsed:.3f} s, peak memory "
                 f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-            log(f"[cli] {name} launches from its libraries: {json.dumps(c)}; from others: "
+            log(f"[{phase}] {name} launches from its libraries ({variant}): {json.dumps(c)}; "
+                f"from others: "
                 f"{json.dumps(others)}")
             if others:
-                problems.append(f"{name}: launches from other systems' libraries {others}")
+                problems.append(f"{name}: launches from other variants' libraries {others}")
             want = {"x_real": (Hc, nx), "u_real": (Hc, nu), "x_bar": (Hc, nx), "u_bar": (Hc, nu),
                     "b_real": (Hc,), "loss": (Hc,), "Qa_history": (Hc, nx),
                     "Ra_history": (Hc, nu), "qba_history": (Hc,)}
@@ -713,7 +809,7 @@ def cli_phase(torch, dev, t_start):
             if not all(isinstance(v, float) and math.isfinite(v) for v in (sps, fin)):
                 problems.append(f"{name}: solves_per_sec {sps!r}, finite_lane_frac {fin!r}")
             want_n = {"ric": None, "fwd": None}
-            if name == "dubins":
+            if cfg.paper_dubins_mode and not cfg.adaptation.adapt_nominal:
                 want_n.update(sbwd=Hc, sfwd=Hc)
             else:
                 want_n.update({k: Hc * steps for k in COUPLED})
@@ -726,7 +822,7 @@ def cli_phase(torch, dev, t_start):
         shutil.rmtree(tmp, ignore_errors=True)
     if problems:
         raise SystemExit(f"chip_smoke: the CLI runs failed their checks: {problems}")
-    log(f"[cli] done at {time.perf_counter() - t_start:.0f} s")
+    log(f"[{phase}] done at {time.perf_counter() - t_start:.0f} s")
     return counts
 
 
@@ -764,9 +860,9 @@ def run_phases(torch, pool) -> int:
 
     # ---- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    seconds = _build.build()
-    log(f"[build] {len(seconds)} sources built in {time.perf_counter() - t0:.1f} s "
-        f"(per source: {json.dumps({k: round(v, 1) for k, v in seconds.items()})})")
+    seconds = _build.build(_build.libraries(_build.DEFAULT_VARIANTS + tuple(MINLOG)))
+    log(f"[build] {len(seconds)} libraries built in {time.perf_counter() - t0:.1f} s "
+        f"(per library: {json.dumps({k: round(v, 1) for k, v in seconds.items()})})")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -830,7 +926,58 @@ def run_phases(torch, pool) -> int:
                           for k, t in inputs.items()]
         return calls, extra
 
-    def checks(step_of, dtype, more_shapes):
+    # Where a kernel's inputs hold the states: [N, n̂, B] or [n̂, B]; and the const rows C.
+    STATE_ARGS = {"ric": (0,), "fwd": (0, 1), "sbwd": (1, 4), "sbwd_generic": (1, 4),
+                  "sbwd_upper": (4,), "sfwd": (2, 7), "sfwd_generic": (2, 7), "sfwd_ref": (2, 7)}
+    C_ARG = {"ric": 4, "fwd": 8, "sbwd": 3, "sbwd_generic": 3, "sbwd_upper": 5, "sfwd": 6,
+             "sfwd_generic": 6, "sfwd_ref": 6}
+
+    def branch_checks(make, pb, eps, inputs, what):
+        """The branch checks of the exact min and the log barrier, at the ragged shape: the
+        circle systems with the two obstacles TIE_CENTERS, and the first 250 lanes of every
+        state moved onto their bisector (px = 5, where the min chain ties), the first 125
+        of those to (5, 5), where h = 0; the cart-pole's first 125 lanes to its track
+        limit, h = 0; and those lanes' gamma to 0.5, since f̂ weighs the tangent of h at
+        the current state by gamma. Counts the (state, step, lane) triples on which the
+        chain ties and on which h - tight < eps, and records a failure where the library's
+        aggregation (min) or barrier (log) has a branch that no lane takes. Returns the
+        extra checks."""
+        sp = pb.spec
+        circles = bool(sp.centers)
+        q = with_obstacles(pb, TIE_CENTERS, eps) if circles else pb
+        fns = make(q)
+        extra, ties, below = [], 0, 0
+        for k, t in inputs.items():
+            ins = [ragged(a) for a in t]
+            C = ins[C_ARG[k]].clone()
+            C[2 * pb.n_hat + pb.m + 1, :250] = 0.5
+            ins[C_ARG[k]] = C
+            tight = C[2 * pb.n_hat + pb.m + 2]
+            for i in STATE_ARGS[k]:
+                x = ins[i].clone()
+                if circles:
+                    x[..., 0, :250] = 5.0
+                    x[..., 1, :125] = 5.0
+                    hs = [(x[..., 0, :] - cx) * (x[..., 0, :] - cx)
+                          + (x[..., 1, :] - cy) * (x[..., 1, :] - cy) - 1.0
+                          for cx, cy in TIE_CENTERS]
+                    ties += int((hs[0] == hs[1]).sum())
+                    h = torch.minimum(hs[0], hs[1])
+                else:
+                    x[..., 0, :125] = sp.x_lim
+                    h = sp.x_lim * sp.x_lim - x[..., 0, :] * x[..., 0, :]
+                below += int((h - tight < eps).sum())
+                ins[i] = x
+            extra.append((f"{k}, the branch lanes at {RAGGED_AT}", k, *fns[k], tuple(ins), False))
+        log(f"[checks] {what}, branch lanes: the min chain ties on {ties} (state, step, lane) "
+            f"triples of the inputs, h - tight < eps on {below}")
+        if circles and sp.aggregation == "min" and ties == 0:
+            failed.append(f"{what}: no lane on the min chain's tie")
+        if pb.barrier_type == "log" and below == 0:
+            failed.append(f"{what}: no lane below the log barrier's eps")
+        return extra
+
+    def checks(step_of, dtype, more_shapes, branches=False):
         """(calls, extra, controls at a bound, what, the problem) of one step's inputs
         (paper_step or coupled_step); K2 also at the rollout's nα=1. Where no control of a
         backward sweep's (K3, K5) inputs lies at a bound (a family's step may have none),
@@ -838,9 +985,11 @@ def run_phases(torch, pool) -> int:
         quartiles, which become the problem's bounds, so that the active set runs; the
         count returned is the least over the sweeps. With `more_shapes`, held's extra
         shapes and obstacle counts, and the clamped sweep at the ragged shape; without, at
-        the step's own."""
+        the step's own. With `branches`, branch_checks too."""
         pb, eps, make, inputs, what = step_of(torch, dev, dtype)
         calls, extra = held(make, pb, eps, inputs, more_shapes)
+        if branches:
+            extra += branch_checks(make, pb, eps, inputs, what)
         cut, cut_at = (ragged, f" at {RAGGED_AT}") if more_shapes else ((lambda t: t), "")
         if "fwd" in inputs:
             fwd1 = make(pb)["fwd nα=1"]
@@ -880,10 +1029,14 @@ def run_phases(torch, pool) -> int:
 
     def check(phase, dname, label, name, kernel, plain, inputs):
         """Hold a kernel against its plain version at TOL[dname][name]; log, record a
-        failure, and return the kernel's outputs and the largest difference."""
+        failure, and return the kernel's outputs, the largest difference and the plain
+        version's wall in ms."""
         got = kernel(*inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         ref = plain(*inputs)
         torch.cuda.synchronize()
+        plain_wall = (time.perf_counter() - t0) * 1e3
         rtol, atol_frac = TOL[dname][name]
         err, ok = max_err(torch, got, ref, rtol, atol_frac)
         nonfinite = sum(int((~torch.isfinite(r)).sum()) for r in ref)
@@ -892,15 +1045,18 @@ def run_phases(torch, pool) -> int:
             f"{'ok' if ok else 'FAIL'}; {nonfinite} non-finite values in the plain output")
         if not ok:
             failed.append(f"{dname} {label}")
-        return got, err
+        return got, err, plain_wall
 
-    def check_step(phase, step_of, dtype, suffix="", record=True):
+    def check_step(phase, step_of, dtype, suffix="", record=True, plain_runs=PLAIN_RUNS,
+                   branches=False):
         """Phase 3's checks and times of the kernels of one step's inputs in `dtype`; with
         `record`, also at the extra shapes and obstacle counts (held), and the f32 results,
         with the plain versions' times and the bounds, go to results[<kernel><suffix>];
-        without, the kernels are held and timed at the step's own shape only."""
+        without, the kernels are held and timed at the step's own shape only. The plain
+        version is timed over `plain_runs` calls, or with 0 by the wall of its check's one
+        call. With `branches`, branch_checks too."""
         dname = str(dtype).replace("torch.", "")
-        calls, extra, n_bound, what, pb = checks(step_of, dtype, record)
+        calls, extra, n_bound, what, pb = checks(step_of, dtype, record, branches)
         log(f"[{phase}] {dname}: inputs from a closed-loop step of the {what}; at least "
             f"{n_bound} controls at a bound in every backward sweep's inputs")
         if n_bound == 0:
@@ -908,12 +1064,13 @@ def run_phases(torch, pool) -> int:
         nc = 2 * pb.n_hat + pb.m + 3
         step_ms = {}   # kernel: ms per launch on the step's inputs
         for name, (kernel, plain, inputs) in calls.items():
-            got, err = check(phase, dname, name, name, kernel, plain, inputs)
+            got, err, plain_wall = check(phase, dname, name, name, kernel, plain, inputs)
             ms = step_ms[name] = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
             if not record or dtype != torch.float32:
                 log(f"[{phase}] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back)")
                 continue
-            plain_ms = device_time_ms(torch, lambda: plain(*inputs), PLAIN_RUNS, warmup=1)
+            plain_ms = (device_time_ms(torch, lambda: plain(*inputs), plain_runs, warmup=1)
+                        if plain_runs else plain_wall)
             out_bytes = sum(t.numel() * t.element_size() for t in got)
             in_bytes = sum(t.numel() * t.element_size() for t in inputs)
             in_bytes -= (nc - C_ROWS_READ.get(name, nc)) * B * got[0].element_size()
@@ -927,7 +1084,8 @@ def run_phases(torch, pool) -> int:
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=in_bytes + out_bytes, ops=ops)
             log(f"[{phase}] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back), plain "
-                f"{plain_ms:.2f} ms (mean of {PLAIN_RUNS}, while the CPU's loop64 workers run); "
+                f"{plain_ms:.2f} ms ({f'mean of {plain_runs}' if plain_runs else 'its check'}"
+                f", while the CPU's loop64 workers run); "
                 f"{in_bytes + out_bytes} bytes "
                 f"-> {t_bytes:.4f} ms, {ops} ops -> {t_ops:.4f} ms at peak "
                 f"({2 * t_ops:.4f} ms without fused multiply-adds)")
@@ -969,6 +1127,22 @@ def run_phases(torch, pool) -> int:
                                  f"versions: {failed}")
             log(f"[{phase}] done in {time.perf_counter() - t0:.0f} s, at "
                 f"{time.perf_counter() - t_start:.0f} s")
+
+    # ---- the lane engine's other branches: each MINLOG configuration's library, K1-K4 on
+    # a paper step and K5/K6 on a coupled step of the configuration at its own N, with the
+    # branch lanes; the plain versions timed by their checks' one call ----
+    for variant in MINLOG:
+        Nc = minlog_config(variant).system.horizon_N
+        phase, t0 = f"kernels_{variant}", time.perf_counter()
+        for dtype in both:
+            for step_of in (paper_step, coupled_step):
+                check_step(phase, lambda *a: step_of(*a, family=variant, N_=Nc), dtype,
+                           suffix=f"_{variant}", plain_runs=0, branches=True)
+        if failed:
+            raise SystemExit(f"chip_smoke: {variant}'s kernels disagree with their plain "
+                             f"versions, or a branch ran on no lane: {failed}")
+        log(f"[{phase}] done in {time.perf_counter() - t0:.0f} s, at "
+            f"{time.perf_counter() - t_start:.0f} s")
 
     # ---- 4, 5 and the families' short f64 loops, paper and coupled: kernels on the card vs
     # plain versions on the CPU --------------------------------------------------------
@@ -1025,6 +1199,8 @@ def run_phases(torch, pool) -> int:
         hold_loop64(f"loop64{suffix}", "paper", family, LOOP_TOL)
         hold_loop64(f"loop64{suffix}_coupled", "coupled", family, COUPLED_LOOP_TOL)
         log(f"[loop64 {family}] done at {time.perf_counter() - t_start:.0f} s")
+    hold_loop64("loop64_dubins_min_log", "paper", "dubins_min_log", LOOP_TOL)
+    hold_loop64("loop64_cartpole_log_coupled", "coupled", "cartpole_log", COUPLED_LOOP_TOL)
     log(f"[loop64] all done at {time.perf_counter() - t_start:.0f} s")
 
     # ---- 6. the full-width paper path ---------------------------------------------
@@ -1132,8 +1308,20 @@ def run_phases(torch, pool) -> int:
         del out
     log(f"[main families] done at {time.perf_counter() - t_start:.0f} s")
 
-    # ---- 8. the CLI: the port's entry point on the shipped configs at full width -------
+    # ---- 8. the CLI: the port's entry point on the shipped configs at full width, then on
+    # the MINLOG configurations -------------------------------------------------------
     cli_counts = cli_phase(torch, dev, t_start)
+    # each configuration as derived, and in its other mode, so that every kernel of its
+    # library runs on a main path: K1-K4 in paper mode, K1, K2 and K5/K6 coupled
+    runs, runs_of = [], {}
+    for variant in MINLOG:
+        raw = minlog_raw(variant)
+        other = dict(raw, adaptation=dict(raw["adaptation"],
+                                          adapt_nominal=not raw["adaptation"]["adapt_nominal"]))
+        mode = "coupled" if other["adaptation"]["adapt_nominal"] else "paper"
+        runs_of[variant] = [variant, f"{variant}_{mode}"]
+        runs += list(zip(runs_of[variant], (raw, other)))
+    minlog_counts = cli_phase(torch, dev, t_start, "cli_minlog", runs)
 
     # ---- 9. where the time goes: torch.profiler over a few full-width steps ---------
     from torch.profiler import ProfilerActivity, profile
@@ -1208,6 +1396,16 @@ def run_phases(torch, pool) -> int:
             r = results[f"{name}_{family}"]
             launches = (family_counts[family] if name in PAPER else cli_counts[family])[name]
             line.append(dict(name=f"{name}_{family}", route="cuda", source=source,
+                             replaces=replaces, launches=launches,
+                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
+    # a MINLOG library's kernels, launched by its configuration's two CLI runs
+    for variant in MINLOG:
+        for name in PAPER + COUPLED:
+            launches = sum(minlog_counts[run][name] for run in runs_of[variant])
+            source, replaces = KERNELS[name][:2]
+            r = results[f"{name}_{variant}"]
+            line.append(dict(name=f"{name}_{variant}", route="cuda", source=source,
                              replaces=replaces, launches=launches,
                              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                              bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))

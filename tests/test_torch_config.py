@@ -184,23 +184,17 @@ def _refusals():
     obstacle = raw_of("dubins")
     obstacle["environment"].pop("obstacles")
     obstacle["environment"]["obstacle"] = {"center": [5.0, 5.0], "radius": 1.5}
-    no_aggregation = raw_of("quadrotor2d")
-    no_aggregation["environment"].pop("obstacle_aggregation")
     return {
-        "min": (raw_of("dubins", **{"environment.obstacle_aggregation": "min"}),
-                r"smooth-min obstacle aggregation only, not 'min'.*queue B item 2"),
-        "min by default": (no_aggregation, r"not 'min'.*queue B item 2"),
-        "single": (obstacle, r"not 'single'.*queue B item 2"),
-        "log": (raw_of("cartpole", **{"dbas.barrier_type": "log"}),
-                r"inverse barrier only, not 'log'.*queue B item 2"),
+        "single": (obstacle, r"not 'single'.*unsupported aggregation for component form: "
+                             r"single"),
     }
 
 
-@pytest.mark.parametrize("what", ["min", "min by default", "single", "log"])
+@pytest.mark.parametrize("what", ["single"])
 def test_lane_engine_refuses_what_the_kernels_do_not_take(what, monkeypatch, tmp_path):
-    """validate_for_engine refuses the min and single aggregations and the log barrier,
-    naming the ROADMAP.md item; the runner refuses them before it builds a kernel or
-    runs a loop."""
+    """validate_for_engine refuses the single aggregation (a singular obstacle), which
+    neither package's lane engine runs, with the JAX component forms' reason; the runner
+    refuses it before it builds a kernel or runs a loop."""
     raw, match = _refusals()[what]
     built = pcfg.build_experiment(pcfg.parse_config(raw), device="cpu")
     with pytest.raises(ValueError, match=match):

@@ -292,9 +292,18 @@ def test_kernel_constants_refuse_what_the_kernels_do_not_take():
                              centers=[(float(i), 0.0) for i in range(9)], radii=[0.5] * 9)
     with pytest.raises(ValueError, match="1 to 8 obstacles"):
         kernel_consts(make_lane_problem(many))
+    # the constants carry the ids of the library variant that takes them
+    assert (k.system, k.aggregation, k.barrier) == (0, 0, 0)
     log_pb = make_lane_problem(s.sys_c, barrier_type="log", eps=s.eps)
-    with pytest.raises(ValueError, match="inverse barrier"):
-        kernel_consts(log_pb)
+    k = kernel_consts(log_pb)
+    assert (k.system, k.aggregation, k.barrier) == (0, 0, 1)
+    min_c = dubins_components(dt=0.01, v_min=-1.0, v_max=1.0, omega_max=1.0,
+                              centers=[(0.0, 0.0)], radii=[0.5], aggregation="min")
+    k = kernel_consts(make_lane_problem(min_c, barrier_type="log"))
+    assert (k.system, k.aggregation, k.barrier) == (0, 1, 1)
+    assert _build.library_name("lane_sbwd", "dubins_min_log") == "lane_sbwd_min_log"
+    with pytest.raises(ValueError, match="barriers"):
+        kernel_consts(make_lane_problem(s.sys_c, barrier_type="exp", eps=s.eps))
 
 
 @pytest.mark.parametrize("family,n_obs,m", [("double_integrator", 2, 2), ("quadrotor2d", 4, 2),

@@ -3,6 +3,9 @@
 
     python3 tools/loop64_probe.py                    # Dubins' coupled loop at H=3 and H=5
     python3 tools/loop64_probe.py --kind paper --family cartpole --H 5
+    python3 tools/loop64_probe.py --kind paper --family dubins_min_log --H 5
+
+--family is a system or one of chip_smoke.MINLOG's configurations (its library variant).
 
 For each H it runs chip_smoke.loop64_case (B=256, N=50, f64) four ways: through the
 kernels on the card; through the plain versions on the card (chip_smoke.plain_on_card);

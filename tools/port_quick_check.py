@@ -3,15 +3,17 @@
 
     python3 tools/port_quick_check.py     # from the repository root
 
-Builds every kernel library (each source for each system) and prints ptxas' registers and
-spills; then, for Dubins and each `bench.py` BENCH_SYSTEM family, holds K1-K4 against their
-plain versions on one closed-loop step's inputs (chip_smoke.paper_step) and K5/K6 on one
-coupled step's (chip_smoke.coupled_step: Dubins' bench.py coupled setup, a family's config
-with adaptation.adapt_nominal: true) in f64 and f32, at the main shape (B=16384, N=50, each
-kernel timed over 10 launches) and at B=1000, N=37 (there with 1 and 8 obstacles for the
-systems that have obstacles), at chip_smoke's tolerances, saying whether each agrees
-bitwise; last, five steps of each family's paper and coupled loops at full width, with the
-launch counts. It checks the kernels and nothing else of chip_smoke.py's contract: use it
+Builds every kernel library (each source for each variant: each system with each obstacle
+aggregation and each barrier, _build.VARIANTS, 42 libraries, of which chip_smoke.py runs 24)
+and prints ptxas' registers and spills; then, for Dubins, each `bench.py` BENCH_SYSTEM family
+and each of chip_smoke.MINLOG's configurations (the exact min, the log barrier), holds K1-K4
+against their plain versions on one closed-loop step's inputs (chip_smoke.paper_step) and
+K5/K6 on one coupled step's (chip_smoke.coupled_step: Dubins' bench.py coupled setup, a
+config with adaptation.adapt_nominal: true) in f64 and f32, at the main shape (B=16384,
+N=50, each kernel timed over 10 launches) and at B=1000, N=37 (there with 1 and 8
+obstacles for the systems that have obstacles), at chip_smoke's tolerances, saying whether
+each agrees bitwise; last, five steps of each family's paper and coupled loops at full
+width, with the launch counts. It checks the kernels and nothing else of chip_smoke.py's contract: use it
 after a kernel edit, before the whole script. Exits 1 if any check fails.
 """
 from __future__ import annotations
@@ -38,7 +40,7 @@ def main() -> int:
 
     print(cs.nvidia_smi(), torch.__version__, torch.version.cuda, flush=True)
     t0 = time.perf_counter()
-    secs = _build.build()
+    secs = _build.build(_build.LIBRARIES)
     print("[build]", round(time.perf_counter() - t0, 1),
           json.dumps({k: round(v, 1) for k, v in secs.items()}), flush=True)
     for name, text in _build.BUILD_LOG.items():
@@ -52,7 +54,7 @@ def main() -> int:
     def ragged(t):
         return (t[:cs.RAGGED_N, :, :cs.RAGGED_B] if t.ndim == 3 else t[:, :cs.RAGGED_B]).contiguous()
 
-    steps = [(family, step_of) for family in ("dubins",) + cs.FAMILIES
+    steps = [(family, step_of) for family in ("dubins",) + cs.FAMILIES + tuple(cs.MINLOG)
              for step_of in (cs.paper_step, cs.coupled_step)]
     for family, step_of in steps:
         for dtype in (torch.float64, torch.float32):

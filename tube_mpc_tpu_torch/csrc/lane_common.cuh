@@ -1,6 +1,7 @@
 // Shared device code of the lane kernels: the component systems (their step, its
-// tangent map, and their safety value h: the smooth-min over circle obstacles or the
-// cart-pole's track limit), the relaxed inverse barrier, the DBaS-augmented step f̂,
+// tangent map, and their safety value h: the smooth-min or the exact min over circle
+// obstacles, or the cart-pole's track limit), the relaxed inverse and the log barrier,
+// the DBaS-augmented step f̂,
 // its hand-written tangent map (the counterpart of jax.jvp in
 // tube_mpc_tpu/ops/lanes.py::jac_rows) and its derivatives in the barrier parameters
 // (the three jax.jvp calls of the generic _sfwd_kernel); the chunked sweep that K1 and
@@ -8,9 +9,10 @@
 // obstacle count.
 //
 // Every kernel is a template on its system, System<T, SYS, NOBS> (SYS one of the ids
-// below, NOBS the obstacle count); a library is built for one system, LANE_SYSTEM
-// (ops/cuda/_build.py), so the arrays' sizes (n̂, m, the const rows) and the rows of
-// the sweeps' shared memory follow from the system at compile time.
+// below, NOBS the obstacle count); a library is built for one system, LANE_SYSTEM, one
+// obstacle aggregation, LANE_AGG, and one barrier, LANE_BARRIER (ops/cuda/_build.py),
+// so the arrays' sizes (n̂, m, the const rows), the policies of h and B and the rows of
+// the sweeps' shared memory follow from the library at compile time.
 //
 // Layout: every array is [.., component, B] with the lane index fastest, so
 // neighbouring threads of a warp, which own neighbouring lanes, read neighbouring
@@ -28,14 +30,23 @@
 
 #include <type_traits>
 
-// The system a library is built for: an id of ops/lanes.py::FAMILIES.
+// The system a library is built for: an id of ops/lanes.py::FAMILIES; its obstacle
+// aggregation and its barrier: ids of ops/cuda/_build.py::AGGREGATIONS, BARRIERS.
 #ifndef LANE_SYSTEM
 #define LANE_SYSTEM 0
+#endif
+#ifndef LANE_AGG
+#define LANE_AGG 0
+#endif
+#ifndef LANE_BARRIER
+#define LANE_BARRIER 0
 #endif
 
 namespace lane {
 
 constexpr int DUBINS = 0, DOUBLE_INTEGRATOR = 1, QUADROTOR2D = 2, CARTPOLE = 3;
+constexpr int SMOOTHMIN = 0, MIN = 1;   // LANE_AGG
+constexpr int INVERSE = 0, LOG = 1;     // LANE_BARRIER
 constexpr int MAX_M = 2;
 constexpr int MAX_OBS = 8;
 constexpr int MAX_ALPHAS = 8;
@@ -69,7 +80,9 @@ struct Consts {
   double total_m;     // m_cart + m_pole
   double mpl;         // m_pole * length
   double x_lim2;      // x_lim * x_lim
-  int32_t system;     // the id of the system the constants are for
+  int32_t system;     // the ids of the system, the aggregation and the barrier the
+  int32_t aggregation;  // constants are for
+  int32_t barrier;
   int32_t pad;
 };
 
@@ -102,9 +115,12 @@ template <typename T> __device__ __forceinline__ T scrub(T v) {
 }
 
 // ---------------------------------------------------------------------------
-// Smooth-min obstacle value in component form (ops/lanes.py::smoothmin_h_lin), on
-// the state's two leading rows (Dubins, the double integrator, the quadrotor):
-//   h = z - (1/beta) log sum_i exp(-beta (h_i - z)),  z = min_i h_i.
+// Obstacle values in component form on the state's two leading rows (Dubins, the
+// double integrator, the quadrotor): h_i = |p - c_i|^2 - r_i^2, the chain
+// z = min(...min(h_0, h_1)..., h_{NOBS-1}) of jnp.minimum, and on top of it
+//   the smooth-min (ops/lanes.py::smoothmin_h_lin), h = z - (1/beta) log sum_i
+//     exp(-beta (h_i - z)), or
+//   the exact min (ops/lanes.py::min_h_lin), h = z.
 //
 // NOBS is the obstacle count (p.n_obs), fixed at compile time so that every
 // obstacle loop unrolls into straight-line code the compiler can schedule; every
@@ -112,10 +128,53 @@ template <typename T> __device__ __forceinline__ T scrub(T v) {
 // Runtime-guarded loops over MAX_OBS slots cut a linearisation into blocks the
 // compiler could not schedule across, several times slower on an H100 (PERF.md).
 //
-// h_lin also computes what h_tan needs that depends on the point alone: the
-// weights of the min chain, so that a tangent from stored fields (lane_sfwd.cu)
-// does no more than the carry needs.
+// min_chain also computes what the tangent needs that depends on the point alone: the
+// weights of the chain, so that a tangent from stored fields (lane_sfwd.cu) does no
+// more than the carry needs.
 // ---------------------------------------------------------------------------
+
+// Each h_i at (px, py) into hs, and z with lax.min's balanced-equality factors along
+// the chain into wz, wv (at obstacles 1..NOBS-1): 1 to the winner, 1/2 to each side of
+// a tie, 0 to the loser.
+template <typename T, int NOBS>
+__device__ __forceinline__ T min_chain(const Consts& p, T px, T py, T hs[NOBS], T wz[NOBS],
+                                       T wv[NOBS]) {
+#pragma unroll
+  for (int i = 0; i < NOBS; ++i) {
+    const T dx = px - T(p.cx[i]);
+    const T dy = py - T(p.cy[i]);
+    hs[i] = (dx * dx + dy * dy) - T(p.r2[i]);
+  }
+  T z = hs[0];
+#pragma unroll
+  for (int i = 1; i < NOBS; ++i) {
+    const T v = hs[i];
+    const T zn = jmin(z, v);
+    wz[i] = (z == zn ? T(1) : T(0)) / (v == zn ? T(2) : T(1));
+    wv[i] = (v == zn ? T(1) : T(0)) / (z == zn ? T(2) : T(1));
+    z = zn;
+  }
+  return z;
+}
+
+// The tangents dh_i along (dpx, dpy) by JAX's rules, d(a**2) = da * (2a), into dh, and
+// dz, the chain's tangent weighed by wz, wv.
+template <typename T, int NOBS>
+__device__ __forceinline__ T min_chain_tan(const Consts& p, T px, T py, const T wz[NOBS],
+                                           const T wv[NOBS], T dpx, T dpy, T dh[NOBS]) {
+#pragma unroll
+  for (int i = 0; i < NOBS; ++i) {
+    const T ax = T(2) * (px - T(p.cx[i]));
+    const T ay = T(2) * (py - T(p.cy[i]));
+    dh[i] = dpx * ax + dpy * ay;
+  }
+  T dz = dh[0];
+#pragma unroll
+  for (int i = 1; i < NOBS; ++i) dz = dz * wz[i] + dh[i] * wv[i];
+  return dz;
+}
+
+// The smooth-min.
 template <typename T, int NOBS> struct HLin {
   T px, py;
   T hs[NOBS];
@@ -129,22 +188,7 @@ template <typename T, int NOBS>
 __device__ __forceinline__ void h_lin(const Consts& p, T px, T py, HLin<T, NOBS>& L) {
   L.px = px;
   L.py = py;
-#pragma unroll
-  for (int i = 0; i < NOBS; ++i) {
-    const T dx = px - T(p.cx[i]);
-    const T dy = py - T(p.cy[i]);
-    L.hs[i] = (dx * dx + dy * dy) - T(p.r2[i]);
-  }
-  // The balanced-equality factors of lax.min along the chain z = min(z, h_i).
-  T z = L.hs[0];
-#pragma unroll
-  for (int i = 1; i < NOBS; ++i) {
-    const T v = L.hs[i];
-    const T zn = jmin(z, v);
-    L.wz[i] = (z == zn ? T(1) : T(0)) / (v == zn ? T(2) : T(1));
-    L.wv[i] = (v == zn ? T(1) : T(0)) / (z == zn ? T(2) : T(1));
-    z = zn;
-  }
+  const T z = min_chain<T, NOBS>(p, px, py, L.hs, L.wz, L.wv);
   const T nb = T(p.neg_beta);
 #pragma unroll
   for (int i = 0; i < NOBS; ++i) {
@@ -154,21 +198,12 @@ __device__ __forceinline__ void h_lin(const Consts& p, T px, T py, HLin<T, NOBS>
   L.value = z - T(p.inv_beta) * m_log(L.acc);
 }
 
-// Tangent of h along (dpx, dpy), by JAX's rules: d(a**2) = da * (2a); the min
-// chain weighs tangents by the balanced-equality factors of lax.min; d exp =
-// g * ans; d log = g / x.
+// Tangent of the smooth-min along (dpx, dpy), by JAX's rules: the min chain's
+// (min_chain_tan); d exp = g * ans; d log = g / x.
 template <typename T, int NOBS>
 __device__ __forceinline__ T h_tan(const Consts& p, const HLin<T, NOBS>& L, T dpx, T dpy) {
   T dh[NOBS];
-#pragma unroll
-  for (int i = 0; i < NOBS; ++i) {
-    const T ax = T(2) * (L.px - T(p.cx[i]));
-    const T ay = T(2) * (L.py - T(p.cy[i]));
-    dh[i] = dpx * ax + dpy * ay;
-  }
-  T dz = dh[0];
-#pragma unroll
-  for (int i = 1; i < NOBS; ++i) dz = dz * L.wz[i] + dh[i] * L.wv[i];
+  const T dz = min_chain_tan<T, NOBS>(p, L.px, L.py, L.wz, L.wv, dpx, dpy, dh);
   const T nb = T(p.neg_beta);
   T dacc = T(0);
 #pragma unroll
@@ -181,7 +216,8 @@ __device__ __forceinline__ T h_tan(const Consts& p, const HLin<T, NOBS>& L, T dp
 
 // The h policies: Lin holds h's value and what its tangent needs; rows(L, f) calls f
 // on each field of Lin that the tangent reads, in a fixed order (K4/K6 store and load
-// them, lane_sfwd.cu), ROWS of them.
+// them, lane_sfwd.cu), ROWS of them. CircleH is the smooth-min, MinCircleH the exact
+// min, TrackH the cart-pole's track limit.
 template <typename T, int NOBS> struct CircleH {
   using Lin = HLin<T, NOBS>;
   static constexpr int ROWS = 3 + NOBS + 2 * (NOBS - 1);
@@ -197,6 +233,34 @@ template <typename T, int NOBS> struct CircleH {
     f(L.acc);
 #pragma unroll
     for (int i = 0; i < NOBS; ++i) f(L.e[i]);
+#pragma unroll
+    for (int i = 1; i < NOBS; ++i) {
+      f(L.wz[i]);
+      f(L.wv[i]);
+    }
+  }
+};
+
+// The exact min h = z (ops/lanes.py::min_h_lin) and its tangent dz.
+template <typename T, int NOBS> struct MinCircleH {
+  struct Lin {
+    T px, py, value;
+    T wz[NOBS], wv[NOBS];   // the min chain's tangent weights at obstacles 1..NOBS-1
+  };
+  static constexpr int ROWS = 2 + 2 * (NOBS - 1);
+  static __device__ __forceinline__ void lin(const Consts& p, const T* x, Lin& L) {
+    T hs[NOBS];
+    L.px = x[0];
+    L.py = x[1];
+    L.value = min_chain<T, NOBS>(p, x[0], x[1], hs, L.wz, L.wv);
+  }
+  static __device__ __forceinline__ T tan(const Consts& p, const Lin& L, const T* dx) {
+    T dh[NOBS];
+    return min_chain_tan<T, NOBS>(p, L.px, L.py, L.wz, L.wv, dx[0], dx[1], dh);
+  }
+  template <typename F> static __device__ __forceinline__ void rows(Lin& L, F&& f) {
+    f(L.px);
+    f(L.py);
 #pragma unroll
     for (int i = 1; i < NOBS; ++i) {
       f(L.wz[i]);
@@ -278,6 +342,59 @@ __device__ __forceinline__ T barrier_dalpha(const Consts& p, const BLin<T>& L, T
                  + ((-(da * (T(3) * aa))) * (L.diff * L.diff)) * (T(1) / (a3 * a3));
   return (d_inv - d_lin) + d_quad;
 }
+
+// The barrier policies: lin(p, zeta, alpha, L) forms B(zeta) into L.value and what the
+// tangent needs; tan(L, dzeta) is dB; dalpha(p, Ln, Lc, alpha, gamma) is the barrier
+// row of d f̂/d alpha, dB(zeta_n)/d alpha - gamma dB(zeta_c)/d alpha; rows(L, f) as the
+// h policies', ROWS of them (a bool field goes as 0 or 1).
+template <typename T> struct InverseBarrier {
+  using Lin = BLin<T>;
+  static constexpr int ROWS = 6;
+  static __device__ __forceinline__ void lin(const Consts& p, T zeta, T alpha, Lin& L) {
+    barrier_lin(p, zeta, alpha, L);
+  }
+  static __device__ __forceinline__ T tan(const Lin& L, T dzeta) { return barrier_tan(L, dzeta); }
+  static __device__ __forceinline__ T dalpha(const Consts& p, const Lin& Ln, const Lin& Lc,
+                                             T alpha, T gamma) {
+    return barrier_dalpha(p, Ln, alpha) - gamma * barrier_dalpha(p, Lc, alpha);
+  }
+  template <typename F> static __device__ __forceinline__ void rows(Lin& L, F&& f) {
+    f(L.safe);
+    f(L.beq);
+    f(L.inv_mm);
+    f(L.aa);
+    f(L.a3);
+    f(L.d2);
+  }
+};
+
+// The log barrier B(zeta) = -log(max(zeta, eps)) (ops/barrier.py::log_barrier) and its
+// tangent by JAX's rules for max, log (g / x, a true division) and neg: zero below
+// eps, where max's weight for zeta is 0, and half on the tie zeta == eps. B does not
+// depend on alpha, so jax.jvp's tangent in alpha is a symbolic zero: the row of
+// d f̂/d alpha is an exact 0, also where gamma is not finite.
+template <typename T> struct LogBarrier {
+  struct Lin {
+    T value, m, beq;
+  };
+  static constexpr int ROWS = 2;
+  static __device__ __forceinline__ void lin(const Consts& p, T zeta, T, Lin& L) {
+    const T eps = T(p.eps);
+    L.m = jmax(zeta, eps);
+    L.value = -m_log(L.m);
+    L.beq = (zeta == L.m ? T(1) : T(0)) / (eps == L.m ? T(2) : T(1));
+  }
+  static __device__ __forceinline__ T tan(const Lin& L, T dzeta) {
+    return -((dzeta * L.beq) / L.m);
+  }
+  static __device__ __forceinline__ T dalpha(const Consts&, const Lin&, const Lin&, T, T) {
+    return T(0);
+  }
+  template <typename F> static __device__ __forceinline__ void rows(Lin& L, F&& f) {
+    f(L.m);
+    f(L.beq);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // The component steps x+ = f(x, u) (ops/lanes.py): lin computes the step and Lin,
@@ -445,11 +562,12 @@ template <typename T> struct CartPoleStep {   // [pos, vel, th, om], [force]
   }
 };
 
-// A system: its step and its h, and the sizes that follow: the augmented state n̂ =
-// n + 1, the controls m, and the const rows C (tube/lane_interface.py::_build_C):
+// A system: its step, its h and its barrier, and the sizes that follow: the augmented
+// state n̂ = n + 1, the controls m, and the const rows C (tube/lane_interface.py::_build_C):
 // [0, n̂) stage diag | [n̂, n̂+m) 2R | [n̂+m, 2n̂+m) terminal diag | alpha, gamma, tight.
-template <typename Step, typename Hp> struct Sys : Step {
+template <typename Step, typename Hp, typename BarP> struct Sys : Step {
   using H = Hp;
+  using Bar = BarP;
   static constexpr int NX = Step::NX;
   static constexpr int NH = Step::NX + 1;
   static constexpr int M = Step::NU;
@@ -457,18 +575,25 @@ template <typename Step, typename Hp> struct Sys : Step {
   static constexpr int ROW_ALPHA = 2 * NH + M;
 };
 
+// The library's policies: the circle systems' h by LANE_AGG, every system's barrier by
+// LANE_BARRIER.
+template <typename T, int NOBS>
+using CircleOf = std::conditional_t<LANE_AGG == MIN, MinCircleH<T, NOBS>, CircleH<T, NOBS>>;
+template <typename T>
+using BarrierOf = std::conditional_t<LANE_BARRIER == LOG, LogBarrier<T>, InverseBarrier<T>>;
+
 template <typename T, int SYS, int NOBS> struct SystemOf;
 template <typename T, int NOBS> struct SystemOf<T, DUBINS, NOBS> {
-  using type = Sys<DubinsStep<T>, CircleH<T, NOBS>>;
+  using type = Sys<DubinsStep<T>, CircleOf<T, NOBS>, BarrierOf<T>>;
 };
 template <typename T, int NOBS> struct SystemOf<T, DOUBLE_INTEGRATOR, NOBS> {
-  using type = Sys<DoubleIntegratorStep<T>, CircleH<T, NOBS>>;
+  using type = Sys<DoubleIntegratorStep<T>, CircleOf<T, NOBS>, BarrierOf<T>>;
 };
 template <typename T, int NOBS> struct SystemOf<T, QUADROTOR2D, NOBS> {
-  using type = Sys<Quadrotor2DStep<T>, CircleH<T, NOBS>>;
+  using type = Sys<Quadrotor2DStep<T>, CircleOf<T, NOBS>, BarrierOf<T>>;
 };
 template <typename T, int NOBS> struct SystemOf<T, CARTPOLE, NOBS> {
-  using type = Sys<CartPoleStep<T>, TrackH<T>>;
+  using type = Sys<CartPoleStep<T>, TrackH<T>, BarrierOf<T>>;
 };
 template <typename T, int SYS, int NOBS> using System = typename SystemOf<T, SYS, NOBS>::type;
 
@@ -480,7 +605,7 @@ template <typename T, typename S> struct FLin {
   T gamma;
   typename S::Lin f;
   typename S::H::Lin hc, hn;
-  BLin<T> bc, bn;
+  typename S::Bar::Lin bc, bn;
   T out[S::NH];
 };
 
@@ -491,8 +616,8 @@ __device__ __forceinline__ void fhat_lin(const Consts& p, const T x[S::NH], cons
   S::lin(p, x, u, L.f, L.out);
   S::H::lin(p, L.out, L.hn);
   S::H::lin(p, x, L.hc);
-  barrier_lin(p, L.hn.value - tight, alpha, L.bn);
-  barrier_lin(p, L.hc.value - tight, alpha, L.bc);
+  S::Bar::lin(p, L.hn.value - tight, alpha, L.bn);
+  S::Bar::lin(p, L.hc.value - tight, alpha, L.bc);
   L.out[S::NX] = L.bn.value - gamma * (L.bc.value - x[S::NX]);
 }
 
@@ -501,8 +626,8 @@ template <typename S, typename T>
 __device__ __forceinline__ T barrier_at(const Consts& p, const T* x, T alpha, T tight) {
   typename S::H::Lin h;
   S::H::lin(p, x, h);
-  BLin<T> b;
-  barrier_lin(p, h.value - tight, alpha, b);
+  typename S::Bar::Lin b;
+  S::Bar::lin(p, h.value - tight, alpha, b);
   return b.value;
 }
 
@@ -525,8 +650,8 @@ template <typename S, typename T>
 __device__ __forceinline__ void fhat_tan(const Consts& p, const FLin<T, S>& L,
                                          const T dx[S::NH], const T du[S::M], T out[S::NH]) {
   S::tan(p, L.f, dx, du, out);
-  const T dBn = barrier_tan(L.bn, S::H::tan(p, L.hn, out));
-  const T dBc = barrier_tan(L.bc, S::H::tan(p, L.hc, dx));
+  const T dBn = S::Bar::tan(L.bn, S::H::tan(p, L.hn, out));
+  const T dBc = S::Bar::tan(L.bc, S::H::tan(p, L.hc, dx));
   out[S::NX] = dBn - L.gamma * (dBc - dx[S::NX]);
 }
 
@@ -544,9 +669,9 @@ __device__ __forceinline__ void fhat_dparams(const Consts& p, const FLin<T, S>& 
     fg[i] = T(0);
     ft[i] = T(0);
   }
-  fa[S::NX] = barrier_dalpha(p, L.bn, alpha) - L.gamma * barrier_dalpha(p, L.bc, alpha);
+  fa[S::NX] = S::Bar::dalpha(p, L.bn, L.bc, alpha, L.gamma);
   fg[S::NX] = -(L.bc.value - b);
-  ft[S::NX] = barrier_tan(L.bn, T(-1)) - L.gamma * barrier_tan(L.bc, T(-1));
+  ft[S::NX] = S::Bar::tan(L.bn, T(-1)) - L.gamma * S::Bar::tan(L.bc, T(-1));
 }
 
 // Jacobian rows A[i][j] = d f̂_i / d x̂_j, Bm[i][a] = d f̂_i / d u_a by basis
@@ -744,10 +869,12 @@ int with_obs(int n_obs, F&& f) {
 
 // Calls f(std::integral_constant<int, NOBS>{}) for the kernels of this library's system
 // (LANE_SYSTEM): with the problem's obstacle count through with_obs, or NOBS = 0 for the
-// cart-pole, whose h is its track limit. Refuses constants made for another system.
+// cart-pole, whose h is its track limit. Refuses constants made for another system,
+// aggregation or barrier than the library's (LANE_AGG, LANE_BARRIER).
 template <typename F>
 int with_system(const Consts& p, F&& f) {
-  if (p.system != LANE_SYSTEM) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.system != LANE_SYSTEM || p.aggregation != LANE_AGG || p.barrier != LANE_BARRIER)
+    return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (LANE_SYSTEM == CARTPOLE) {
     if (p.n_obs != 0) return static_cast<int>(cudaErrorInvalidValue);
     return f(std::integral_constant<int, 0>{});

@@ -22,14 +22,15 @@
 //
 // Design: the chunked sweep of lane_common.cuh, forwards. Only dx is carried from step
 // to step. fhat_lin, which holds all the transcendentals (sin, cos, an exp per
-// obstacle and a log in each of the two smooth-mins, the barriers' divisions), and
-// fhat_dparams depend on X, U and C alone.
+// obstacle and a log in each of the two smooth-mins, the barriers' divisions or logs),
+// and fhat_dparams depend on X, U and C alone.
 // - Phase A writes, for each (step, lane), the fields of FLin that fhat_tan reads
 //   (tan_rows: the step's own (Dubins 3, the double integrator none, the quadrotor 3,
-//   the cart-pole 11), each h's (3 NOBS + 1 for the smooth-min, 1 for the track limit)
-//   and each barrier's 6, with the min chain's weights and the barriers' factors
-//   already formed), 2 (x - x_ref) (n̂ rows), 2 (u - u_ref) (m) and, with GENERIC, the
-//   barrier rows of the three parameter derivatives (3).
+//   the cart-pole 11), each h's (3 NOBS + 1 for the smooth-min, 2 NOBS for the min,
+//   1 for the track limit) and each barrier's (6 inverse, 2 log), with the min chain's
+//   weights and the barriers' factors already formed), 2 (x - x_ref) (n̂ rows),
+//   2 (u - u_ref) (m) and, with GENERIC, the barrier rows of the three parameter
+//   derivatives (3).
 // - Phase B, in warp 0, runs fhat_tan on those fields with the same operations in the
 //   same order, and the sums. It loads step k+1's K and kff while it computes step k,
 //   as K2 does, and with GENERIC the step's carry rows before its tangent, though they
@@ -48,21 +49,28 @@
 
 namespace lane {
 
-// Rows of a step in shared memory: the tangent's fields [0, TAN_ROWS), 2 (x - x_ref),
-// 2 (u - u_ref), and with GENERIC the barrier rows of d f̂/d(alpha, gamma, tight).
-template <typename S> constexpr int TAN_ROWS = S::ROWS + 2 * S::H::ROWS + 2 * 6;
+// Rows of a step in shared memory: the tangent's fields [0, TAN_ROWS) (the step's, then
+// each h's and each barrier's), 2 (x - x_ref), 2 (u - u_ref), and with GENERIC the
+// barrier rows of d f̂/d(alpha, gamma, tight).
+template <typename S> constexpr int TAN_ROWS = S::ROWS + 2 * S::H::ROWS + 2 * S::Bar::ROWS;
 template <typename S> constexpr int ROW_G2X = TAN_ROWS<S>;
 template <typename S> constexpr int ROW_G2U = ROW_G2X<S> + S::NH;
 template <typename S> constexpr int ROW_DP = ROW_G2U<S> + S::M;
 template <typename S, bool GENERIC> constexpr int SFWD_ROWS = ROW_DP<S> + (GENERIC ? 3 : 0);
 
 // Stores (STORE) or loads the fields of L that fhat_tan reads, but gamma:
-// row[r * 32] for row r.
+// row[r * 32] for row r; a bool field as 1 or 0.
 template <bool STORE, typename S, typename T, typename P>
 __device__ __forceinline__ void tan_rows(FLin<T, S>& L, P row) {
   int r = 0;
-  auto f = [&](T& v) {
-    if constexpr (STORE) {
+  auto f = [&](auto& v) {
+    if constexpr (std::is_same_v<std::remove_reference_t<decltype(v)>, bool>) {
+      if constexpr (STORE) {
+        row[r * 32] = v ? T(1) : T(0);
+      } else {
+        v = row[r * 32] != T(0);
+      }
+    } else if constexpr (STORE) {
       row[r * 32] = v;
     } else {
       v = row[r * 32];
@@ -72,21 +80,8 @@ __device__ __forceinline__ void tan_rows(FLin<T, S>& L, P row) {
   S::rows(L.f, f);
   S::H::rows(L.hc, f);
   S::H::rows(L.hn, f);
-  auto b = [&](BLin<T>& Bl) {
-    if constexpr (STORE) {
-      row[r * 32] = Bl.safe ? T(1) : T(0);
-    } else {
-      Bl.safe = row[r * 32] != T(0);
-    }
-    ++r;
-    f(Bl.beq);
-    f(Bl.inv_mm);
-    f(Bl.aa);
-    f(Bl.a3);
-    f(Bl.d2);
-  };
-  b(L.bc);
-  b(L.bn);
+  S::Bar::rows(L.bc, f);
+  S::Bar::rows(L.bn, f);
 }
 
 // Phase A for step k of one lane.

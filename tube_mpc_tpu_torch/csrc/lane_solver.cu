@@ -1,6 +1,7 @@
 // K1 and K2 of the lane iLQR solver on Hopper, for the system LANE_SYSTEM
 // (lane_common.cuh: Dubins by default; the double integrator, the quadrotor and the
-// cart-pole in libraries of their own, ops/cuda/_build.py).
+// cart-pole in libraries of their own, and each with the exact min or the log barrier
+// in libraries of their own, ops/cuda/_build.py).
 //
 // K1 ric_kernel replaces tube_mpc_tpu/ops/pallas/lane_solver.py::_ric_kernel:
 // the backward Riccati sweep with f̂'s Jacobians formed in-kernel.
@@ -52,7 +53,7 @@
 // thread loads step k+1's inputs before it computes step k, so their latency
 // leaves the chain. The barrier value at the next state is carried into the next
 // step as the barrier at the current state (lane_common.cuh::fhat_carry), so each
-// step evaluates the smooth-min h once, not twice. chip_smoke.py measures each
+// step evaluates h once, not twice. chip_smoke.py measures each
 // kernel's time beside its bound; PERF.md keeps the numbers with the card they
 // came from.
 #include "lane_common.cuh"

@@ -2,8 +2,9 @@
 
 KERNELS maps each kernel variant's name to its wrapper; a wrapper's ``launches``
 counts the times it launched its CUDA kernel (plain-version calls on CPU tensors
-do not count), and its ``by_system`` the same for each system whose library it
-launched. K1 ``ric``, K2 ``fwd``; K3 ``sbwd`` and K4 ``sfwd`` (paper); K5
+do not count), and its ``by_system`` the same for each library variant it launched
+from (the system, with ``_min`` and ``_log`` for the exact-min aggregation and the log
+barrier: "dubins", "quadrotor2d_min_log"). K1 ``ric``, K2 ``fwd``; K3 ``sbwd`` and K4 ``sfwd`` (paper); K5
 ``sbwd_generic`` and ``sbwd_upper``, K6 ``sfwd_generic`` and ``sfwd_ref``
 (generic and coupled).
 """
@@ -22,8 +23,8 @@ KERNELS = {
 
 
 def launch_counts(by_system: bool = False) -> Dict:
-    """{kernel: launches}, or with ``by_system`` {(kernel, system): launches} for each
-    system whose library launched the kernel."""
+    """{kernel: launches}, or with ``by_system`` {(kernel, variant): launches} for each
+    library variant that launched the kernel (_build.VARIANTS)."""
     if by_system:
         return {(name, fam): n for name, w in KERNELS.items() for fam, n in w.by_system.items()}
     return {name: w.launches for name, w in KERNELS.items()}

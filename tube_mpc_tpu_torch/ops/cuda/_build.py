@@ -1,14 +1,19 @@
 """Build and load the lane kernels.
 
-Each ``csrc/<source>.cu`` is compiled by ``nvcc`` once for each component system the
-kernels take (``FAMILIES``), with ``-DLANE_SYSTEM=<its index>``, into a shared library
-with a plain C interface, ``tube_mpc_tpu_torch/_build/lib<library>_<digest>.so``:
-``<source>`` for Dubins (the default without the define), ``<source>_<family>`` for
-the others. A library is built at first use, so a run builds only its own system's,
-and loaded with ``ctypes``. The digest covers the source, the shared header and the
-flags, so an edited source is rebuilt. Several libraries build in parallel, one
-``nvcc`` each. Nothing here runs when the package is imported, and a failed build
-raises with nvcc's output.
+Each ``csrc/<source>.cu`` is compiled by ``nvcc`` once for each variant of the
+kernels: a component system (``FAMILIES``, ``-DLANE_SYSTEM=<its index>``), its
+obstacle aggregation (``AGGREGATIONS``, ``-DLANE_AGG``; the circle systems only) and
+its barrier (``BARRIERS``, ``-DLANE_BARRIER``), into a shared library with a plain C
+interface, ``tube_mpc_tpu_torch/_build/lib<library>_<digest>.so``. The variant
+``<family>[_min][_log]`` names the non-default policies (the smooth-min and the
+inverse barrier are the defaults, without a define); its library is ``<source>`` for
+Dubins with the defaults, ``<source>_min_log`` and the like for Dubins with others,
+and ``<source>_<variant>`` for the other systems. A library is built at first use, so
+a run builds only its own variant's, and loaded with ``ctypes``. The digest covers the
+source, the shared header and the flags, so an edited source is rebuilt. Several
+libraries build in parallel, one ``nvcc`` each, as many at once as there are cores.
+Nothing here runs when the package is imported, and a failed build raises with nvcc's
+output.
 
 ``-fmad=false`` keeps nvcc from contracting a*b+c into one rounding, so a kernel
 rounds exactly as its plain PyTorch version does on the card.
@@ -38,16 +43,39 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+AGGREGATIONS = ("smoothmin", "min")   # ids of LANE_AGG (lane_common.cuh)
+BARRIERS = ("inverse", "log")         # ids of LANE_BARRIER
 
 
+def variant_name(family: str, aggregation: str = "smoothmin", barrier: str = "inverse") -> str:
+    """The kernels' variant: ``<family>[_min][_log]``."""
+    return family + ("_min" if aggregation == "min" else "") + ("_log" if barrier == "log" else "")
 
-def library_name(source: str, family: str = "dubins") -> str:
-    return source if family == "dubins" else f"{source}_{family}"
+
+def library_name(source: str, variant: str = "dubins") -> str:
+    """The library of ``source`` for ``variant``: the source's own name for Dubins with
+    the defaults."""
+    if variant.startswith("dubins"):
+        return source + variant[len("dubins"):]
+    return f"{source}_{variant}"
 
 
-# library name: (source, family)
+# variant: (family, aggregation, barrier); the cart-pole's h is its track limit, which
+# no aggregation changes
+VARIANTS: Dict[str, Tuple[str, str, str]] = {
+    variant_name(fam, agg, bar): (fam, agg, bar)
+    for fam in FAMILIES for agg in AGGREGATIONS for bar in BARRIERS
+    if fam != "cartpole" or agg == "smoothmin"}
+DEFAULT_VARIANTS = tuple(FAMILIES)   # the smooth-min and the inverse barrier
+
+# library name: (source, variant)
 LIBRARIES: Dict[str, Tuple[str, str]] = {
-    library_name(src, fam): (src, fam) for fam in FAMILIES for src in SOURCES}
+    library_name(src, var): (src, var) for var in VARIANTS for src in SOURCES}
+
+
+def libraries(variants: Iterable[str]) -> Tuple[str, ...]:
+    """The libraries of every source for each of ``variants``."""
+    return tuple(library_name(src, var) for var in variants for src in SOURCES)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
@@ -64,10 +92,17 @@ def nvcc_path() -> str:
 
 
 def flags(name: str) -> Tuple[str, ...]:
-    """nvcc's flags for library ``name``."""
-    family = LIBRARIES[name][1]
-    return NVCC_FLAGS if family == "dubins" else NVCC_FLAGS + (
-        f"-DLANE_SYSTEM={FAMILIES.index(family)}",)
+    """nvcc's flags for library ``name``: a define for each policy that is not the
+    default."""
+    family, aggregation, barrier = VARIANTS[LIBRARIES[name][1]]
+    out = NVCC_FLAGS
+    if family != "dubins":
+        out += (f"-DLANE_SYSTEM={FAMILIES.index(family)}",)
+    if aggregation != "smoothmin":
+        out += (f"-DLANE_AGG={AGGREGATIONS.index(aggregation)}",)
+    if barrier != "inverse":
+        out += (f"-DLANE_BARRIER={BARRIERS.index(barrier)}",)
+    return out
 
 
 def _digest(name: str) -> str:
@@ -82,37 +117,37 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{_digest(name)}.so"
 
 
-def build(names: Iterable[str] = tuple(LIBRARIES)) -> Dict[str, float]:
-    """Compile every stale library of ``names`` in parallel; returns seconds per build."""
+def build(names: Iterable[str]) -> Dict[str, float]:
+    """Compile every stale library of ``names``, as many at once as there are cores, the
+    quadrotor's and the backward sweeps' (the longest) first; returns each build's
+    seconds from the start of the first."""
     pending = {n: library_path(n) for n in names if not library_path(n).exists()}
     if not pending:
         return {}
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
     start = time.perf_counter()
-    for name, out in pending.items():
+
+    def one(name):
+        out = pending[name]
         fd, tmp = tempfile.mkstemp(prefix=out.stem + ".", suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [nvcc, *flags(name), "-o", tmp, str(CSRC / f"{LIBRARIES[name][0]}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, out)
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return proc.returncode, proc.stdout, tmp, time.perf_counter() - start
 
-    def wait(name):   # the build's log and its own seconds, whichever finishes first
-        log, _ = procs[name][0].communicate()
-        return log, time.perf_counter() - start
-
-    with ThreadPoolExecutor(max_workers=len(procs)) as pool:
-        waited = dict(zip(procs, pool.map(wait, procs)))
+    order = sorted(pending, key=lambda n: ("quadrotor2d" not in n, "sbwd" not in n, n))
+    with ThreadPoolExecutor(max_workers=min(len(order), os.cpu_count() or 1)) as pool:
+        done = dict(zip(order, pool.map(one, order)))
     seconds, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, seconds[name] = waited[name]
+    for name, (rc, log, tmp, secs) in done.items():
+        seconds[name] = secs
         BUILD_LOG[name] = log
-        if proc.returncode != 0:
+        if rc != 0:
             os.unlink(tmp)
-            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+            failed.append(f"nvcc {name}.cu failed ({rc}):\n{log}")
         else:
-            os.replace(tmp, out)
+            os.replace(tmp, pending[name])
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds

@@ -267,19 +267,24 @@ class LaneConsts(ctypes.Structure):
         ("mpl", ctypes.c_double),
         ("x_lim2", ctypes.c_double),
         ("system", ctypes.c_int32),
+        ("aggregation", ctypes.c_int32),
+        ("barrier", ctypes.c_int32),
         ("pad", ctypes.c_int32),
     ]
 
 
 def kernel_consts(pb: LaneProblem, *, reg: float = 0.0, alphas: Sequence[float] = (),
                   active_tol: float = 0.0) -> LaneConsts:
-    """Constants for the CUDA kernels; raises for a problem they do not take."""
+    """Constants for the CUDA kernels, with the ids of the library variant that takes
+    them (its system, obstacle aggregation and barrier); raises for a problem they do
+    not take."""
     spec = pb.spec
     if spec is None or FAMILY_DIMS.get(spec.family) != (pb.n, pb.m):
         raise ValueError("the lane kernels take the component systems of ops/lanes.py only "
                          f"({', '.join(FAMILIES)})")
-    if pb.barrier_type != "inverse":
-        raise ValueError(f"the lane kernels take the inverse barrier, not {pb.barrier_type!r}")
+    if pb.barrier_type not in _build.BARRIERS:
+        raise ValueError(f"the lane kernels take the barriers {_build.BARRIERS}, not "
+                         f"{pb.barrier_type!r}")
     n_obs = len(spec.centers)
     if spec.family == "cartpole":
         if n_obs:
@@ -313,7 +318,17 @@ def kernel_consts(pb: LaneProblem, *, reg: float = 0.0, alphas: Sequence[float] 
     k.mpl = spec.m_pole * spec.length
     k.x_lim2 = spec.x_lim * spec.x_lim
     k.system = FAMILIES.index(spec.family)
+    # the cart-pole's h is its track limit: its libraries take the default aggregation
+    k.aggregation = (0 if spec.family == "cartpole"
+                     else _build.AGGREGATIONS.index(spec.aggregation))
+    k.barrier = _build.BARRIERS.index(pb.barrier_type)
     return k
+
+
+def variant_of(consts: LaneConsts) -> str:
+    """The library variant that takes ``consts`` (_build.VARIANTS)."""
+    return _build.variant_name(FAMILIES[consts.system], _build.AGGREGATIONS[consts.aggregation],
+                               _build.BARRIERS[consts.barrier])
 
 
 def on_cpu(*tensors: Tensor) -> bool:
@@ -348,11 +363,11 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 def launch(lib: str, fn: str, dtype: torch.dtype, device: torch.device,
            tensors: Sequence[Tensor], N: int, B: int, consts: LaneConsts) -> None:
-    """Call ``<fn>_f32|_f64`` of ``csrc/<lib>.cu``, built for the system of ``consts``,
+    """Call ``<fn>_f32|_f64`` of ``csrc/<lib>.cu``, built for the variant of ``consts``,
     on the current stream of ``device``; raise if the launch reports a CUDA error."""
     if B < 1 or N < 1:
         raise ValueError(f"{fn}: needs N >= 1 and B >= 1, got N={N}, B={B}")
-    library = _build.library_name(lib, FAMILIES[consts.system])
+    library = _build.library_name(lib, variant_of(consts))
     f = getattr(_build.load(library), f"{fn}_{'f32' if dtype == torch.float32 else 'f64'}")
     f.argtypes = [_PTR] * len(tensors) + [_INT, _INT, _PTR, _PTR]
     f.restype = ctypes.c_int
@@ -365,10 +380,11 @@ def launch(lib: str, fn: str, dtype: torch.dtype, device: torch.device,
 
 def counted(wrapper, consts: LaneConsts) -> None:
     """Count one launch of ``wrapper``'s kernel: in all (``launches``) and for the
-    system it was built for (``by_system``)."""
+    library variant it was built for (``by_system``, keyed "quadrotor2d_min_log" and the
+    like)."""
     wrapper.launches += 1
-    family = FAMILIES[consts.system]
-    wrapper.by_system[family] = wrapper.by_system.get(family, 0) + 1
+    variant = variant_of(consts)
+    wrapper.by_system[variant] = wrapper.by_system.get(variant, 0) + 1
 
 
 # ---------------------------------------------------------------------------

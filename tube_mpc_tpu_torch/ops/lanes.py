@@ -33,13 +33,15 @@ FAMILIES = ("dubins", "double_integrator", "quadrotor2d", "cartpole")
 class LaneSpec:
     """The constants of a component system that the CUDA kernels take: its family
     (which step and which h the kernels run), the step's constants, and the circle
-    obstacles and beta of the smooth-min h (none for the cart-pole's track limit)."""
+    obstacles, their aggregation ("smoothmin" or "min") and the smooth-min's beta (none
+    for the cart-pole's track limit)."""
 
     family: str
     dt: float
     centers: Tuple[Tuple[float, float], ...] = ()
     radii: Tuple[float, ...] = ()
     beta: float = 20.0
+    aggregation: str = "smoothmin"
     mass: float = 0.0        # quadrotor
     inertia: float = 0.0
     arm: float = 0.0
@@ -134,8 +136,13 @@ def augmented_lin_fn(sys_c: ComponentSystem, *, barrier_type: str = "inverse", e
 
         def params() -> Tuple[Rows, Rows, Rows]:
             zero = torch.zeros_like(b_next)
-            d_alpha = (barrier_dalpha(h_next - bp.tight, bp.alpha, **kw)
-                       - bp.gamma * barrier_dalpha(h_curr - bp.tight, bp.alpha, **kw))
+            if barrier_type == "log":
+                # B does not depend on α: jax.jvp's tangent is a symbolic zero, so the
+                # row is an exact zero, also where γ is not finite (0 - γ·0 would be NaN)
+                d_alpha = zero
+            else:
+                d_alpha = (barrier_dalpha(h_next - bp.tight, bp.alpha, **kw)
+                           - bp.gamma * barrier_dalpha(h_curr - bp.tight, bp.alpha, **kw))
             d_gamma = -(B_curr - b)
             minus_one = torch.full_like(b_next, -1.0)
             d_tight = Bn_tan(minus_one) - bp.gamma * Bc_tan(minus_one)
@@ -160,45 +167,78 @@ def _div(x: Tensor, c: float) -> Tensor:
     return x / torch.full_like(x, c)
 
 
-def smoothmin_h_lin(centers: Sequence[Tuple[float, float]], radii: Sequence[float],
-                    beta: float):
-    """h_lin of the min-shifted smooth-min over circles on the two leading state rows:
-    h = z - (1/β) log Σ exp(-β (h_i - z)), z = min_i h_i, h_i = |p - c_i|² - r_i²."""
+def _circles(centers: Sequence[Tuple[float, float]], radii: Sequence[float]):
+    """(each(px, py) -> [h_i], tangents(px, py, dpx, dpy) -> [dh_i]) of the circles:
+    h_i = |p - c_i|² - r_i², with d(a**2) = da·(2a) as JAX's integer_pow."""
     cs = tuple((float(cx), float(cy)) for cx, cy in centers)
     rs = tuple(float(r) for r in radii)
 
-    def _each(px: Tensor, py: Tensor):
+    def each(px: Tensor, py: Tensor):
         out = []
         for (cx, cy), r in zip(cs, rs):
             dx, dy = px - cx, py - cy
             out.append(dx * dx + dy * dy - r * r)
         return out
 
-    def _smoothmin(hs):
-        z = hs[0]
-        for v_ in hs[1:]:
-            z = torch.minimum(z, v_)
-        es = [torch.exp(-beta * (v_ - z)) for v_ in hs]
-        acc = sum(es)
-        return z - (1.0 / beta) * torch.log(acc), es, acc
+    def tangents(px: Tensor, py: Tensor, dpx: Tensor, dpy: Tensor):
+        return [dpx * (2.0 * (px - cx)) + dpy * (2.0 * (py - cy)) for cx, cy in cs]
+
+    return each, tangents
+
+
+def _min_chain(hs):
+    """z = min(...min(h_0, h_1)..., h_k), the chain of jnp.minimum."""
+    z = hs[0]
+    for v_ in hs[1:]:
+        z = torch.minimum(z, v_)
+    return z
+
+
+def _min_chain_tan(hs, dh):
+    """The tangent of _min_chain by lax.min's rule: each step weighs its two sides by
+    the balanced-equality factors (1 to the winner, 1/2 to each side of a tie)."""
+    z, dz = hs[0], dh[0]
+    for v_, dv_ in zip(hs[1:], dh[1:]):
+        zn = torch.minimum(z, v_)
+        dz = dz * balanced_weight(z, zn, v_) + dv_ * balanced_weight(v_, zn, z)
+        z = zn
+    return dz
+
+
+def smoothmin_h_lin(centers: Sequence[Tuple[float, float]], radii: Sequence[float],
+                    beta: float):
+    """h_lin of the min-shifted smooth-min over circles on the two leading state rows:
+    h = z - (1/β) log Σ exp(-β (h_i - z)), z = min_i h_i, h_i = |p - c_i|² - r_i²."""
+    each, tangents = _circles(centers, radii)
 
     def h_lin(xs: Rows):
         px, py = xs[0], xs[1]
-        hs = _each(px, py)
-        value, es, acc = _smoothmin(hs)
+        hs = each(px, py)
+        z = _min_chain(hs)
+        es = [torch.exp(-beta * (v_ - z)) for v_ in hs]
+        acc = sum(es)
+        value = z - (1.0 / beta) * torch.log(acc)
 
         def tangent(dxs: Rows) -> Tensor:
-            dpx, dpy = dxs[0], dxs[1]
-            dh = [dpx * (2.0 * (px - cx)) + dpy * (2.0 * (py - cy)) for cx, cy in cs]
-            z, dz = hs[0], dh[0]
-            for v_, dv_ in zip(hs[1:], dh[1:]):
-                zn = torch.minimum(z, v_)
-                dz = dz * balanced_weight(z, zn, v_) + dv_ * balanced_weight(v_, zn, z)
-                z = zn
+            dh = tangents(px, py, dxs[0], dxs[1])
+            dz = _min_chain_tan(hs, dh)
             dacc = sum((-beta * (d - dz)) * e for d, e in zip(dh, es))
             return dz - (1.0 / beta) * (dacc / acc)
 
         return value, tangent
+
+    return h_lin
+
+
+def min_h_lin(centers: Sequence[Tuple[float, float]], radii: Sequence[float]):
+    """h_lin of the exact min over circles on the two leading state rows, h = min_i h_i
+    (tube_mpc_tpu/ops/lanes.py:158-162): the smooth-min's z and its tangent dz."""
+    each, tangents = _circles(centers, radii)
+
+    def h_lin(xs: Rows):
+        px, py = xs[0], xs[1]
+        hs = each(px, py)
+        return _min_chain(hs), lambda dxs: _min_chain_tan(hs, tangents(px, py, dxs[0], dxs[1]))
 
     return h_lin
 
@@ -209,16 +249,20 @@ def _circle_h(centers, radii, aggregation: str, beta: float):
     rs = tuple(float(r) for r in radii)
     if not cs:
         return None, cs, rs
-    if aggregation != "smoothmin":
-        raise ValueError(f"aggregation {aggregation!r} is not ported; use 'smoothmin'")
-    return smoothmin_h_lin(cs, rs, beta), cs, rs
+    if aggregation == "smoothmin":
+        return smoothmin_h_lin(cs, rs, beta), cs, rs
+    if aggregation == "min":
+        return min_h_lin(cs, rs), cs, rs
+    # the JAX component forms raise the same when h is traced (tube_mpc_tpu/ops/lanes.py:162)
+    raise ValueError(f"unsupported aggregation for component form: {aggregation}")
 
 
 def dubins_components(*, dt: float, v_min: float, v_max: float, omega_max: float,
                       centers: Sequence[Tuple[float, float]] = (),
                       radii: Sequence[float] = (),
                       aggregation: str = "smoothmin", beta: float = 20.0) -> ComponentSystem:
-    """Dubins in component form, with the min-shifted smooth-min h (smoothmin_h_lin)."""
+    """Dubins in component form, with the min-shifted smooth-min h (smoothmin_h_lin) or
+    the exact min (min_h_lin)."""
     h_lin, cs, rs = _circle_h(centers, radii, aggregation, beta)
 
     def f_lin(xs: Rows, us: Rows):
@@ -237,7 +281,8 @@ def dubins_components(*, dt: float, v_min: float, v_max: float, omega_max: float
 
         return (px + dtv * c, py + dtv * s, th + dt * om), tangent
 
-    spec = LaneSpec(family="dubins", dt=float(dt), centers=cs, radii=rs, beta=float(beta))
+    spec = LaneSpec(family="dubins", dt=float(dt), centers=cs, radii=rs, beta=float(beta),
+                    aggregation=aggregation)
     return ComponentSystem(
         n=3, m=2, f_lin=f_lin, h_lin=h_lin,
         u_min=(v_min, -omega_max), u_max=(v_max, omega_max), spec=spec,
@@ -248,7 +293,7 @@ def double_integrator_components(*, dt: float, a_max: float, centers=(), radii=(
                                  aggregation: str = "smoothmin",
                                  beta: float = 20.0) -> ComponentSystem:
     """The 2-D double integrator [px, py, vx, vy], [ax, ay] in component form
-    (tube_mpc_tpu/ops/lanes.py:171-187), with Dubins' smooth-min h on (px, py)."""
+    (tube_mpc_tpu/ops/lanes.py:171-187), with Dubins' h on (px, py)."""
     h_lin, cs, rs = _circle_h(centers, radii, aggregation, beta)
 
     def f_lin(xs: Rows, us: Rows):
@@ -263,7 +308,7 @@ def double_integrator_components(*, dt: float, a_max: float, centers=(), radii=(
         return (px + dt * vx, py + dt * vy, vx + dt * ax, vy + dt * ay), tangent
 
     spec = LaneSpec(family="double_integrator", dt=float(dt), centers=cs, radii=rs,
-                    beta=float(beta))
+                    beta=float(beta), aggregation=aggregation)
     return ComponentSystem(n=4, m=2, f_lin=f_lin, h_lin=h_lin, u_min=(-a_max, -a_max),
                            u_max=(a_max, a_max), spec=spec)
 
@@ -330,7 +375,7 @@ def quadrotor2d_components(*, dt: float, mass: float = 0.8, inertia: float = 0.0
                            centers=(), radii=(), aggregation: str = "smoothmin",
                            beta: float = 20.0) -> ComponentSystem:
     """The planar quadrotor [px, pz, th, vx, vz, om], [T1, T2] in component form
-    (tube_mpc_tpu/ops/lanes.py:209-238), with Dubins' smooth-min h on (px, pz)."""
+    (tube_mpc_tpu/ops/lanes.py:209-238), with Dubins' h on (px, pz)."""
     h_lin, cs, rs = _circle_h(centers, radii, aggregation, beta)
 
     def f_lin(xs: Rows, us: Rows):
@@ -358,7 +403,7 @@ def quadrotor2d_components(*, dt: float, mass: float = 0.8, inertia: float = 0.0
                 vx + dt * ax, vz + dt * az, om + dt * al), tangent
 
     spec = LaneSpec(family="quadrotor2d", dt=float(dt), centers=cs, radii=rs, beta=float(beta),
-                    mass=float(mass), inertia=float(inertia), arm=float(arm),
-                    gravity=float(gravity))
+                    aggregation=aggregation, mass=float(mass), inertia=float(inertia),
+                    arm=float(arm), gravity=float(gravity))
     return ComponentSystem(n=6, m=2, f_lin=f_lin, h_lin=h_lin, u_min=(t_min, t_min),
                            u_max=(t_max, t_max), spec=spec)

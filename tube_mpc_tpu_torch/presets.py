@@ -22,7 +22,13 @@ from .systems.dubins import DubinsConfig, make_dubins
 from .systems.obstacles import CircleField
 from .tube.closed_loop import TubeMPCConfig
 from .tube.params import AdaptConfig, AuxAdapt, RawAuxTheta, RawNominalTheta
-from .utils.config import build_experiment, lane_components, load_config
+from .utils.config import (
+    ExperimentConfig,
+    build_experiment,
+    lane_components,
+    load_config,
+    validate_for_engine,
+)
 
 PAPER_OBSTACLES: Tuple[Tuple[float, float], ...] = (
     (4.0, 2.0), (2.0, 4.0), (4.0, 8.0), (8.0, 4.0), (6.0, 6.0),
@@ -33,8 +39,9 @@ PAPER_ALPHAS: Tuple[float, ...] = (1.0, 0.5, 0.25, 0.1, 0.05, 0.01, 0.0)
 @dataclasses.dataclass(frozen=True)
 class PaperSetup:
     """A paper experiment. ``sys_c`` is the component form the lane kernels run
-    (the same obstacles, beta and bounds as ``system``); ``field`` holds the circle
-    obstacles (None for the cart-pole); ``eps`` is the barrier floor."""
+    (the same obstacles, aggregation, beta and bounds as ``system``); ``field`` holds the
+    circle obstacles (None for the cart-pole); ``eps`` is the barrier floor and
+    ``barrier_type`` the barrier ("inverse" or "log") of ``aug`` and of the loops."""
 
     system: System
     aug: AugmentedDynamics
@@ -47,6 +54,7 @@ class PaperSetup:
     target: Tensor
     field: Optional[CircleField]
     eps: float
+    barrier_type: str = "inverse"
 
 
 def build_dubins_setup(
@@ -162,25 +170,44 @@ def build_family_setup(
     )
 
 
-def _family_setup(name: str, *, N: int, H: int, device: DeviceLike, dtype,
-                  adapt_nominal: bool):
-    """(setup, ExperimentConfig) of configs/<name>.yaml in ``dtype`` on ``device``, its
-    adaptation.adapt_nominal set to ``adapt_nominal``, built in paper mode unless the
-    nominal θ̄ adapts, with N and H replaced."""
-    if name not in FAMILY_NAMES:
-        raise ValueError(f"no paper setup for {name!r}; have {sorted(FAMILY_NAMES)}")
-    cfg = load_config(str(CONFIGS / f"{name}.yaml"))
-    cfg = dataclasses.replace(
-        cfg, use_float64=resolve_dtype(dtype) == torch.float64,
-        adaptation=dataclasses.replace(cfg.adaptation, adapt_nominal=adapt_nominal))
-    built = build_experiment(cfg, paper_mode=not adapt_nominal, device=device)
-    setup = PaperSetup(
+def config_setup(cfg: ExperimentConfig, *, N: int, H: int, device: DeviceLike = None,
+                 dtype=torch.float32) -> PaperSetup:
+    """The setup of ``cfg`` (any config the lane engine takes: its aggregation and its
+    barrier too) in ``dtype`` on ``device``, built in paper mode unless the nominal θ̄
+    adapts (adaptation.adapt_nominal), with N and H replaced."""
+    cfg = dataclasses.replace(cfg, use_float64=resolve_dtype(dtype) == torch.float64)
+    built = build_experiment(cfg, paper_mode=not cfg.adaptation.adapt_nominal, device=device)
+    validate_for_engine(built, "lanes")
+    return PaperSetup(
         system=built.system, aug=built.aug, sys_c=lane_components(cfg),
         cfg=dataclasses.replace(built.tube_cfg, N=N, H=H), w_nominal=built.w_nominal,
         aux_init=built.aux_init, bp=built.bp, x0=built.x0, target=built.target,
-        field=built.field, eps=cfg.dbas.eps,
+        field=built.field, eps=cfg.dbas.eps, barrier_type=cfg.dbas.barrier_type,
     )
-    return setup, cfg
+
+
+def config_coupled_setup(cfg: ExperimentConfig, *, N: int, H: int, device: DeviceLike = None,
+                         dtype=torch.float32) -> Tuple[PaperSetup, RawNominalTheta, RawAuxTheta]:
+    """config_setup of ``cfg`` with adaptation.adapt_nominal: true, as the CLI runs it:
+    the generic loop's coupled chain (setup.cfg.adapt_nominal, reg the file's ilqr_reg)
+    from the file's numbers taken as raw θ̄ and θ (runners.raw_thetas): (setup, raw θ̄,
+    raw θ)."""
+    from .runners import raw_thetas
+
+    cfg = dataclasses.replace(
+        cfg, use_float64=resolve_dtype(dtype) == torch.float64,
+        adaptation=dataclasses.replace(cfg.adaptation, adapt_nominal=True))
+    setup = config_setup(cfg, N=N, H=H, device=device, dtype=dtype)
+    return (setup, *raw_thetas(cfg, setup.x0.device))
+
+
+def _family_config(name: str, adapt_nominal: bool = False) -> ExperimentConfig:
+    """configs/<name>.yaml with adaptation.adapt_nominal set to ``adapt_nominal``."""
+    if name not in FAMILY_NAMES:
+        raise ValueError(f"no paper setup for {name!r}; have {sorted(FAMILY_NAMES)}")
+    cfg = load_config(str(CONFIGS / f"{name}.yaml"))
+    return dataclasses.replace(
+        cfg, adaptation=dataclasses.replace(cfg.adaptation, adapt_nominal=adapt_nominal))
 
 
 def family_paper_setup(
@@ -195,7 +222,7 @@ def family_paper_setup(
     utils.config.load_config and built in paper mode (reg 1e-6, and the file's tol,
     alphas, iteration caps, weights, eps and adaptation; x0 from the file or the
     registry's default_x0), with N and H replaced."""
-    return _family_setup(name, N=N, H=H, device=device, dtype=dtype, adapt_nominal=False)[0]
+    return config_setup(_family_config(name), N=N, H=H, device=device, dtype=dtype)
 
 
 def family_coupled_setup(
@@ -206,11 +233,5 @@ def family_coupled_setup(
     device: DeviceLike = None,
     dtype=torch.float32,
 ) -> Tuple[PaperSetup, RawNominalTheta, RawAuxTheta]:
-    """configs/<name>.yaml with adaptation.adapt_nominal: true, as the CLI runs it: the
-    generic loop's coupled chain (setup.cfg.adapt_nominal, reg the file's ilqr_reg) from
-    the file's numbers taken as raw θ̄ and θ (runners.raw_thetas), with N and H replaced:
-    (setup, raw θ̄, raw θ)."""
-    from .runners import raw_thetas
-
-    setup, cfg = _family_setup(name, N=N, H=H, device=device, dtype=dtype, adapt_nominal=True)
-    return (setup, *raw_thetas(cfg, setup.x0.device))
+    """config_coupled_setup of configs/<name>.yaml."""
+    return config_coupled_setup(_family_config(name), N=N, H=H, device=device, dtype=dtype)

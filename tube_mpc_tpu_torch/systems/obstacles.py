@@ -5,8 +5,8 @@ the single-obstacle aggregations.
 This is the ``logsumexp`` form that the closed loop's propagation uses
 (``aug.f_hat`` and ``aug.init_b0``). The lane kernels use the min-shifted
 component form of ops/lanes.py instead; the two agree only to rounding and are
-kept apart on purpose. The kernels take the smooth-min only; the other two are here
-so that a config that asks for them builds as in the JAX package, and
+kept apart on purpose. The kernels take the smooth-min and the min; 'single' is here so
+that a config that asks for it builds as in the JAX package, and
 utils/config.validate_for_engine refuses it before any kernel is built.
 """
 from __future__ import annotations

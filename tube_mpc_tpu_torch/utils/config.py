@@ -184,7 +184,9 @@ LANE_ENGINE_MAX_NU = 2
 
 def validate_for_engine(built: BuiltExperiment, engine: str) -> None:
     """Refuse, at build time and before any kernel is built, a configuration that the
-    engine does not take, with the ROADMAP.md item that would bring it."""
+    engine does not take: with the ROADMAP.md item that would bring it, or, for the
+    'single' aggregation, which neither package's lane engine runs, the JAX package's
+    reason."""
     if engine != "lanes":
         return
     nu = built.system.nu
@@ -195,18 +197,12 @@ def validate_for_engine(built: BuiltExperiment, engine: str) -> None:
             "The XLA engine that runs it is not ported yet (ROADMAP.md, queue A item 7)."
         )
     env = built.cfg.environment
-    if env.obstacles and env.obstacle_aggregation != "smoothmin":
+    if env.obstacles and env.obstacle_aggregation not in ("smoothmin", "min"):
         raise ValueError(
-            f"engine='lanes' takes the smooth-min obstacle aggregation only, not "
-            f"{env.obstacle_aggregation!r} (a singular environment.obstacle is 'single'; "
-            "a config with obstacles and no obstacle_aggregation gets 'min'): the 'min' "
-            "aggregation in the lane kernels is not ported yet (ROADMAP.md, queue B item 2)."
-        )
-    if built.cfg.dbas.barrier_type != "inverse":
-        raise ValueError(
-            f"engine='lanes' takes the inverse barrier only, not "
-            f"{built.cfg.dbas.barrier_type!r}: the log barrier in the lane kernels is not "
-            "ported yet (ROADMAP.md, queue B item 2)."
+            f"engine='lanes' takes the 'smoothmin' and 'min' obstacle aggregations, not "
+            f"{env.obstacle_aggregation!r} (a singular environment.obstacle is 'single'): "
+            f"unsupported aggregation for component form: {env.obstacle_aggregation} (the "
+            "JAX package's lane engine raises the same when it traces h)."
         )
 
 
