@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's lane paths on one NVIDIA card and check them.
+"""Drive the PyTorch/CUDA port's lane paths and its XLA engine on one NVIDIA card and
+check them.
 
     python3 chip_smoke.py            # from the repository root, on a machine with a card
 
@@ -73,6 +74,12 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              all of them beside the card's phases;
    loop64_dubins_min_log, loop64_cartpole_log_coupled: phases 4 and 5 on the Dubins
              min + log configuration's paper loop and the cart-pole log one's coupled loop;
+   xla64_paper, xla64_coupled: the feature-major (XLA) engine (tube/closed_loop.py, batched
+             PyTorch operations; the JAX package's XLA path reaches no pl.pallas_call, so it
+             has no kernel here) on phases 4's and 5's setups (the coupled one with the
+             gradient clip off), f64 at B=256, N=50, H=5: the card against the same loop on
+             the CPU (a worker process) at tests/test_closed_loop.py:139-143's tolerances,
+             and against the lane engine's loop on the card at the lane tolerances;
 6. main:     the full-width paper path, B=16384, N=50, H=300 in f32, disturbances
              from a seeded torch.Generator on the card; every paper kernel must have
              launched in this run (the launch counts are set to 0 just before it), K3
@@ -92,6 +99,16 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    cli_minlog: the same on the four MINLOG configurations, each as derived and in its
              other mode (adapt_nominal flipped), so that every kernel of each library
              runs, each run's kernels launched from its own variant's libraries only;
+   xla:      the XLA engine at full width in f32 (B=16384): the Dubins paper loop (N=50)
+             and the cart-pole's coupled loop (its config's N=40), H cut to XLA_H (the cut is
+             printed): wall, ms and iLQR iterations a step, solves/s, peak memory,
+             finite_lane_frac (>= 0.99), the device's busy share over one profiled step, and
+             one timed nominal solve from zero controls (its iterations);
+   cli_xla:  python -m tube_mpc_tpu_torch.run_experiment --engine xla in-process on
+             configs/dubins.yaml as shipped (f32, --batch 1024) and with use_float64 and
+             adapt_nominal (--batch 64), H cut to XLA_CLI_H; run_nominal (H cut to
+             XLA_NOMINAL_H) and gradient_check at its defaults: artifacts, summary keys, the
+             f64 run's dtype;
 9. profile:  torch.profiler over five full-width steps of the Dubins paths: the device's
              busy share and the device time of each kernel variant and of PyTorch's
              own kernels.
@@ -210,6 +227,21 @@ COUPLED_LOOP_TOL = {  # tests/test_lane_generic.py:88-95, 219-225; the final raw
     "Q_hist": (1e-7, 1e-10), "R_hist": (1e-7, 1e-10), "qb_hist": (1e-7, 1e-10),
     "raw_aux": (1e-7, 1e-10), "raw_nom": (1e-7, 1e-10),
 }
+# The feature-major (XLA) engine, tube/closed_loop.py: batched PyTorch operations, no
+# kernel of its own. xla64: f64 loops at LOOP64_B, N, LOOP64_H on the card against the
+# CPU (the closed-loop tolerances of tests/test_closed_loop.py:139-143) and against the lane
+# engine on the card (LOOP_TOL, COUPLED_LOOP_TOL). xla: full width, f32, H cut to XLA_H so
+# that both runs take about a minute (a step is ~10^5 small operations). cli_xla: the CLIs
+# on the XLA engine, the experiment's H cut to XLA_CLI_H and run_nominal's to
+# XLA_NOMINAL_H.
+XLA_LOOP_TOL = {**{k: (1e-6, 1e-8) for k in ("x_real", "u_real", "x_bar", "u_bar", "b_real")},
+                **{k: (1e-5, 1e-8) for k in ("loss", "Q_hist", "R_hist", "qb_hist",
+                                              "raw_aux", "raw_nom")}}
+XLA_CASES = {"paper": SEED + 90, "coupled": SEED + 91}   # xla64's loops: their draws' seeds
+XLA_H = 3                      # ~3.2 s a paper step, ~0.8 s a cart-pole coupled step
+XLA_FAMILY = "cartpole"        # the xla phase's coupled loop: m = 1, Jacobians by autodiff
+XLA_CLI_H, XLA_NOMINAL_H = 2, 10
+
 # The systems whose f64 loop is chaotic over LOOP64_H steps: the cart-pole's swing-up (a
 # 1e-15 perturbation of its start and disturbances grows to O(1) within five steps on the
 # CPU alone). Only these are held by hold_loop64's rule for a chaotic loop.
@@ -582,6 +614,53 @@ def cpu_loop64(kind, family, H_=LOOP64_H, scale=1.0):
     return tree_map(lambda t: t.numpy(), out), time.perf_counter() - t0
 
 
+def xla64_case(torch, kind, where):
+    """(run, w) of xla64's f64 loop `kind` at LOOP64_B, N, LOOP64_H on `where`: run(engine)
+    runs it on the "xla" or the "lanes" engine, the generic loop's result as the lane
+    loop's (log, (raw θ, raw θ̄)). The paper loop is bench.py's setup; the coupled one
+    bench.py's BENCH_MODE=coupled with the gradient clip off, because the lane engine clips
+    the norm over every lane at once and the XLA engine each lane's own."""
+    from tube_mpc_tpu_torch.tube.closed_loop import run_generic_closed_loop, run_paper_closed_loop
+
+    f64 = torch.float64
+    gen = torch.Generator().manual_seed(XLA_CASES[kind])
+    if kind == "paper":
+        s = paper_setup("dubins", N, LOOP64_H, where, f64)
+        w = s.system.sample_disturbance(gen, (LOOP64_B, LOOP64_H), dtype=f64).to(where)
+
+        def run(engine):
+            if engine == "lanes":
+                return run_paper_loop(s, w, where)
+            return run_paper_closed_loop(
+                s.system, s.aug, s.cfg, w_nominal=s.w_nominal, aux_init=s.aux_init, bp=s.bp,
+                x0=s.x0, target=s.target, w_seq=w, device=where)
+        return run, w
+    s, cfg, raw_nom, raw_aux = coupled_setup(torch, LOOP64_H, where, f64)
+    cfg = dataclasses.replace(cfg, adapt=dataclasses.replace(cfg.adapt, grad_clip_norm=0.0))
+    w = s.system.sample_disturbance(gen, (LOOP64_B, LOOP64_H), dtype=f64).to(where)
+
+    def run(engine):
+        if engine == "lanes":
+            return run_coupled(s, cfg, raw_nom, raw_aux, w, where)
+        log_, (rn, ra) = run_generic_closed_loop(
+            s.system, s.aug, cfg, raw_nom_init=raw_nom, raw_aux_init=raw_aux, x0=s.x0,
+            target=s.target, w_seq=w, device=where)
+        return log_, (ra, rn)
+    return run, w
+
+
+def cpu_xla64(kind):
+    """The CPU's side of xla64: the XLA engine's f64 loop `kind`, in a worker process (its
+    result as numpy arrays, its seconds)."""
+    import torch
+
+    torch.set_num_threads(1)
+    run, _ = xla64_case(torch, kind, "cpu")
+    t0 = time.perf_counter()
+    out = run("xla")
+    return tree_map(lambda t: t.numpy(), out), time.perf_counter() - t0
+
+
 def loop_fields(out):
     """{field: tensor} of a loop's result: a ClosedLoopLog's fields [B, H, ...] and, for
     the generic loop's (log, (raw_aux, raw_nom)), the final raw leaves too."""
@@ -826,6 +905,255 @@ def cli_phase(torch, dev, t_start, phase="cli", runs=None):
     return counts
 
 
+# the XLA runner's population summary (tube_mpc_tpu/runners.py:166-180, and the port's
+# engine and dtype after mode)
+XLA_SUMMARY_KEYS = ["system", "mode", "engine", "dtype", "H", "N", "batch", "final_state",
+                    "final_barrier_state", "final_loss", "final_loss_mean", "final_loss_std",
+                    "final_loss_max", "wall_time_s", "solves_per_sec"]
+
+
+def device_rows(torch, prof):
+    """(device µs, launches, name) of every device-side event of a profile, largest first:
+    an aten op on the host also reports the device time of the kernels it launched, which
+    would count them twice."""
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us, e.count, e.key))
+    return sorted(rows, reverse=True)
+
+
+def xla_phase(torch, dev, t_start):
+    """Phase xla: the XLA engine at full width in f32, B lanes: the Dubins paper loop
+    (bench.py's setup, N) and XLA_FAMILY's coupled loop (its config with adapt_nominal, its
+    N), each XLA_H steps (the H cut), with its iterations a step (iLQR iterations of both
+    solves, counted at ilqr._linearize), wall, solves/s, peak memory and finite_lane_frac
+    (>= 0.99 required); the device's busy share and launches over one profiled paper step
+    (device activity only); and one nominal solve from the paper run's last states, its
+    iterations and time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tube_mpc_tpu_torch.presets import dubins_paper_setup, family_coupled_setup
+    from tube_mpc_tpu_torch.solvers import ilqr
+    from tube_mpc_tpu_torch.tube.closed_loop import run_generic_closed_loop, run_paper_closed_loop
+    from tube_mpc_tpu_torch.tube.problem import NominalTheta, expand_lanes, make_nominal_ocp
+    from tube_mpc_tpu_torch.utils.config import load_config
+
+    f32 = torch.float32
+    iterations = [0]
+    linearize = ilqr._linearize
+
+    def counted(*args):
+        iterations[0] += 1
+        return linearize(*args)
+
+    ps = dubins_paper_setup(N=N, H=XLA_H, device=dev, dtype=f32)
+    family_cfg = load_config(f"configs/{XLA_FAMILY}.yaml").system
+    Nc = family_cfg.horizon_N
+    fs, raw_nom, raw_aux = family_coupled_setup(XLA_FAMILY, N=Nc, H=XLA_H, device=dev, dtype=f32)
+
+    def paper(w, H_):
+        return run_paper_closed_loop(ps.system, ps.aug, dataclasses.replace(ps.cfg, H=H_),
+                                     w_nominal=ps.w_nominal, aux_init=ps.aux_init, bp=ps.bp,
+                                     x0=ps.x0, target=ps.target, w_seq=w, device=dev)
+
+    def coupled(w, H_):
+        return run_generic_closed_loop(fs.system, fs.aug, dataclasses.replace(fs.cfg, H=H_),
+                                       raw_nom_init=raw_nom, raw_aux_init=raw_aux, x0=fs.x0,
+                                       target=fs.target, w_seq=w, device=dev)[0]
+
+    x_last = None
+    for name, s, run, Nr, Hc, seed in (
+            ("paper", ps, paper, N, H, SEED + 93),
+            (f"{XLA_FAMILY}_coupled", fs, coupled, Nc, family_cfg.task_horizon_H, SEED + 94)):
+        w = s.system.sample_disturbance(torch.Generator(device=dev).manual_seed(seed),
+                                        (B, XLA_H), dtype=f32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        iterations[0] = 0
+        ilqr._linearize = counted
+        try:
+            t0 = time.perf_counter()
+            out = run(w, XLA_H)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        finally:
+            ilqr._linearize = linearize
+        finite = float(torch.isfinite(out.loss[:, -1]).float().mean())
+        log(f"[xla] {name}: B={B}, N={Nr}, H={XLA_H} (cut from {Hc}) f32: wall {elapsed:.3f} s, {1e3 * elapsed / XLA_H:.1f} ms a step, "
+            f"{iterations[0] / XLA_H:.1f} iLQR iterations a step (both solves), "
+            f"{2 * XLA_H * B / elapsed:.1f} solves/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, finite_lane_frac {finite!r}, "
+            f"final loss median {float(out.loss[:, -1].nanmedian())!r}")
+        nx = s.system.nx
+        if tuple(out.x_real.shape) != (B, XLA_H, nx) or tuple(out.loss.shape) != (B, XLA_H):
+            raise SystemExit(f"chip_smoke: xla {name}: the log has the wrong shapes")
+        if finite < 0.99 or iterations[0] == 0:
+            raise SystemExit(f"chip_smoke: xla {name}: finite_lane_frac {finite}, "
+                             f"{iterations[0]} iterations")
+        if x_last is None:
+            x_last = out.x_real[:, -1]
+        del out
+
+    # the device's busy share over one paper step at full width
+    w1 = ps.system.sample_disturbance(torch.Generator(device=dev).manual_seed(SEED + 95),
+                                      (B, 1), dtype=f32)
+    t0 = time.perf_counter()
+    paper(w1, 1)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        paper(w1, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(torch, prof)
+    busy = sum(r[0] for r in rows) / 1e6
+    launches = sum(r[1] for r in rows)
+    if not launches:
+        raise SystemExit("chip_smoke: xla: the profiler saw no device kernel")
+    log(f"[xla] profile: one paper step at B={B}, N={N}, f32: {plain_wall:.3f} s unprofiled, "
+        f"{wall:.3f} s profiled; device busy {busy:.3f} s ({busy / wall:.1%} of the profiled "
+        f"wall, {busy / plain_wall:.1%} of the unprofiled) over {launches} device kernels "
+        f"({1e6 * busy / max(launches, 1):.1f} us each on average, "
+        f"{1e6 * plain_wall / max(launches, 1):.1f} us of unprofiled wall each)")
+    for us, count, key in rows[:8]:
+        log(f"[xla] profile   {us / 1e3:10.3f} ms  x{count:<7d} {key[:100]}")
+
+    # a nominal solve from the lanes' last states of the paper run: its iterations, and its
+    # time beside the paper steps' time per iteration
+    ocp = make_nominal_ocp(ps.system, ps.aug, ps.target)
+    theta = NominalTheta(expand_lanes(ps.w_nominal, B), expand_lanes(ps.bp, B))
+    x_hat = torch.cat([x_last, ps.aug.init_b0(x_last, ps.bp)[:, None]], dim=-1)
+    U0 = torch.zeros((B, N, ps.system.nu), dtype=f32, device=dev)
+    torch.cuda.synchronize()
+    iterations[0] = 0
+    ilqr._linearize = counted
+    try:
+        t0 = time.perf_counter()
+        X_sol, U_sol = ilqr.ilqr_solve(ocp, ps.cfg.nominal_ilqr(), theta, x_hat, U0)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        ilqr._linearize = linearize
+    log(f"[xla] nominal solve from zero controls, B={B}, N={N}, f32: {1e3 * elapsed:.1f} ms, "
+        f"{iterations[0]} iterations (max_iter {ps.cfg.nominal_max_iter}), "
+        f"{1e3 * elapsed / max(iterations[0], 1):.1f} ms an iteration")
+    if iterations[0] == 0 or not (torch.isfinite(X_sol).all() and torch.isfinite(U_sol).all()):
+        raise SystemExit("chip_smoke: xla: the nominal solve ran no iteration or is not finite")
+    log(f"[xla] done at {time.perf_counter() - t_start:.0f} s")
+
+
+def cli_xla_phase(torch, dev, t_start):
+    """Phase cli_xla: the port's CLIs on the XLA engine, in-process (main(argv)) on the card:
+    python -m tube_mpc_tpu_torch.run_experiment --engine xla on configs/dubins.yaml as
+    shipped (f32, paper) at --batch 1024 and with use_float64: true and adapt_nominal:
+    true at --batch 64, both at H = XLA_CLI_H; python -m tube_mpc_tpu_torch.run_nominal on
+    dubins.yaml at H = XLA_NOMINAL_H (its receding horizon takes one solve a step); and
+    python -m tube_mpc_tpu_torch.gradient_check at its defaults (it shrinks dubins.yaml to
+    N=8, H=2, f64 itself). Artifacts, summary keys, the summary's dtype, finite numbers,
+    and gradient_check's finite difference and analytic hypergradient within a factor of 2
+    with the same sign (tests/test_gradient_check_cli.py's rule)."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import yaml
+
+    from tube_mpc_tpu_torch.gradient_check import main as gradient_check_main
+    from tube_mpc_tpu_torch.run_experiment import main as cli_main
+    from tube_mpc_tpu_torch.run_nominal import main as nominal_main
+    from tube_mpc_tpu_torch.utils.config import read_yaml
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_xla_")
+    problems = []
+    try:
+        shipped = read_yaml("configs/dubins.yaml")
+        coupled64 = dict(shipped, use_float64=True,
+                         adaptation=dict(shipped["adaptation"], adapt_nominal=True))
+        for name, raw, Bc, dtype, mode in (("dubins", shipped, 1024, "float32", "paper"),
+                                           ("dubins_f64_coupled", coupled64, 64, "float64",
+                                            "generic")):
+            raw = dict(raw, system=dict(raw["system"], task_horizon_H=XLA_CLI_H))
+            path = os.path.join(tmp, f"{name}.yaml")
+            with open(path, "w", encoding="utf-8") as f:
+                yaml.safe_dump(raw, f)
+            run_dir = os.path.join(tmp, name)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = cli_main(["--config", path, "--engine", "xla", "--batch", str(Bc),
+                            "--run-dir", run_dir])
+            elapsed = time.perf_counter() - t0
+            s = res["summary"]
+            log(f"[cli_xla] {name} (mode {s.get('mode')}, dtype {s.get('dtype')}): B={Bc}, "
+                f"N={raw['system']['horizon_N']}, H={XLA_CLI_H} (cut from 300): run "
+                f"{s.get('wall_time_s')!r} s, solves_per_sec {s.get('solves_per_sec')!r}, "
+                f"final_loss_mean {s.get('final_loss_mean')!r}; the call with its artifacts "
+                f"{elapsed:.3f} s, peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+            if list(s) != XLA_SUMMARY_KEYS:
+                problems.append(f"{name}: summary keys {list(s)}")
+            if s.get("dtype") != dtype or s.get("mode") != mode or s.get("engine") != "xla":
+                problems.append(f"{name}: dtype {s.get('dtype')}, mode {s.get('mode')}")
+            if not all(math.isfinite(s[k]) for k in ("solves_per_sec", "final_loss_mean")):
+                problems.append(f"{name}: {s}")
+            nx, nu = 3, 2
+            shapes = {"x_real": (XLA_CLI_H, nx), "u_real": (XLA_CLI_H, nu), "loss": (XLA_CLI_H,),
+                      "Qa_history": (XLA_CLI_H, nx), "x_real_batch": (Bc, XLA_CLI_H, nx),
+                      "loss_batch": (Bc, XLA_CLI_H)}
+            for art, shape in shapes.items():
+                got = np.load(os.path.join(run_dir, f"{art}.npy"))
+                if got.shape != shape or got.dtype != np.float64:
+                    problems.append(f"{name}: {art}.npy {got.shape} {got.dtype}")
+            for js in ("config_used.json", "results_summary.json"):
+                if not os.path.exists(os.path.join(run_dir, js)):
+                    problems.append(f"{name}: no {js}")
+            del res
+
+        raw = dict(shipped, out_dir=os.path.join(tmp, "nominal"),
+                   system=dict(shipped["system"], task_horizon_H=XLA_NOMINAL_H))
+        path = os.path.join(tmp, "nominal.yaml")
+        with open(path, "w", encoding="utf-8") as f:
+            yaml.safe_dump(raw, f)
+        t0 = time.perf_counter()
+        res = nominal_main(["--config", path])
+        s = res["summary"]
+        log(f"[cli_xla] run_nominal (receding): N={raw['system']['horizon_N']}, "
+            f"H={XLA_NOMINAL_H} (cut from 300), {time.perf_counter() - t0:.3f} s: {json.dumps(s)}")
+        if set(s) != {"system", "mode", "H_ran", "success", "success_t", "collided",
+                      "final_state"} or s["H_ran"] < 1 or s["collided"]:
+            problems.append(f"run_nominal: {s}")
+        for art in ("x_bar", "u_bar", "x_real", "u_real", "b_real", "loss"):
+            got = np.load(os.path.join(res["run_dir"], f"{art}.npy"))
+            if got.shape[0] != s["H_ran"] or not np.all(np.isfinite(got)):
+                problems.append(f"run_nominal: {art}.npy {got.shape}")
+
+        t0 = time.perf_counter()
+        gc_json = os.path.join(tmp, "gc.json")
+        r = gradient_check_main(["--config", "configs/dubins.yaml", "--json-out", gc_json])
+        log(f"[cli_xla] gradient_check (N=8, H=2, f64, 3 iterations): "
+            f"{time.perf_counter() - t0:.3f} s: {json.dumps(r)}")
+        fd, an = r["fd_dL_dQ0"], r["analytic_dL_dQ0"]
+        with open(gc_json, encoding="utf-8") as f:
+            if json.load(f) != r:
+                problems.append("gradient_check: --json-out differs from the result")
+        if not (all(math.isfinite(v) for v in r.values()) and fd != 0.0 and an != 0.0
+                and (fd < 0) == (an < 0) and 0.5 <= abs(an / fd) <= 2.0):
+            problems.append(f"gradient_check: {r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if problems:
+        raise SystemExit(f"chip_smoke: the XLA engine's CLI runs failed their checks: {problems}")
+    log(f"[cli_xla] done at {time.perf_counter() - t_start:.0f} s")
+
+
 def main() -> int:
     import torch
 
@@ -834,7 +1162,8 @@ def main() -> int:
         return 2
     # the CPU's f64 loops (loop64*) run in worker processes beside the card's phases; every
     # worker is stopped on the way out, whatever the phases did
-    workers = max(1, min(len(LOOP64_CASES) + 2 * len(CHAOTIC), (os.cpu_count() or 2) - 1))
+    workers = max(1, min(len(LOOP64_CASES) + 2 * len(CHAOTIC) + len(XLA_CASES),
+                         (os.cpu_count() or 2) - 1))
     pool = multiprocessing.get_context("spawn").Pool(workers)
     try:
         return run_phases(torch, pool)
@@ -868,6 +1197,7 @@ def run_phases(torch, pool) -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {name}: {kernel_label(line.strip())}")
     cpu_runs = {case: pool.apply_async(cpu_loop64, case) for case in LOOP64_CASES}
+    cpu_xla = {kind: pool.apply_async(cpu_xla64, (kind,)) for kind in XLA_CASES}
     # a chaotic loop's CPU side also with its start and disturbances times 1 + 1e-15
     cpu_perturbed = {(kind, family): pool.apply_async(cpu_loop64, (kind, family, LOOP64_H,
                                                                     1.0 + 1e-15))
@@ -1069,7 +1399,8 @@ def run_phases(torch, pool) -> int:
             if not record or dtype != torch.float32:
                 log(f"[{phase}] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back)")
                 continue
-            plain_ms = (device_time_ms(torch, lambda: plain(*inputs), plain_runs, warmup=1)
+            # the check's call just before is the plain version's warm-up
+            plain_ms = (device_time_ms(torch, lambda: plain(*inputs), plain_runs, warmup=0)
                         if plain_runs else plain_wall)
             out_bytes = sum(t.numel() * t.element_size() for t in got)
             in_bytes = sum(t.numel() * t.element_size() for t in inputs)
@@ -1203,6 +1534,30 @@ def run_phases(torch, pool) -> int:
     hold_loop64("loop64_cartpole_log_coupled", "coupled", "cartpole_log", COUPLED_LOOP_TOL)
     log(f"[loop64] all done at {time.perf_counter() - t_start:.0f} s")
 
+    # ---- xla64: the XLA engine's f64 loops on the card against the CPU and the lane engine
+    torch.set_float32_matmul_precision("highest")
+    for kind in XLA_CASES:
+        phase = f"xla64_{kind}"
+        run, _ = xla64_case(torch, kind, dev)
+        cpu_out, cpu_s = cpu_xla[kind].get()
+        t0 = time.perf_counter()
+        card = run("xla")
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        lanes = run("lanes")
+        torch.cuda.synchronize()
+        log(f"[{phase}] B={LOOP64_B}, N={N}, H={LOOP64_H} f64: {cpu_s:.1f} s on the cpu (a worker "
+            f"process), {t_card:.1f} s on {dev}")
+        lane_tol = LOOP_TOL if kind == "paper" else COUPLED_LOOP_TOL
+        bad = logged(phase, "card - cpu", loop_diffs(card, tree_map(torch.as_tensor, cpu_out),
+                                                     LOOP64_H, XLA_LOOP_TOL), XLA_LOOP_TOL)
+        bad += logged(phase, "xla - lanes, on the card,",
+                      loop_diffs(card, lanes, LOOP64_H, lane_tol), lane_tol)
+        if bad:
+            raise SystemExit(f"chip_smoke: {phase}: the XLA engine's f64 loop disagrees: {bad}")
+        del card, lanes
+    log(f"[xla64] done at {time.perf_counter() - t_start:.0f} s")
+
     # ---- 6. the full-width paper path ---------------------------------------------
     s = dubins_paper_setup(N=N, H=H, device=dev, dtype=torch.float32)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1322,6 +1677,10 @@ def run_phases(torch, pool) -> int:
         runs_of[variant] = [variant, f"{variant}_{mode}"]
         runs += list(zip(runs_of[variant], (raw, other)))
     minlog_counts = cli_phase(torch, dev, t_start, "cli_minlog", runs)
+
+    # ---- the XLA engine at full width, and its CLIs ------------------------------------
+    xla_phase(torch, dev, t_start)
+    cli_xla_phase(torch, dev, t_start)
 
     # ---- 9. where the time goes: torch.profiler over a few full-width steps ---------
     from torch.profiler import ProfilerActivity, profile

@@ -209,12 +209,12 @@ def test_lane_engine_refuses_what_the_kernels_do_not_take(what, monkeypatch, tmp
 
 
 def test_lane_engine_refuses_wide_control_spaces():
-    """nu > 2, as the JAX package refuses it (tests/test_configs.py), naming the item of
-    the engine that would run it."""
+    """nu > 2, as the JAX package refuses it (tests/test_configs.py), naming the engine
+    that runs it, which takes it."""
     fake = types.SimpleNamespace(
         system=types.SimpleNamespace(nu=3),
         cfg=types.SimpleNamespace(system=types.SimpleNamespace(name="wide_arm")))
-    with pytest.raises(ValueError, match=r"nu <= 2.*queue A item 7"):
+    with pytest.raises(ValueError, match=r"nu <= 2.*Use --engine xla"):
         pcfg.validate_for_engine(fake, "lanes")
     with pytest.raises(ValueError, match="nu <= 2"):
         jcfg.validate_for_engine(fake, "lanes")

@@ -98,6 +98,16 @@ def test_entry_point_modules_are_held_by_the_no_jax_rule():
             "runners.py", "run_experiment.py"} <= held
 
 
+def test_xla_engine_modules_are_held_by_the_no_jax_rule():
+    """The no-JAX rule above covers the feature-major (XLA) engine's modules and the two
+    CLIs that run on it."""
+    held = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    assert {"ops/linalg.py", "solvers/ocp.py", "solvers/ilqr.py", "solvers/sensitivity.py",
+            "solvers/ift.py", "solvers/weight_grads.py", "solvers/diff_ilqr.py",
+            "tube/problem.py", "tube/closed_loop.py", "run_nominal.py",
+            "gradient_check.py"} <= held
+
+
 def test_package_imports_without_nvcc_and_builds_nothing():
     """Every module imports in a process whose PATH holds no nvcc, and importing
     builds no kernel."""
@@ -459,3 +469,50 @@ def test_generic_lane_state_round_trip(jax_setup):
     for f in ("raw_aux", "vel_aux", "raw_nom", "vel_nom"):
         for g, v in getattr(mine, f)._asdict().items():
             np.testing.assert_array_equal(v.numpy(), d[f][g])
+
+
+def test_xla_values_round_trip():
+    """The XLA engine's parameters and loop states carried across from numpy: every leaf
+    as given, in the asked dtype, on the asked device."""
+    from tube_mpc_tpu_torch import convert
+    from tube_mpc_tpu_torch.tube.closed_loop import GenericLoopState, PaperLoopState
+
+    rng = np.random.default_rng(2)
+    B, N = 2, 4
+    w = {k: rng.normal(size=(B, d) if d else (B,)) for k, d in (("Q", 3), ("R", 2), ("Qf", 3),
+                                                               ("qb", 0))}
+    bp = {k: rng.normal(size=(B,)) for k in ("alpha", "gamma", "tight")}
+    adapt = {k: w[k] for k in ("Q", "R", "qb")}
+    arrays = dict(x=rng.normal(size=(B, 3)), b=rng.normal(size=B), x_bar=rng.normal(size=(B, 3)),
+                  b_bar=rng.normal(size=B), U_nom_ws=rng.normal(size=(B, N, 2)),
+                  U_aux_ws=rng.normal(size=(B, N, 2)))
+    raw_aux = dict(Q_raw=w["Q"], R_raw=w["R"], Qf_raw=w["Qf"], qb_raw=w["qb"],
+                   alpha_raw=bp["alpha"], gamma_raw=bp["gamma"])
+    raw_nom = dict(raw_aux, tight_raw=bp["tight"])
+
+    def same(tree, ref):
+        if isinstance(tree, tuple):
+            for name, v in zip(tree._fields, tree):
+                same(v, ref[name])
+        else:
+            assert tree.dtype == torch.float64 and tree.device.type == "cpu"
+            np.testing.assert_array_equal(tree.numpy(), ref)
+
+    cw = convert.cost_weights_from_numpy(w, "cpu", torch.float64)
+    same(cw, w)
+    same(convert.barrier_params_from_numpy(bp, "cpu", torch.float64), bp)
+    same(convert.aux_adapt_from_numpy(adapt, "cpu", torch.float64), adapt)
+    same(convert.nominal_theta_from_numpy(dict(w=w, bp=bp), "cpu", torch.float64),
+         dict(w=w, bp=bp))
+    aux = dict(w=w, bp=bp, X_ref=rng.normal(size=(B, N + 1, 3)), U_ref=rng.normal(size=(B, N, 2)))
+    same(convert.aux_theta_from_numpy(aux, "cpu", torch.float64), aux)
+    paper = dict(arrays, adapt=adapt, vel=adapt)
+    state = convert.paper_state_from_numpy(paper, "cpu", torch.float64)
+    assert isinstance(state, PaperLoopState)
+    same(state, paper)
+    generic = dict(arrays, raw_nom=raw_nom, raw_aux=raw_aux, vel_nom=raw_nom, vel_aux=raw_aux)
+    state = convert.generic_state_from_numpy(generic, "cpu", torch.float64)
+    assert isinstance(state, GenericLoopState)
+    same(state, generic)
+    f32 = convert.cost_weights_from_numpy(w, "cpu", torch.float32)
+    assert f32.Q.dtype == torch.float32

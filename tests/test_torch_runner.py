@@ -11,7 +11,8 @@ CPU.
   that to 2e-4 of the cart-pole's controls (measured); the summaries carry the same keys.
 - The runner's artifacts bitwise against a direct call of the port's loop on the same
   built objects.
-- The CLI writes every artifact, and refuses the flags whose feature is not ported.
+- The CLI writes every artifact, and refuses the flags whose feature is not ported (and
+  --compact-caps on the XLA engine, as the root CLI's runner does).
 """
 import copy
 import json
@@ -152,8 +153,8 @@ def test_runner_draws_seeded_disturbances_and_refuses_what_it_does_not_run(tmp_p
     with pytest.raises(ValueError, match="don't pass w_seq"):
         runners.run_experiment(cfg, str(tmp_path / "c"), batch=2,
                                w_seq=np.zeros((H, 4), np.float32), device="cpu")
-    with pytest.raises(ValueError, match="queue A item 7"):
-        runners.run_experiment(cfg, str(tmp_path / "c"), engine="xla", device="cpu")
+    with pytest.raises(ValueError, match="unknown engine 'pallas'"):
+        runners.run_experiment(cfg, str(tmp_path / "c"), engine="pallas", device="cpu")
 
 
 def test_runner_forces_f32_and_checks_finiteness_when_asked(tmp_path, monkeypatch):
@@ -205,7 +206,8 @@ def test_cli_writes_every_artifact(tmp_path, capsys):
     (["--checkpoint-every", "5"], "--checkpoint-every: .*queue A item 5"),
     (["--profile", "trace"], "--profile: .*queue A item 8"),
     (["--plot"], "--plot: plotting.*queue A item 4"),
-    (["--engine", "xla"], "--engine xla is not ported yet.*queue A item 7"),
+    (["--engine", "xla", "--compact-caps", "1,4,8"], "--compact-caps: compact_caps is a "
+                                                      "lanes-engine feature"),
     (["plot: true"], "plot: true in .*queue A item 4"),
 ])
 def test_cli_refuses_flags_whose_feature_is_not_ported(argv, match, tmp_path, capsys):

@@ -1,9 +1,10 @@
-"""Carry a setup and a closed-loop state across from numpy.
+"""Carry a setup, parameters and a closed-loop state across from numpy.
 
 The JAX package's objects reach the port as numpy arrays and Python numbers (for
 example ``np.asarray`` of each leaf of a paper setup, Dubins' or a family's), so both
 packages can run on the same numbers. Containers may be mappings or objects with the same
-attribute names.
+attribute names (a JAX named tuple of numpy leaves is one). The JAX feature-major (XLA)
+states are per scenario; stack them along a new first axis (B lanes) before.
 """
 from __future__ import annotations
 
@@ -18,9 +19,15 @@ from .ops.costs import CostWeights
 from .ops.dbas import BarrierParams
 from .presets import PaperSetup, build_dubins_setup, build_family_setup
 from .systems.dubins import DubinsConfig
-from .tube.closed_loop import TubeMPCConfig
+from .tube.closed_loop import (
+    GenericLoopState,
+    NominalRecedingState,
+    PaperLoopState,
+    TubeMPCConfig,
+)
 from .tube.lane_closed_loop import GenericLaneState, LaneLoopState
 from .tube.params import AdaptConfig, AuxAdapt, RawAuxTheta, RawNominalTheta
+from .tube.problem import AuxTheta, NominalTheta
 
 
 def _get(obj: Any, key: str) -> Any:
@@ -171,3 +178,83 @@ def generic_lane_state_from_numpy(d: Any, device: DeviceLike = None,
         raw_nom=raw_nom_from_numpy(_get(d, "raw_nom"), dev, dtype),
         vel_nom=raw_nom_from_numpy(_get(d, "vel_nom"), dev, dtype),
     )
+
+
+def _tensor_fn(device: DeviceLike, dtype):
+    dev = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    return lambda v: torch.tensor(np.array(v), dtype=dtype, device=dev)
+
+
+def cost_weights_from_numpy(d: Any, device: DeviceLike = None, dtype=torch.float32) -> CostWeights:
+    """CostWeights from ``d`` with Q, R, Qf, qb."""
+    t = _tensor_fn(device, dtype)
+    return CostWeights(*(t(_get(d, f)) for f in CostWeights._fields))
+
+
+def barrier_params_from_numpy(d: Any, device: DeviceLike = None,
+                              dtype=torch.float32) -> BarrierParams:
+    """BarrierParams from ``d`` with alpha, gamma, tight."""
+    t = _tensor_fn(device, dtype)
+    return BarrierParams(*(t(_get(d, f)) for f in BarrierParams._fields))
+
+
+def aux_adapt_from_numpy(d: Any, device: DeviceLike = None, dtype=torch.float32) -> AuxAdapt:
+    """AuxAdapt from ``d`` with Q, R, qb."""
+    t = _tensor_fn(device, dtype)
+    return AuxAdapt(*(t(_get(d, f)) for f in AuxAdapt._fields))
+
+
+def nominal_theta_from_numpy(d: Any, device: DeviceLike = None,
+                             dtype=torch.float32) -> NominalTheta:
+    """NominalTheta from ``d`` with w{Q, R, Qf, qb} and bp{alpha, gamma, tight}."""
+    return NominalTheta(w=cost_weights_from_numpy(_get(d, "w"), device, dtype),
+                        bp=barrier_params_from_numpy(_get(d, "bp"), device, dtype))
+
+
+def aux_theta_from_numpy(d: Any, device: DeviceLike = None, dtype=torch.float32) -> AuxTheta:
+    """AuxTheta from ``d`` with w, bp (as nominal_theta_from_numpy), X_ref and U_ref."""
+    t = _tensor_fn(device, dtype)
+    return AuxTheta(w=cost_weights_from_numpy(_get(d, "w"), device, dtype),
+                    bp=barrier_params_from_numpy(_get(d, "bp"), device, dtype),
+                    X_ref=t(_get(d, "X_ref")), U_ref=t(_get(d, "U_ref")))
+
+
+_STATE_ARRAYS = ("x", "b", "x_bar", "b_bar", "U_nom_ws", "U_aux_ws")
+
+
+def paper_state_from_numpy(d: Any, device: DeviceLike = None,
+                           dtype=torch.float32) -> PaperLoopState:
+    """PaperLoopState from ``d`` with x, b, x_bar, b_bar, U_nom_ws, U_aux_ws, adapt{Q, R,
+    qb} and vel{Q, R, qb}, each with the lanes in front."""
+    t = _tensor_fn(device, dtype)
+    return PaperLoopState(*(t(_get(d, f)) for f in _STATE_ARRAYS),
+                          adapt=aux_adapt_from_numpy(_get(d, "adapt"), device, dtype),
+                          vel=aux_adapt_from_numpy(_get(d, "vel"), device, dtype))
+
+
+def generic_state_from_numpy(d: Any, device: DeviceLike = None,
+                             dtype=torch.float32) -> GenericLoopState:
+    """GenericLoopState from ``d`` with the arrays of paper_state_from_numpy and raw_nom,
+    raw_aux, vel_nom, vel_aux (the raw θ̄ and θ fields)."""
+    t = _tensor_fn(device, dtype)
+    return GenericLoopState(
+        *(t(_get(d, f)) for f in _STATE_ARRAYS),
+        raw_nom=raw_nom_from_numpy(_get(d, "raw_nom"), device, dtype),
+        raw_aux=raw_aux_from_numpy(_get(d, "raw_aux"), device, dtype),
+        vel_nom=raw_nom_from_numpy(_get(d, "vel_nom"), device, dtype),
+        vel_aux=raw_aux_from_numpy(_get(d, "vel_aux"), device, dtype))
+
+
+def nominal_receding_state_from_numpy(d: Any, device: DeviceLike = None,
+                                      dtype=torch.float32) -> NominalRecedingState:
+    """NominalRecedingState from ``d`` with t, x, b, U_ws (in dtype), done, success,
+    collided (bool) and success_t (int64): the JAX receding scan's carry (t, x, b, U_ws,
+    done, success, success_t, collided), each with the lanes in front but t."""
+    dev = resolve_device(device)
+    t = _tensor_fn(dev, dtype)
+    as_ = lambda f, kind: torch.tensor(np.array(_get(d, f)), dtype=kind, device=dev)
+    return NominalRecedingState(
+        t=as_("t", torch.int64), x=t(_get(d, "x")), b=t(_get(d, "b")), U_ws=t(_get(d, "U_ws")),
+        done=as_("done", torch.bool), success=as_("success", torch.bool),
+        success_t=as_("success_t", torch.int64), collided=as_("collided", torch.bool))

@@ -1,5 +1,5 @@
-"""Relaxed inverse and log barriers and their derivatives (port of
-tube_mpc_tpu/ops/barrier.py:23-79).
+"""Relaxed inverse and log barriers, their derivatives and the barrier-state step (port of
+tube_mpc_tpu/ops/barrier.py:23-117).
 
 Every function broadcasts over leading dims. ``alpha`` is a runtime tensor (or
 number); ``eps`` and ``barrier_type`` are Python constants. The arithmetic keeps
@@ -123,3 +123,22 @@ def barrier_dalpha(zeta: Tensor, alpha, *, barrier_type: str = "inverse",
     d_quad = (d_diff * (2.0 * diff)) / a3 + ((-(da * (3.0 * aa))) * (diff * diff)) * (1.0 / (a3 * a3))
     d_unsafe = (d_inv - d_lin) + d_quad
     return torch.where(zeta >= a, torch.zeros_like(d_unsafe), d_unsafe)
+
+
+def dbas_step(x: Tensor, u: Tensor, b: Tensor, *, f: Callable[[Tensor, Tensor], Tensor],
+              h: Callable[[Tensor], Tensor], alpha, gamma, barrier_type: str = "inverse",
+              eps: float = 1e-12) -> Tuple[Tensor, Tensor]:
+    """One DBaS-augmented step: x⁺ = f(x, u), b⁺ = B(h(x⁺)) - γ (B(h(x)) - b); x [..., nx],
+    u [..., nu], b [...] -> (x⁺, b⁺)."""
+    x_next = f(x, u)
+    b_next_barrier = barrier_value(h(x_next), alpha, barrier_type=barrier_type, eps=eps)
+    b_curr_barrier = barrier_value(h(x), alpha, barrier_type=barrier_type, eps=eps)
+    gamma = _as(gamma, b_next_barrier)
+    b_next = b_next_barrier - gamma * (b_curr_barrier - b)
+    return x_next, b_next
+
+
+def dbas_init_b0(x0: Tensor, *, h: Callable[[Tensor], Tensor], alpha,
+                 barrier_type: str = "inverse", eps: float = 1e-12) -> Tensor:
+    """b_0 = B(h(x_0))."""
+    return barrier_value(h(x0), alpha, barrier_type=barrier_type, eps=eps)

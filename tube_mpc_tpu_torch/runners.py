@@ -1,10 +1,14 @@
-"""Experiment runner: config -> lane closed loop -> run-dir artifacts (port of the lane
-engine's branch of tube_mpc_tpu/runners.py:28-65, 196-371).
+"""Experiment runners: config -> closed loop -> run-dir artifacts (port of
+tube_mpc_tpu/runners.py:28-488).
 
-``run_experiment`` runs a config's closed loop on the lane kernels, on the card unless
-the caller asks for the CPU (where the kernels' plain versions run), and writes the JAX
-package's artifacts and summary. Paper mode is paper_dubins_mode and not adapt_nominal;
-otherwise the generic loop runs, and adapt_nominal selects its coupled bilevel chain.
+``run_experiment`` runs a config's closed loop on one of two engines, on the card unless
+the caller asks for the CPU, and writes the JAX package's artifacts and summary:
+- engine="lanes": the lane kernels (their plain versions on the CPU), always f32;
+- engine="xla": the feature-major solvers (tube/closed_loop.py) as batched PyTorch
+  operations, in the config's dtype (use_float64 is honoured).
+Paper mode is paper_dubins_mode and not adapt_nominal; otherwise the generic loop runs,
+and adapt_nominal selects its coupled bilevel chain. ``run_nominal`` and
+``run_nominal_single`` are the nominal-only receding horizon and single solve.
 """
 from __future__ import annotations
 
@@ -17,7 +21,13 @@ import numpy as np
 import torch
 
 from .device import DeviceLike
-from .tube.closed_loop import ClosedLoopLog
+from .systems.obstacles import h_min
+from .tube.closed_loop import (
+    ClosedLoopLog,
+    run_generic_closed_loop,
+    run_nominal_receding,
+    run_paper_closed_loop,
+)
 from .tube.lane_closed_loop import run_generic_closed_loop_lanes, run_paper_closed_loop_lanes
 from .tube.params import RawAuxTheta, RawNominalTheta
 from .utils.config import (
@@ -51,39 +61,36 @@ def raw_thetas(cfg: ExperimentConfig, device: torch.device) -> Tuple[RawNominalT
 def run_experiment(cfg: ExperimentConfig, run_dir: str, *, w_seq=None,
                    batch: Optional[int] = None, engine: str = "lanes",
                    device: DeviceLike = None) -> Dict[str, Any]:
-    """Closed-loop adaptive tube MPC on the lane kernels; returns {"summary", "log"} (the
-    summary also written to run_dir). Runs on the card unless device='cpu'.
+    """Closed-loop adaptive tube MPC; returns {"summary", "log"} (the summary also written
+    to run_dir). Runs on the card unless device='cpu'.
 
-    Always float32, as the JAX lane engine: a use_float64 config is rebuilt at f32 and
-    the summary's dtype says so. Disturbances are ``w_seq`` ([H, nx] or [B, H, nx]), or
-    else drawn for ``batch`` lanes (default 1) from a torch.Generator on the run's device
-    seeded with cfg.seed. That draw is not the JAX runner's jax.random.PRNGKey(cfg.seed)
-    draw, which the port cannot replay: the same config gives other disturbances, and
-    so another run, than the JAX package's unless w_seq is passed. Lane 0 is saved as the
-    single-run artifacts; with more than one lane, every field also as <field>_batch.npy.
+    engine="lanes" is always float32, as the JAX lane engine: a use_float64 config is
+    rebuilt at f32 and the summary's dtype says so. engine="xla" runs in the config's
+    dtype. Disturbances are ``w_seq`` ([H, nx] or [B, H, nx]), or else drawn for ``batch``
+    lanes (default 1) from a torch.Generator on the run's device seeded with cfg.seed.
+    That draw is not the JAX runner's jax.random.PRNGKey(cfg.seed) draw, which the port
+    cannot replay: the same config gives other disturbances, and so another run, than the
+    JAX package's unless w_seq is passed. Lane 0 is saved as the single-run artifacts;
+    with more than one lane, every field also as <field>_batch.npy.
     """
-    if engine == "xla":
-        raise ValueError("engine='xla' is not ported yet (ROADMAP.md, queue A item 7); "
-                         "the port runs the lane engine, engine='lanes'")
-    if engine != "lanes":
-        raise ValueError(f"unknown engine {engine!r} (the port runs 'lanes')")
+    if engine not in ("lanes", "xla"):
+        raise ValueError(f"unknown engine {engine!r} (xla or lanes)")
     B = int(batch) if batch else 0
     if B > 1 and w_seq is not None:
         raise ValueError("batch mode samples disturbances; don't pass w_seq")
-    if not cfg.adaptation.adapt_ancillary:
+    if engine == "lanes" and not cfg.adaptation.adapt_ancillary:
         raise ValueError(
             "adaptation.adapt_ancillary: false is refused: the lane loops always adapt the "
             "ancillary θ (the JAX lane loops ignore the key and adapt it anyway; ROADMAP.md, "
             "queue C)")
     paper_mode = cfg.paper_dubins_mode and not cfg.adaptation.adapt_nominal
-    forced_f32 = cfg.use_float64
+    forced_f32 = engine == "lanes" and cfg.use_float64
     if forced_f32:
         cfg = dataclasses.replace(cfg, use_float64=False)
     built = build_experiment(cfg, paper_mode=paper_mode, device=device)
-    validate_for_engine(built, "lanes")
+    validate_for_engine(built, engine)
     dev = built.device
 
-    sys_c = lane_components(cfg)
     draw: Dict[str, Any] = {}
     if w_seq is not None:
         w_seq = torch.as_tensor(np.asarray(w_seq), dtype=cfg.dtype, device=dev)
@@ -93,6 +100,11 @@ def run_experiment(cfg: ExperimentConfig, run_dir: str, *, w_seq=None,
     else:
         B = max(B, 1)
         draw = dict(generator=torch.Generator(device=dev).manual_seed(cfg.seed), batch=B)
+    if engine == "xla":
+        return _run_experiment_xla(cfg, built, run_dir, w_seq=w_seq, draw=draw, B=B,
+                                   paper_mode=paper_mode)
+
+    sys_c = lane_components(cfg)
     loop_kw = dict(x0=built.x0, target=built.target, w_seqs=w_seq, eps=cfg.dbas.eps,
                    barrier_type=cfg.dbas.barrier_type, device=dev, **draw)
 
@@ -111,6 +123,88 @@ def run_experiment(cfg: ExperimentConfig, run_dir: str, *, w_seq=None,
     wall = time.perf_counter() - t0
     return _finish_lanes(cfg, run_dir, log, wall, B=B, paper_mode=paper_mode,
                          forced_f32=forced_f32)
+
+
+def _run_experiment_xla(cfg: ExperimentConfig, built, run_dir: str, *, w_seq, draw,
+                        B: int, paper_mode: bool) -> Dict[str, Any]:
+    """The XLA engine's branch of run_experiment: the paper or generic loop of
+    tube/closed_loop.py over the B lanes, with debug_numerics' located checks armed;
+    B = 1 writes _finish_single's summary, B > 1 the population summary."""
+    dev = built.device
+    kw = dict(x0=built.x0, target=built.target, w_seq=w_seq, debug_checks=cfg.debug_numerics,
+              device=dev, **draw)
+    t0 = time.perf_counter()
+    if paper_mode:
+        log = run_paper_closed_loop(
+            built.system, built.aug, built.tube_cfg, w_nominal=built.w_nominal,
+            aux_init=built.aux_init, bp=built.bp, **kw)
+    else:
+        raw_nom, raw_aux = raw_thetas(cfg, dev)
+        log, _ = run_generic_closed_loop(
+            built.system, built.aug, built.tube_cfg, raw_nom_init=raw_nom,
+            raw_aux_init=raw_aux, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    mode = "paper" if paper_mode else "generic"
+
+    if cfg.debug_numerics:
+        check_finite_log(log)
+    if B == 1:
+        return _finish_single(cfg, run_dir, log, mode, wall)
+
+    H = cfg.system.task_horizon_H
+    os.makedirs(run_dir, exist_ok=True)
+    for name, arr in log._asdict().items():
+        np.save(os.path.join(run_dir, f"{name}_batch.npy"), as_float64(arr))
+    save_closed_loop_log(run_dir, ClosedLoopLog(*(leaf[0] for leaf in log)))
+    final_losses = as_float64(log.loss[:, -1])
+    summary = {
+        "system": cfg.system.name,
+        "mode": mode,
+        "engine": "xla",
+        "dtype": _dtype_name(cfg),
+        "H": H,
+        "N": cfg.system.horizon_N,
+        "batch": B,
+        "final_state": as_float64(log.x_real[0, -1]).tolist(),
+        "final_barrier_state": float(as_float64(log.b_real[0, -1])),
+        "final_loss": float(final_losses[0]),
+        "final_loss_mean": float(final_losses.mean()),
+        "final_loss_std": float(final_losses.std()),
+        "final_loss_max": float(final_losses.max()),
+        "wall_time_s": wall,
+        "solves_per_sec": 2 * H * B / wall,
+    }
+    save_json(run_dir, "results_summary.json", summary)
+    return {"summary": summary, "log": log}
+
+
+def _dtype_name(cfg: ExperimentConfig) -> str:
+    return "float64" if cfg.use_float64 else "float32"
+
+
+def _finish_single(cfg: ExperimentConfig, run_dir: str, log: ClosedLoopLog, mode: str,
+                   wall: float) -> Dict[str, Any]:
+    """One lane's artifacts and the JAX runner's single-run summary keys (and the port's
+    engine and dtype)."""
+    H = cfg.system.task_horizon_H
+    save_closed_loop_log(run_dir, ClosedLoopLog(*(leaf[0] for leaf in log)))
+    summary = {
+        "system": cfg.system.name,
+        "mode": mode,
+        "engine": "xla",
+        "dtype": _dtype_name(cfg),
+        "H": H,
+        "N": cfg.system.horizon_N,
+        "final_state": as_float64(log.x_real[0, -1]).tolist(),
+        "final_barrier_state": float(as_float64(log.b_real[0, -1])),
+        "final_loss": float(as_float64(log.loss[0, -1])),
+        "wall_time_s": wall,
+        "solves_per_sec": 2 * H / wall,
+    }
+    save_json(run_dir, "results_summary.json", summary)
+    return {"summary": summary, "log": log}
 
 
 def _finish_lanes(cfg: ExperimentConfig, run_dir: str, log: ClosedLoopLog, wall: float, *,
@@ -146,3 +240,78 @@ def _finish_lanes(cfg: ExperimentConfig, run_dir: str, log: ClosedLoopLog, wall:
     }
     save_json(run_dir, "results_summary.json", summary)
     return {"summary": summary, "log": log}
+
+
+def run_nominal_single(cfg: ExperimentConfig, run_dir: str, *, feasible_filter: bool = False,
+                       device: DeviceLike = None) -> Dict[str, Any]:
+    """One nominal solve from x0: the angle-wrapped OCP with the v = v_max warm start
+    (the first control at its upper bound), saving the plan as x_bar_single.npy and
+    u_bar_single.npy. feasible_filter: the strict-feasibility line-search filter."""
+    from .solvers.ilqr import ilqr_solve
+    from .tube.problem import NominalTheta, expand_lanes, make_nominal_ocp
+
+    built = build_experiment(cfg, paper_mode=False, device=device)
+    system, aug = built.system, built.aug
+    ocp = make_nominal_ocp(system, aug, built.target, angle_dims=system.angle_dims,
+                           feasible_h=feasible_filter)
+    theta = NominalTheta(w=expand_lanes(built.w_nominal, 1), bp=expand_lanes(built.bp, 1))
+    b0 = aug.init_b0(built.x0, built.bp)
+    x_hat0 = torch.cat([built.x0, b0[None]])[None]
+    U_ws = torch.zeros((1, cfg.system.horizon_N, system.nu), dtype=cfg.dtype, device=built.device)
+    U_ws[..., 0] = system.u_max[0]
+    X_hat, U = ilqr_solve(ocp, built.tube_cfg.nominal_ilqr(), theta, x_hat0, U_ws)
+    X_hat, U = X_hat[0], U[0]
+
+    x_plan = as_float64(X_hat[:, :system.nx])
+    u_plan = as_float64(U)
+    os.makedirs(run_dir, exist_ok=True)
+    np.save(os.path.join(run_dir, "x_bar_single.npy"), x_plan)
+    np.save(os.path.join(run_dir, "u_bar_single.npy"), u_plan)
+    summary = {
+        "system": cfg.system.name,
+        "mode": "nominal_only",
+        "N": cfg.system.horizon_N,
+        "x0": x_plan[0].tolist(),
+        "xN": x_plan[-1].tolist(),
+        "min_h_on_plan": (float(as_float64(system.h(X_hat[:, :system.nx])).min())
+                          if system.h is not None else None),
+    }
+    save_json(run_dir, "results_summary.json", summary)
+    return {"summary": summary, "X": X_hat, "U": U}
+
+
+def run_nominal(cfg: ExperimentConfig, run_dir: str, *,
+                device: DeviceLike = None) -> Dict[str, Any]:
+    """The nominal-only receding horizon with success/collision checks (the exact min
+    over the obstacles decides a collision); saves the live prefix of the run."""
+    built = build_experiment(cfg, paper_mode=False, device=device)
+    h_exact = None
+    if built.field is not None:
+        field = built.field
+        h_exact = lambda x: h_min(x, field)
+    res = run_nominal_receding(
+        built.system, built.aug, built.tube_cfg, w_nominal=built.w_nominal, bp=built.bp,
+        x0=built.x0, target=built.target, h_exact=h_exact,
+        angle_dims=built.system.angle_dims, device=built.device)
+
+    ran = as_float64(res.ran[0]) > 0
+    h_ran = int(ran.sum())
+    xs = as_float64(res.x[0])[:h_ran]
+    us = as_float64(res.u[0])[:h_ran]
+    bs = as_float64(res.b[0])[:h_ran]
+    os.makedirs(run_dir, exist_ok=True)
+    for name, arr in (("x_bar", xs), ("u_bar", us), ("x_real", xs), ("u_real", us),
+                      ("b_real", bs), ("loss", np.zeros((h_ran,), dtype=np.float64))):
+        np.save(os.path.join(run_dir, f"{name}.npy"), arr)
+    success_t = int(res.success_t[0])
+    summary = {
+        "system": cfg.system.name,
+        "mode": "nominal_receding",
+        "H_ran": h_ran,
+        "success": bool(res.success[0]),
+        "success_t": None if success_t >= cfg.system.task_horizon_H else success_t,
+        "collided": bool(res.collided[0]),
+        "final_state": xs[-1].tolist() if h_ran else as_float64(built.x0).tolist(),
+    }
+    save_json(run_dir, "results_summary.json", summary)
+    return {"summary": summary, "result": res}

@@ -1,5 +1,5 @@
-"""Cart-pole, batched (port of tube_mpc_tpu/systems/cartpole.py, the parts the lane
-closed loop uses: the step, h, the bounds, the target and the disturbance bounds).
+"""Cart-pole, batched (port of tube_mpc_tpu/systems/cartpole.py). Its Jacobians come from
+autodiff (System.jacobians: torch.func.jacfwd), as the JAX package takes them.
 
 State [x, xdot, th, thdot] (th = 0 upright), control [F]; Euler step of the
 underactuated cart-pole. Safety: the cart stays on the track, h(x) = x_lim² - x².
@@ -56,6 +56,9 @@ def make_cartpole(cfg: CartPoleConfig = CartPoleConfig(), *, device,
     def h(x: Tensor) -> Tensor:
         return x_lim**2 - x[..., 0] ** 2
 
+    def h_grad(x: Tensor) -> Tensor:
+        return torch.cat([(-2.0 * x[..., 0])[..., None], torch.zeros_like(x[..., 1:])], dim=-1)
+
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     return System(
         name="cartpole",
@@ -64,6 +67,7 @@ def make_cartpole(cfg: CartPoleConfig = CartPoleConfig(), *, device,
         nu=1,
         f=lambda x, u: cartpole_step(x, u, cfg=cfg),
         h=h,
+        h_grad=h_grad,
         u_min=t([-cfg.f_max]),
         u_max=t([cfg.f_max]),
         x_target=t(cfg.x_target),

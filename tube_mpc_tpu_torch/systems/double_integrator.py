@@ -1,6 +1,5 @@
 """2-D double integrator, batched (port of tube_mpc_tpu/systems/double_integrator.py,
-the parts the lane closed loop uses: the step, h, the bounds, the target and the
-disturbance bounds).
+with its constant analytic Jacobians).
 
 State [px, py, vx, vy], control [ax, ay]; position leads, so the circle obstacles'
 smooth-min h (systems/obstacles.py) applies unchanged.
@@ -32,6 +31,18 @@ def di_step(x: Tensor, u: Tensor, *, dt: float) -> Tensor:
     return torch.cat([p, v], dim=-1)
 
 
+def di_jac(x: Tensor, u: Tensor, *, dt: float) -> Tuple[Tensor, Tensor]:
+    """The constant A [..., 4, 4] and B [..., 4, 2]."""
+    batch = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
+    A = torch.eye(4, dtype=x.dtype, device=x.device)
+    A[0, 2] = dt
+    A[1, 3] = dt
+    B = torch.zeros((4, 2), dtype=x.dtype, device=x.device)
+    B[2, 0] = dt
+    B[3, 1] = dt
+    return A.expand(batch + (4, 4)), B.expand(batch + (4, 2))
+
+
 def make_double_integrator(
     cfg: DoubleIntegratorConfig = DoubleIntegratorConfig(),
     *,
@@ -42,14 +53,18 @@ def make_double_integrator(
     dtype=torch.float32,
 ) -> System:
     dt = float(cfg.dt)
-    h = make_h(obstacles, aggregation=aggregation, beta=beta) if obstacles is not None else None
+    h = h_grad = None
+    if obstacles is not None:
+        h, h_grad = make_h(obstacles, aggregation=aggregation, beta=beta)
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     return System(
         name="double_integrator",
         nx=4,
         nu=2,
         f=lambda x, u: di_step(x, u, dt=dt),
+        f_jac=lambda x, u: di_jac(x, u, dt=dt),
         h=h,
+        h_grad=h_grad,
         u_min=t([-cfg.a_max, -cfg.a_max]),
         u_max=t([cfg.a_max, cfg.a_max]),
         x_target=t(cfg.x_target),

@@ -1,4 +1,5 @@
-"""Dubins (unicycle) vehicle, batched (port of tube_mpc_tpu/systems/dubins.py:20-95)."""
+"""Dubins (unicycle) vehicle, batched, with analytic Jacobians (port of
+tube_mpc_tpu/systems/dubins.py:20-95)."""
 from __future__ import annotations
 
 import dataclasses
@@ -32,6 +33,22 @@ def dubins_step(x: Tensor, u: Tensor, *, dt: float) -> Tensor:
     )
 
 
+def dubins_jac(x: Tensor, u: Tensor, *, dt: float) -> Tuple[Tensor, Tensor]:
+    """A = df/dx [..., 3, 3], B = df/du [..., 3, 2]."""
+    th = x[..., 2]
+    v = u[..., 0]
+    c, s = torch.cos(th), torch.sin(th)
+    o = torch.ones_like(th)
+    z = torch.zeros_like(th)
+    A = torch.stack([torch.stack([o, z, -dt * v * s], dim=-1),
+                     torch.stack([z, o, dt * v * c], dim=-1),
+                     torch.stack([z, z, o], dim=-1)], dim=-2)
+    B = torch.stack([torch.stack([dt * c, z], dim=-1),
+                     torch.stack([dt * s, z], dim=-1),
+                     torch.stack([z, dt * o], dim=-1)], dim=-2)
+    return A, B
+
+
 def make_dubins(
     cfg: DubinsConfig = DubinsConfig(),
     *,
@@ -42,7 +59,9 @@ def make_dubins(
     dtype=torch.float32,
 ) -> System:
     dt = float(cfg.dt)
-    h = make_h(obstacles, aggregation=aggregation, beta=beta) if obstacles is not None else None
+    h = h_grad = None
+    if obstacles is not None:
+        h, h_grad = make_h(obstacles, aggregation=aggregation, beta=beta)
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     return System(
         name="dubins",
@@ -50,7 +69,9 @@ def make_dubins(
         nx=3,
         nu=2,
         f=lambda x, u: dubins_step(x, u, dt=dt),
+        f_jac=lambda x, u: dubins_jac(x, u, dt=dt),
         h=h,
+        h_grad=h_grad,
         u_min=t([cfg.v_min, -cfg.omega_max]),
         u_max=t([cfg.v_max, cfg.omega_max]),
         x_target=t(cfg.x_target),

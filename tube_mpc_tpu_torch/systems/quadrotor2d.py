@@ -1,6 +1,5 @@
-"""Planar quadrotor, batched (port of tube_mpc_tpu/systems/quadrotor2d.py, the parts
-the lane closed loop uses: the step, h, the bounds, the target and the disturbance
-bounds).
+"""Planar quadrotor, batched, with analytic Jacobians (port of
+tube_mpc_tpu/systems/quadrotor2d.py).
 
 State [px, pz, th, vx, vz, om], control [T1, T2] (rotor thrusts); Euler step of
 
@@ -52,6 +51,34 @@ def quad2d_step(x: Tensor, u: Tensor, *, cfg: Quadrotor2DConfig) -> Tensor:
     )
 
 
+def quad2d_jac(x: Tensor, u: Tensor, *, cfg: Quadrotor2DConfig) -> Tuple[Tensor, Tensor]:
+    """A = df/dx [..., 6, 6], B = df/du [..., 6, 2], in the JAX form's operation order."""
+    th = x[..., 2]
+    t1, t2 = u[..., 0], u[..., 1]
+    m, inertia, arm, dt = cfg.mass, cfg.inertia, cfg.arm, cfg.dt
+    s, c = torch.sin(th), torch.cos(th)
+    thrust = t1 + t2
+    o = torch.ones_like(th)
+    z = torch.zeros_like(th)
+    A = torch.stack([
+        torch.stack([o, z, z, dt * o, z, z], dim=-1),
+        torch.stack([z, o, z, z, dt * o, z], dim=-1),
+        torch.stack([z, z, o, z, z, dt * o], dim=-1),
+        torch.stack([z, z, -dt * thrust * c / m, o, z, z], dim=-1),
+        torch.stack([z, z, -dt * thrust * s / m, z, o, z], dim=-1),
+        torch.stack([z, z, z, z, z, o], dim=-1),
+    ], dim=-2)
+    B = torch.stack([
+        torch.stack([z, z], dim=-1),
+        torch.stack([z, z], dim=-1),
+        torch.stack([z, z], dim=-1),
+        torch.stack([-dt * s / m, -dt * s / m], dim=-1),
+        torch.stack([dt * c / m, dt * c / m], dim=-1),
+        torch.stack([-dt * arm / inertia * o, dt * arm / inertia * o], dim=-1),
+    ], dim=-2)
+    return A, B
+
+
 def make_quadrotor2d(
     cfg: Quadrotor2DConfig = Quadrotor2DConfig(),
     *,
@@ -61,7 +88,9 @@ def make_quadrotor2d(
     device,
     dtype=torch.float32,
 ) -> System:
-    h = make_h(obstacles, aggregation=aggregation, beta=beta) if obstacles is not None else None
+    h = h_grad = None
+    if obstacles is not None:
+        h, h_grad = make_h(obstacles, aggregation=aggregation, beta=beta)
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     return System(
         name="quadrotor2d",
@@ -69,7 +98,9 @@ def make_quadrotor2d(
         nx=6,
         nu=2,
         f=lambda x, u: quad2d_step(x, u, cfg=cfg),
+        f_jac=lambda x, u: quad2d_jac(x, u, cfg=cfg),
         h=h,
+        h_grad=h_grad,
         u_min=t([cfg.t_min, cfg.t_min]),
         u_max=t([cfg.t_max, cfg.t_max]),
         x_target=t(cfg.x_target),

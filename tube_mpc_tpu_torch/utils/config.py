@@ -5,7 +5,7 @@ The same YAML schema (``configs/dubins.yaml``) parses into the same validated da
 and ``build_experiment`` turns them into the port's objects (System, AugmentedDynamics,
 TubeMPCConfig, weights) on one device: the card unless the caller asks for the CPU.
 ``validate_for_engine`` refuses, before any kernel is built, what the lane kernels do
-not take.
+not take; the feature-major (XLA) engine takes every config.
 """
 from __future__ import annotations
 
@@ -194,7 +194,8 @@ def validate_for_engine(built: BuiltExperiment, engine: str) -> None:
         raise ValueError(
             f"engine='lanes' supports nu <= {LANE_ENGINE_MAX_NU} control dims (closed-form "
             f"Q_uu inverses in the lane kernels); system {built.cfg.system.name!r} has nu={nu}. "
-            "The XLA engine that runs it is not ported yet (ROADMAP.md, queue A item 7)."
+            "Use --engine xla for this system: it runs the same solver semantics on the "
+            "feature-major path."
         )
     env = built.cfg.environment
     if env.obstacles and env.obstacle_aggregation not in ("smoothmin", "min"):

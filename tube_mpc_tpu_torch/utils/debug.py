@@ -1,8 +1,17 @@
-"""Located finite check of a whole run (port of tube_mpc_tpu/utils/debug.py::check_finite_log,
-the reference's ``_ensure_finite`` for a run's outputs)."""
+"""Numerics debugging (port of tube_mpc_tpu/utils/debug.py:23-89): the reference's
+``_ensure_finite`` per phase and for a run's outputs, and its anomaly mode.
+
+- ``located_check``: the finite check of one phase. The JAX package threads it through its
+  jitted scan as a checkify check that ``run_checked`` surfaces; in eager PyTorch the
+  check runs where it stands and raises FloatingPointError naming the phase, so
+  ``run_checked`` is a plain call.
+- ``check_finite_log``: the post-hoc check of a run's outputs, leaf by leaf.
+- ``debug_nans``: the anomaly-mode switch (torch.autograd's anomaly detection, which
+  names the operation whose backward made a NaN).
+"""
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -37,3 +46,23 @@ def check_finite_log(tree: Any, *, name: str = "log") -> None:
                 f"[NUMERIC-FAIL] {name}{loc}: {bad} non-finite entries "
                 f"(finite range [{lo}, {hi}])"
             )
+
+
+def located_check(x, phase: str, enabled: bool = True):
+    """x, after raising FloatingPointError if it has a non-finite entry and the check is
+    enabled (a host read of the check's result)."""
+    if enabled and not bool(torch.all(torch.isfinite(x))):
+        raise FloatingPointError(
+            f"[NUMERIC-FAIL] non-finite value in {phase} (reference _ensure_finite "
+            "semantics; rerun with debug_nans for op-level location)")
+    return x
+
+
+def run_checked(fn: Callable, *args, **kwargs):
+    """Run ``fn`` with its located checks armed: they raise where they stand, so this is
+    the call itself (the JAX package's checkify transform has no eager counterpart)."""
+    return fn(*args, **kwargs)
+
+
+def debug_nans(enable: bool = True) -> None:
+    torch.autograd.set_detect_anomaly(enable, check_nan=True)
