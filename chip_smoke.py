@@ -89,6 +89,14 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              0 again just before it): K1 and K2 launched, each K5/K6 variant exactly
              H times, at least 99% of the lanes finite, and the nominal tightening
              moved on some lane (the coupled chain ran);
+   compact:  straggler compaction (lane_ilqr_solve's compact_caps) on the runs of phases 6
+             and 7, with bench.py's default caps (COMPACT_CAPS): every log field bitwise
+             equal to the uncompacted run's, the launches of K1 and K2 by width and the
+             compacted and full-width stages of each loop (at least one compacted stage in
+             all), the walls of both versions run uncompacted, compacted, compacted,
+             uncompacted (AB_ORDER); the paper loop once more through the step with
+             iter_telemetry (each lane's iterations a solve); K1 and K2 timed at the
+             stages' widths (COMPACT_WIDTHS);
    main_<family>: the full-width paper path of each family, B=16384, N=50, H=300 in f32
              (the counts set to 0 just before each): K1-K4 launched, K3 and K4 exactly
              H times, at least 99% of the lanes finite;
@@ -99,6 +107,12 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
    cli_minlog: the same on the four MINLOG configurations, each as derived and in its
              other mode (adapt_nominal flipped), so that every kernel of each library
              runs, each run's kernels launched from its own variant's libraries only;
+   cli_ckpt: the CLI with --checkpoint-every on configs/dubins.yaml and a coupled config at
+             --batch 16384, and on the XLA engine for one trajectory: run, killed after a
+             segment (its last files deleted) and resumed through --run-dir, its artifacts
+             bitwise those of the run without checkpoints;
+   cli_profile: the CLI with --profile on dubins.yaml at --batch 16384, H cut to
+             PROFILE_CLI_H: its trace must name the ric and fwd device kernels;
    xla:      the XLA engine at full width in f32 (B=16384): the Dubins paper loop (N=50)
              and the cart-pole's coupled loop (its config's N=40), H cut to XLA_H (the cut is
              printed): wall, ms and iLQR iterations a step, solves/s, peak memory,
@@ -241,6 +255,21 @@ XLA_CASES = {"paper": SEED + 90, "coupled": SEED + 91}   # xla64's loops: their 
 XLA_H = 3                      # ~3.2 s a paper step, ~0.8 s a cart-pole coupled step
 XLA_FAMILY = "cartpole"        # the xla phase's coupled loop: m = 1, Jacobians by autodiff
 XLA_CLI_H, XLA_NOMINAL_H = 2, 10
+
+# Straggler compaction (phase compact): bench.py's default caps of the ancillary solves
+# (bench.py:205-227), the paper loop's without a gradient clip and the coupled loop's; the
+# widths at which K1 and K2 are timed (the stages' at B, lane_solver.stage_widths).
+COMPACT_CAPS = {"paper": (2, 5, 8), "coupled": (1, 3, 5)}
+COMPACT_WIDTHS = (8192, 4096, 2048)
+# phase compact runs each loop uncompacted and compacted in this order, so that neither
+# version has the process's warm-up to itself
+AB_ORDER = ("uncompacted", "compacted", "compacted", "uncompacted")
+# Checkpoint and resume through the CLI (phase cli_ckpt): the segment of the lane runs, the
+# family whose config runs there in coupled mode, and the XLA run's H (one segment a step).
+CKPT_EVERY = 100
+CKPT_COUPLED = "double_integrator"
+XLA_CKPT_H = 2
+PROFILE_CLI_H = 3   # phase cli_profile: the traced CLI run's H (cut from 300)
 
 # The systems whose f64 loop is chaotic over LOOP64_H steps: the cart-pole's swing-up (a
 # 1e-15 perturbation of its start and disturbances grows to O(1) within five steps on the
@@ -546,24 +575,27 @@ def with_obstacles(pb, centers, eps):
     return make_lane_problem(sys_c, barrier_type=pb.barrier_type, eps=eps)
 
 
-def run_paper_loop(s, w, where):
-    """The paper loop of setup s under the disturbances w, on `where`."""
+def run_paper_loop(s, w, where, aux_caps=()):
+    """The paper loop of setup s under the disturbances w, on `where`, with the ancillary
+    solves' compaction caps `aux_caps`."""
     from tube_mpc_tpu_torch.tube.lane_closed_loop import run_paper_closed_loop_lanes
 
     return run_paper_closed_loop_lanes(
         s.system, s.aug, s.sys_c, s.cfg, w_nominal=s.w_nominal, aux_init=s.aux_init,
         bp=s.bp, x0=s.x0, target=s.target, w_seqs=w, eps=s.eps, barrier_type=s.barrier_type,
-        device=where)
+        device=where, aux_compact_caps=aux_caps)
 
 
-def run_coupled(s, cfg, raw_nom, raw_aux, w, where):
+def run_coupled(s, cfg, raw_nom, raw_aux, w, where, aux_caps=()):
     """The generic loop of coupled_setup's (s, cfg, raw θ̄, raw θ) under the disturbances w,
-    on `where`: (log, (raw θ, raw θ̄) at the end)."""
+    on `where`, with the ancillary solves' compaction caps `aux_caps`: (log, (raw θ, raw θ̄)
+    at the end)."""
     from tube_mpc_tpu_torch.tube.lane_closed_loop import run_generic_closed_loop_lanes
 
     return run_generic_closed_loop_lanes(
         s.system, s.aug, s.sys_c, cfg, raw_nom=raw_nom, raw_aux_init=raw_aux, x0=s.x0,
-        target=s.target, w_seqs=w, eps=s.eps, barrier_type=s.barrier_type, device=where)
+        target=s.target, w_seqs=w, eps=s.eps, barrier_type=s.barrier_type, device=where,
+        aux_compact_caps=aux_caps)
 
 
 # The f64 loops held on the card against the CPU (phases loop64*): (kind, family) -> the
@@ -1154,6 +1186,262 @@ def cli_xla_phase(torch, dev, t_start):
     log(f"[cli_xla] done at {time.perf_counter() - t_start:.0f} s")
 
 
+def bitwise(a, b) -> bool:
+    """Whether two tensors hold the same values, NaN where NaN."""
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def compact_phase(torch, dev, t_start, cases, paper_w):
+    """Phase compact: straggler compaction at full width (B=16384, N=50, H=300, f32), on
+    the paper loop with COMPACT_CAPS["paper"] and the coupled loop with
+    COMPACT_CAPS["coupled"], each against its uncompacted run (phases main and coupled):
+    every log field (and the coupled loop's final raw θ, θ̄) bitwise equal; the launches
+    of K1 and K2 by width and the loop's compacted and full-width stages (the counts set
+    to 0 just before each run); the walls of the two versions, run in the order AB_ORDER
+    (every run bitwise equal to the phase's uncompacted run). The paper loop runs again
+    through the step with iter_telemetry, compacted, for each lane's iterations a solve
+    (bitwise too). K1 and K2 are timed at COMPACT_WIDTHS. Fails unless a loop took a
+    compacted stage. `cases` is {kind: (run(caps) -> result, uncompacted result, its
+    wall)}; paper_w the paper runs' disturbances."""
+    from tube_mpc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from tube_mpc_tpu_torch.ops.cuda.lane_solver import lane_ilqr_solve, stage_widths
+    from tube_mpc_tpu_torch.presets import dubins_paper_setup
+    from tube_mpc_tpu_torch.tube.lane_closed_loop import (
+        make_paper_lane_step, paper_lane_init_state)
+    from tube_mpc_tpu_torch.tube.lane_interface import make_lane_problem
+
+    problems, compacted = [], 0
+    for kind, (run, ref, first_wall) in cases.items():
+        caps = COMPACT_CAPS[kind]
+        walls, stages, widths = [], None, None
+        for label in AB_ORDER:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = run(caps if label == "compacted" else ())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            got = loop_fields(out)
+            diffs = {f: bitwise(got[f], v) for f, v in loop_fields(ref).items()}
+            problems += [f"{kind} {label} run {len(walls)}: {f} differs"
+                         for f, ok in diffs.items() if not ok]
+            if not all(n for k, n in launch_counts().items() if k in ("ric", "fwd")):
+                problems.append(f"{kind} {label} run {len(walls)}: K1 or K2 not launched")
+            if label == "compacted" and stages is None:
+                stages = dict(lane_ilqr_solve.stages)
+                widths = {f"{k} at {b}": n for (k, b), n
+                          in sorted(launch_counts(by_width=True).items()) if k in ("ric", "fwd")}
+            log(f"[compact] {kind} run {len(walls)} ({label}): {walls[-1]!r} s, bitwise equal "
+                f"to phase {'main' if kind == 'paper' else kind}'s uncompacted run: "
+                f"{all(diffs.values())} ({len(diffs)} fields)")
+            del out, got
+        compacted += stages["compacted"]
+        mean = {lb: sum(t for t, o in zip(walls, AB_ORDER) if o == lb) / AB_ORDER.count(lb)
+                for lb in set(AB_ORDER)}
+        log(f"[compact] {kind}: B={B}, N={N}, H={H} f32, caps {caps} (stage widths "
+            f"{stage_widths(B, len(caps))}); walls in the order {'/'.join(AB_ORDER)}: "
+            f"{[round(t, 3) for t in walls]} s, mean {mean['compacted']!r} s compacted, "
+            f"{mean['uncompacted']!r} s uncompacted ({2 * H * B / mean['compacted']:.1f} and "
+            f"{2 * H * B / mean['uncompacted']:.1f} solves/s; the setup's first run, in its "
+            f"own phase, {first_wall:.3f} s); stages after the first cap: {json.dumps(stages)}; "
+            f"K1/K2 launches by width: {json.dumps(widths)}")
+
+    # the paper loop once more through the step with each lane's iterations (telemetry)
+    s = dubins_paper_setup(N=N, H=H, device=dev, dtype=torch.float32)
+    ref = cases["paper"][1]
+    pb = make_lane_problem(s.sys_c, barrier_type=s.barrier_type, eps=s.eps)
+    step = make_paper_lane_step(s.system, s.aug, pb, s.cfg, w_nominal=s.w_nominal, bp=s.bp,
+                                target=s.target, B=B, dtype=torch.float32, device=dev,
+                                iter_telemetry=True, aux_compact_caps=COMPACT_CAPS["paper"])
+    state = paper_lane_init_state(s.system, s.aug, s.cfg, aux_init=s.aux_init, bp=s.bp,
+                                  x0=s.x0, B=B, dtype=torch.float32)
+    logs = []
+    for t in range(H):
+        state, lg = step(state, paper_w[:, t])
+        logs.append(lg)
+    fields = [torch.stack(f, dim=1) for f in zip(*logs)]
+    same = all(bitwise(a, b) for a, b in zip(fields[:9], ref))
+    log(f"[compact] paper with iter_telemetry: bitwise equal to the uncompacted run: {same}")
+    if not same:
+        problems.append("paper with iter_telemetry differs")
+    for name, it in (("nominal", fields[9]), ("ancillary", fields[10])):
+        it = it.float()
+        log(f"[compact] paper {name} solve: per-lane iterations a solve mean {float(it.mean())!r}, "
+            f"max {int(it.max())}; the batch's iterations a solve (its most) mean "
+            f"{float(it.amax(dim=0).mean())!r}")
+    del logs, fields, state
+
+    # K1 and K2 at the compaction stages' widths, on a paper step's f32 inputs
+    pb, _, make, inputs, _ = paper_step(torch, dev, torch.float32)
+    fns = make(pb)
+    for name in ("ric", "fwd"):
+        kernel = fns[name][0]
+        times = {}
+        for W in (B,) + COMPACT_WIDTHS:
+            ins = tuple(t[..., :W].contiguous() for t in inputs[name])
+            times[W] = device_time_ms(torch, lambda: kernel(*ins), RUNS)
+        log(f"[compact] f32 {name} ms by width (mean of {RUNS} back to back): "
+            + ", ".join(f"{W}: {ms:.4f}" for W, ms in times.items()))
+    del inputs, fns
+    if compacted == 0:
+        problems.append("neither loop took a compacted stage")
+    if problems:
+        raise SystemExit(f"chip_smoke: compaction failed its checks: {problems}")
+    log(f"[compact] done at {time.perf_counter() - t_start:.0f} s")
+
+
+def same_artifacts(np, a, b):
+    """The files of run dir `a` that differ from `b`'s (every .npy bitwise, NaN where NaN;
+    the summary but for its times), or that one of them lacks."""
+    npys = {f for f in os.listdir(b) if f.endswith(".npy")}
+    bad = sorted(npys ^ {f for f in os.listdir(a) if f.endswith(".npy")})
+    for f in sorted(npys - set(bad)):
+        x, y = np.load(os.path.join(a, f)), np.load(os.path.join(b, f))
+        if x.shape != y.shape or not np.array_equal(x, y, equal_nan=True):
+            bad.append(f)
+    summaries = []
+    for d in (a, b):
+        with open(os.path.join(d, "results_summary.json"), encoding="utf-8") as fh:
+            summary = json.load(fh)
+        summaries.append({k: v for k, v in summary.items()
+                          if k not in ("wall_time_s", "solves_per_sec")})
+    if summaries[0] != summaries[1]:
+        bad.append("results_summary.json")
+    return bad
+
+
+def cli_ckpt_phase(torch, dev, t_start):
+    """Phase cli_ckpt: python -m tube_mpc_tpu_torch.run_experiment --checkpoint-every in-process
+    on the card, into a temporary directory that it then removes: configs/dubins.yaml
+    (paper) and CKPT_COUPLED's config with adaptation.adapt_nominal: true (coupled) at
+    --batch 16384 with --checkpoint-every CKPT_EVERY, at their own N and H, and dubins.yaml
+    on --engine xla for one trajectory at H = XLA_CKPT_H with a checkpoint each step. Each
+    runs without checkpoints, then with them (uninterrupted), then again with --run-dir
+    after its last segment is deleted (a run killed there): both checkpointed runs' artifacts
+    must be bitwise those of the run without checkpoints, and the lane runs must launch
+    K1 and K2, and their sensitivity kernels once a step run (the counts set to 0 just
+    before each run)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import yaml
+
+    from tube_mpc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from tube_mpc_tpu_torch.run_experiment import main as cli_main
+    from tube_mpc_tpu_torch.utils.checkpoint import _logs_path, latest_checkpoint
+    from tube_mpc_tpu_torch.utils.config import read_yaml
+
+    shipped = read_yaml("configs/dubins.yaml")
+    coupled = read_yaml(f"configs/{CKPT_COUPLED}.yaml")
+    coupled["adaptation"]["adapt_nominal"] = True
+    xla = dict(shipped, system=dict(shipped["system"], task_horizon_H=XLA_CKPT_H))
+    runs = [("dubins", shipped, ["--batch", str(B)], CKPT_EVERY),
+            (f"{CKPT_COUPLED}_coupled", coupled, ["--batch", str(B)], CKPT_EVERY),
+            ("dubins_xla", xla, ["--engine", "xla"], 1)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_ckpt_")
+    problems = []
+    try:
+        for name, raw, argv, every in runs:
+            path = os.path.join(tmp, f"{name}.yaml")
+            with open(path, "w", encoding="utf-8") as f:
+                yaml.safe_dump(raw, f)
+            Hc = raw["system"]["task_horizon_H"]
+            plain_dir, ck_dir = os.path.join(tmp, f"{name}_plain"), os.path.join(tmp, name)
+            walls, counts = {}, {}
+            for label, run_dir, more in (("without checkpoints", plain_dir, []),
+                                         ("checkpointed", ck_dir, ["--checkpoint-every", str(every)]),
+                                         ("resumed", ck_dir, ["--checkpoint-every", str(every)])):
+                if label == "resumed":
+                    last = latest_checkpoint(os.path.join(ck_dir, "ckpt"))
+                    for f in (last, last + ".meta.json", _logs_path(last)):
+                        os.remove(f)
+                    start = int(re.search(r"state_(\d+)", latest_checkpoint(
+                        os.path.join(ck_dir, "ckpt"))).group(1))
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                res = cli_main(["--config", path, "--run-dir", run_dir] + argv + more)
+                walls[label] = (time.perf_counter() - t0, res["summary"]["wall_time_s"])
+                counts[label] = launch_counts()
+                del res
+                if label != "without checkpoints":
+                    bad = same_artifacts(np, run_dir, plain_dir)
+                    if bad:
+                        problems.append(f"{name} {label}: {bad} differ from the run without "
+                                        f"checkpoints")
+            ck_bytes = sum(os.path.getsize(os.path.join(ck_dir, "ckpt", f))
+                           for f in os.listdir(os.path.join(ck_dir, "ckpt")))
+            log(f"[cli_ckpt] {name}: N={raw['system']['horizon_N']}, H={Hc}, every {every} "
+                f"steps; the call (and the summary's wall_time_s) "
+                + ", ".join(f"{k} {c:.3f} s ({w!r} s)" for k, (c, w) in walls.items())
+                + f"; resumed from step {start}; {ck_bytes / 2**20:.0f} MiB of checkpoints; "
+                f"artifacts bitwise those without checkpoints: "
+                f"{not any(p.startswith(name + ' ') for p in problems)}")
+            if "xla" not in name:
+                log(f"[cli_ckpt] {name} launches: "
+                    + "; ".join(f"{k} {json.dumps(c)}" for k, c in counts.items()))
+                sens = ("sbwd", "sfwd") if name == "dubins" else COUPLED
+                for label, steps in (("checkpointed", Hc), ("resumed", Hc - start)):
+                    c = counts[label]
+                    if not (c["ric"] and c["fwd"]) or any(c[k] != steps for k in sens):
+                        problems.append(f"{name} {label}: launches {c}, not K1 and K2 and "
+                                        f"{steps} of each of {sens}")
+            shutil.rmtree(plain_dir)
+            shutil.rmtree(ck_dir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if problems:
+        raise SystemExit(f"chip_smoke: the checkpointed CLI runs failed their checks: {problems}")
+    log(f"[cli_ckpt] done at {time.perf_counter() - t_start:.0f} s")
+
+
+def cli_profile_phase(torch, dev, t_start):
+    """Phase cli_profile: python -m tube_mpc_tpu_torch.run_experiment --profile in-process on
+    the card, configs/dubins.yaml at --batch 16384 with H cut to PROFILE_CLI_H: the run
+    writes one Chrome trace, whose device kernels must name K1 (ric_kernel) and K2
+    (fwd_kernel)."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from tube_mpc_tpu_torch.run_experiment import main as cli_main
+    from tube_mpc_tpu_torch.utils.config import read_yaml
+
+    shipped = read_yaml("configs/dubins.yaml")
+    raw = dict(shipped, system=dict(shipped["system"], task_horizon_H=PROFILE_CLI_H))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_profile_")
+    try:
+        path = os.path.join(tmp, "dubins.yaml")
+        with open(path, "w", encoding="utf-8") as f:
+            yaml.safe_dump(raw, f)
+        trace_dir = os.path.join(tmp, "trace")
+        t0 = time.perf_counter()
+        res = cli_main(["--config", path, "--batch", str(B), "--run-dir", os.path.join(tmp, "run"),
+                        "--profile", trace_dir])
+        elapsed = time.perf_counter() - t0
+        files = os.listdir(trace_dir)
+        if len(files) != 1 or not files[0].endswith(".pt.trace.json"):
+            raise SystemExit(f"chip_smoke: --profile wrote {files}, not one trace")
+        trace_path = os.path.join(trace_dir, files[0])
+        with open(trace_path, encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        named = {fn: sum(is_kernel(k, fn, "float") for k in kernels)
+                 for fn in ("ric_kernel", "fwd_kernel")}
+        log(f"[cli_profile] dubins.yaml at B={B}, H={PROFILE_CLI_H} (cut from 300) with --profile: "
+            f"the call {elapsed:.3f} s, the summary's wall_time_s "
+            f"{res['summary']['wall_time_s']!r} s; trace {os.path.getsize(trace_path) / 2**20:.1f} "
+            f"MiB, {len(events)} events, {len(kernels)} device kernels, of which "
+            f"{json.dumps(named)}")
+        if not all(named.values()):
+            raise SystemExit(f"chip_smoke: the --profile trace names no {named} kernel")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[cli_profile] done at {time.perf_counter() - t_start:.0f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1587,7 +1875,8 @@ def run_phases(torch, pool) -> int:
         raise SystemExit(f"chip_smoke: finite_lane_frac {finite} < 0.99")
     if not shapes_ok:
         raise SystemExit("chip_smoke: the closed-loop log has the wrong shapes")
-    del out
+    paper_case = (lambda caps, s=s, w=w: run_paper_loop(s, w, dev, aux_caps=caps), out, elapsed)
+    paper_w = w
 
     # ---- 7. the full-width coupled path ---------------------------------------------
     s, cfg, raw_nom, raw_aux = coupled_setup(torch, H, dev, torch.float32)
@@ -1623,8 +1912,15 @@ def run_phases(torch, pool) -> int:
         raise SystemExit("chip_smoke: the nominal tightening moved on no lane")
     if not shapes_ok:
         raise SystemExit("chip_smoke: the coupled log has the wrong shapes")
-    del out
     log(f"[coupled] done at {time.perf_counter() - t_start:.0f} s")
+
+    # ---- straggler compaction on both paths, against their uncompacted runs just above
+    compact_phase(torch, dev, t_start, {
+        "paper": paper_case,
+        "coupled": (lambda caps, a=(s, cfg, raw_nom, raw_aux, w):
+                    run_coupled(*a, dev, aux_caps=caps), (out, (raw_aux_f, raw_nom_f)), elapsed)},
+        paper_w)
+    del out, paper_case, paper_w
 
     # ---- the families' full-width paper paths -----------------------------------------
     family_counts = {}
@@ -1677,6 +1973,9 @@ def run_phases(torch, pool) -> int:
         runs_of[variant] = [variant, f"{variant}_{mode}"]
         runs += list(zip(runs_of[variant], (raw, other)))
     minlog_counts = cli_phase(torch, dev, t_start, "cli_minlog", runs)
+    # ---- the CLI's checkpoint and resume, and its trace ---------------------------------
+    cli_ckpt_phase(torch, dev, t_start)
+    cli_profile_phase(torch, dev, t_start)
 
     # ---- the XLA engine at full width, and its CLIs ------------------------------------
     xla_phase(torch, dev, t_start)

@@ -108,16 +108,23 @@ def test_xla_engine_modules_are_held_by_the_no_jax_rule():
             "gradient_check.py"} <= held
 
 
+def test_checkpoint_profiling_and_plotting_modules_are_held_by_the_no_jax_rule():
+    """The no-JAX rule above covers the checkpoint, profiling and plotting modules; the
+    plotting module keeps its own copy of the JAX package's framework-free plot_run."""
+    held = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    assert {"utils/checkpoint.py", "utils/profiling.py", "plotting.py"} <= held
+
+
 def test_package_imports_without_nvcc_and_builds_nothing():
-    """Every module imports in a process whose PATH holds no nvcc, and importing
-    builds no kernel."""
+    """Every module imports in a process whose PATH holds no nvcc, importing builds no
+    kernel, and nothing imports matplotlib (only plot_run does, when called)."""
     code = (
         "import importlib, pkgutil, sys, tube_mpc_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'tube_mpc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from tube_mpc_tpu_torch.ops.cuda import _build\n"
         "assert not _build._LIBS and not _build.BUILD_LOG\n"
-        "assert not any(n in sys.modules for n in ('jax', 'tube_mpc_tpu'))\n"
+        "assert not any(n in sys.modules for n in ('jax', 'tube_mpc_tpu', 'matplotlib'))\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PATH=str(Path(sys.executable).parent), PYTHONPATH=str(REPO))

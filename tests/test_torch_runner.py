@@ -11,10 +11,15 @@ CPU.
   that to 2e-4 of the cart-pole's controls (measured); the summaries carry the same keys.
 - The runner's artifacts bitwise against a direct call of the port's loop on the same
   built objects.
-- The CLI writes every artifact, and refuses the flags whose feature is not ported (and
-  --compact-caps on the XLA engine, as the root CLI's runner does).
+- The CLI writes every artifact and takes every flag of the root CLI: the lane engine
+  compacts with the root CLI's default caps (bitwise equal to --compact-caps ''), a
+  checkpointed run resumed through --run-dir writes the uninterrupted run's artifacts,
+  --profile writes a trace, --plot and plot: true write the figures. It refuses what the
+  root CLI's runner refuses: --compact-caps on the XLA engine, and a checkpointed XLA run
+  of more than one paper trajectory.
 """
 import copy
+import os
 import json
 import re
 from pathlib import Path
@@ -201,24 +206,126 @@ def test_cli_writes_every_artifact(tmp_path, capsys):
     assert res["log"].x_real.device.type == "cpu"
 
 
+def cli(tmp_path, raw, *argv, name="run"):
+    """main() on `raw` (written to <name>.yaml) into tmp_path/<name> on the CPU: (its
+    results, the run's artifacts)."""
+    path = write_yaml(tmp_path, raw, f"{name}.yaml")
+    res = main(["--config", path, "--device", "cpu", "--run-dir", str(tmp_path / name)]
+               + list(argv))
+    return res, load_run(str(tmp_path / name))
+
+
+def same_run(a, b):
+    assert set(a) == set(b)
+    for name in a:
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+@pytest.mark.parametrize("clip,caps", [(1.0, "1,4,8"), (0.0, "2,5,8")])
+def test_cli_compacts_with_the_root_clis_default_caps(clip, caps, tmp_path, monkeypatch):
+    """Without --compact-caps the lane engine takes the root CLI's default caps ('1,4,8'
+    when the config clips gradients, '2,5,8' when not); the run is bitwise the run with
+    --compact-caps '' (none)."""
+    from tube_mpc_tpu_torch.ops.cuda.lane_solver import lane_ilqr_solve
+
+    seen = []
+    real = runners.run_experiment
+    monkeypatch.setattr(runners, "run_experiment",
+                        lambda *a, **k: seen.append(k["compact_caps"]) or real(*a, **k))
+    raw = raw_of("dubins", **{"adaptation.grad_clip_norm": clip})
+    lane_ilqr_solve.stages = {"compacted": 0, "full": 0}
+    _, compacted = cli(tmp_path, raw, "--batch", "2", name="default")
+    assert seen == [caps]
+    if caps == "1,4,8":
+        # the default caps are the ancillary solve's; after one iteration no lane is
+        # converged, so each ancillary solve runs its next stage (at this size every lane
+        # converges within two, so '2,5,8' leaves no stage to run)
+        assert lane_ilqr_solve.stages["full"] >= H
+    lane_ilqr_solve.stages = {"compacted": 0, "full": 0}
+    _, plain = cli(tmp_path, raw, "--batch", "2", "--compact-caps", "", name="none")
+    assert seen == [caps, ""] and lane_ilqr_solve.stages == {"compacted": 0, "full": 0}
+    same_run(compacted, plain)
+
+
+@pytest.mark.parametrize("case", ["dubins_paper", "dubins_coupled"])
+def test_cli_resumes_a_checkpointed_run(case, tmp_path):
+    """--checkpoint-every 2 writes <run_dir>/ckpt; with its last segment deleted (a run
+    killed there), the same command with --run-dir resumes it and writes the
+    uninterrupted run's artifacts, which are those of a run without checkpoints."""
+    from tube_mpc_tpu_torch.utils.checkpoint import _logs_path, latest_checkpoint
+
+    raw = raw_of("dubins", **({"adaptation.adapt_nominal": True} if "coupled" in case else {}))
+    _, plain = cli(tmp_path, raw, "--batch", "2", name="plain")
+    argv = ("--batch", "2", "--checkpoint-every", "2")
+    res, whole = cli(tmp_path, raw, *argv)
+    ck = tmp_path / "run" / "ckpt"
+    assert sorted(p.name for p in ck.glob("state_*.npz")) == ["state_2.npz", "state_3.npz"]
+    last = latest_checkpoint(str(ck))
+    for f in (last, _logs_path(last)):
+        os.remove(f)
+    resumed, again = cli(tmp_path, raw, *argv)
+    same_run(whole, plain)
+    same_run(again, whole)
+    assert resumed["summary"]["final_loss"] == res["summary"]["final_loss"]
+
+
+def test_cli_checkpoints_one_xla_paper_trajectory(tmp_path):
+    raw = raw_of("dubins")
+    _, plain = cli(tmp_path, raw, "--engine", "xla", name="plain")
+    _, ckpt = cli(tmp_path, raw, "--engine", "xla", "--checkpoint-every", "2")
+    assert {p.name for p in (tmp_path / "run" / "ckpt").glob("state_*.npz")} == {
+        "state_2.npz", "state_3.npz"}
+    same_run(ckpt, plain)
+
+
+def test_cli_profile_writes_a_trace(tmp_path):
+    trace_dir = tmp_path / "trace"
+    cli(tmp_path, raw_of("dubins"), "--profile", str(trace_dir))
+    (trace_file,) = trace_dir.iterdir()
+    events = json.loads(trace_file.read_text())["traceEvents"]
+    assert trace_file.name.endswith(".pt.trace.json") and events
+
+
+@pytest.mark.parametrize("how", ["--plot", "plot: true"])
+def test_cli_plots_the_run(how, tmp_path, capsys):
+    raw = raw_of("dubins")
+    argv = []
+    if how == "--plot":
+        argv = ["--plot"]
+    else:
+        raw["plot"] = True
+    cli(tmp_path, raw, *argv)
+    assert "Plots saved." in capsys.readouterr().out
+    figures = {"traj_xy.png", "states.png", "controls.png", "barrier_and_loss.png",
+               "adaptive_params.png"}
+    assert figures <= {p.name for p in (tmp_path / "run").iterdir()}
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--compact-caps", "1,4,8"], "--compact-caps: straggler compaction.*queue A item 3"),
-    (["--checkpoint-every", "5"], "--checkpoint-every: .*queue A item 5"),
-    (["--profile", "trace"], "--profile: .*queue A item 8"),
-    (["--plot"], "--plot: plotting.*queue A item 4"),
     (["--engine", "xla", "--compact-caps", "1,4,8"], "--compact-caps: compact_caps is a "
                                                       "lanes-engine feature"),
-    (["plot: true"], "plot: true in .*queue A item 4"),
+    (["--checkpoint-every", "0"], "--checkpoint-every must be >= 1"),
 ])
 def test_cli_refuses_flags_whose_feature_is_not_ported(argv, match, tmp_path, capsys):
-    raw = raw_of("dubins")
-    if argv == ["plot: true"]:
-        raw["plot"], argv = True, []
-    path = write_yaml(tmp_path, raw)
+    """Compaction is a feature of the lane engine only; a checkpoint needs a segment."""
+    path = write_yaml(tmp_path, raw_of("dubins"))
     with pytest.raises(SystemExit) as e:
         main(["--config", path, "--device", "cpu", "--run-dir", str(tmp_path / "run")] + argv)
     assert e.value.code == 2
     assert re.search(match, capsys.readouterr().err.replace("\n", " "))
+    assert not (tmp_path / "run").exists()
+
+
+@pytest.mark.parametrize("changes,argv", [({}, ["--batch", "2"]),
+                                          ({"adaptation.adapt_nominal": True}, [])])
+def test_cli_refuses_an_xla_checkpoint_of_more_than_one_paper_trajectory(changes, argv,
+                                                                         tmp_path):
+    """As the root CLI's runner: the XLA engine checkpoints one paper-mode trajectory."""
+    path = write_yaml(tmp_path, raw_of("dubins", **changes))
+    with pytest.raises(ValueError, match="checkpoint_every requires paper mode, single "
+                                         "trajectory"):
+        main(["--config", path, "--device", "cpu", "--run-dir", str(tmp_path / "run"),
+              "--engine", "xla", "--checkpoint-every", "2"] + argv)
     assert not (tmp_path / "run").exists()
 
 

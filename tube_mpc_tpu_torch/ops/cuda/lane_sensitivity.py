@@ -224,7 +224,7 @@ def _launch(wrapper, fn: str, consts, ins, outs, N: int, B: int) -> Tuple[Tensor
     out = tuple(torch.empty(shape, dtype=dtype, device=dev) for shape in outs)
     launch(f"lane_{fn.split('_')[0]}", f"lane_{fn}", dtype, dev,
            tuple(t for _, t in ins.values()) + out, N, B, consts)
-    counted(wrapper, consts)
+    counted(wrapper, consts, B)
     return out
 
 
@@ -335,7 +335,7 @@ def sfwd_ref(pb: LaneProblem, K: Tensor, kff: Tensor, X: Tensor, Xr: Tensor, U: 
 
 
 for _w in (sbwd, sbwd_generic, sbwd_upper, sfwd, sfwd_generic, sfwd_ref):
-    _w.launches, _w.by_system = 0, {}
+    _w.launches, _w.by_system, _w.by_width = 0, {}, {}
 
 
 def lane_sensitivity_grads(

@@ -1,6 +1,6 @@
 """Lane iLQR solver: K1 (Riccati sweep) and K2 (line search) with their plain
-PyTorch versions, and the solver loop around them (port of
-tube_mpc_tpu/ops/pallas/lane_solver.py:47-510, without straggler compaction).
+PyTorch versions, and the solver loop around them with its straggler compaction and
+iteration telemetry (port of tube_mpc_tpu/ops/pallas/lane_solver.py:47-510).
 
 Layout: every array is [N, component, B] or [component, B], lane index fastest.
 Const rows C [2n̂+m+3, B] (tube/lane_interface.py::_build_C):
@@ -9,7 +9,7 @@ Const rows C [2n̂+m+3, B] (tube/lane_interface.py::_build_C):
 
 Each kernel wrapper (``ric``, ``fwd``) runs the plain version for CPU tensors and
 the CUDA kernel (csrc/lane_solver.cu) for CUDA tensors, and counts its kernel
-launches in ``<wrapper>.launches``. The plain versions repeat the kernels'
+launches in ``<wrapper>.launches`` (and by lane count in ``<wrapper>.by_width``). The plain versions repeat the kernels'
 arithmetic in the JAX kernels' order; they are what the CPU tests hold against the
 JAX package and what the card's check holds the kernels against.
 """
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import Tensor
@@ -378,13 +378,14 @@ def launch(lib: str, fn: str, dtype: torch.dtype, device: torch.device,
         raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
 
 
-def counted(wrapper, consts: LaneConsts) -> None:
-    """Count one launch of ``wrapper``'s kernel: in all (``launches``) and for the
-    library variant it was built for (``by_system``, keyed "quadrotor2d_min_log" and the
-    like)."""
+def counted(wrapper, consts: LaneConsts, B: int) -> None:
+    """Count one launch of ``wrapper``'s kernel over B lanes: in all (``launches``), for
+    the library variant it was built for (``by_system``, keyed "quadrotor2d_min_log" and
+    the like) and for its lane count (``by_width``)."""
     wrapper.launches += 1
     variant = variant_of(consts)
     wrapper.by_system[variant] = wrapper.by_system.get(variant, 0) + 1
+    wrapper.by_width[B] = wrapper.by_width.get(B, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -406,11 +407,11 @@ def ric(pb: LaneProblem, reg: float, X: Tensor, U: Tensor, Xr: Tensor, Ur: Tenso
     K = torch.empty((N, m * nh, B), dtype=dtype, device=X.device)
     kff = torch.empty((N, m, B), dtype=dtype, device=X.device)
     launch("lane_solver", "lane_ric", dtype, X.device, (X, U, Xr, Ur, C, phix, K, kff), N, B, consts)
-    counted(ric, consts)
+    counted(ric, consts, B)
     return K, kff
 
 
-ric.launches, ric.by_system = 0, {}
+ric.launches, ric.by_system, ric.by_width = 0, {}, {}
 
 
 def fwd(pb: LaneProblem, alphas: Sequence[float], x0: Tensor, Xo: Tensor, Uo: Tensor,
@@ -435,11 +436,11 @@ def fwd(pb: LaneProblem, alphas: Sequence[float], x0: Tensor, Xo: Tensor, Uo: Te
     cost = torch.empty((na, B), dtype=dtype, device=Xo.device)
     launch("lane_solver", "lane_fwd", dtype, Xo.device,
            (x0, Xo, Uo, K, kff, Xr, XrN, Ur, C, Xn, Un, cost), N, B, consts)
-    counted(fwd, consts)
+    counted(fwd, consts, B)
     return Xn, Un, cost
 
 
-fwd.launches, fwd.by_system = 0, {}
+fwd.launches, fwd.by_system, fwd.by_width = 0, {}, {}
 
 
 # ---------------------------------------------------------------------------
@@ -460,36 +461,31 @@ def rollout(pb: LaneProblem, x_hat0: Tensor, U0: Tensor, X_ref: Tensor, U_ref: T
     return torch.cat([x_hat0[None], Xn], dim=0)
 
 
-def lane_ilqr_solve(
-    pb: LaneProblem,
-    *,
-    x_hat0: Tensor,   # [n̂, B]
-    U0: Tensor,       # [N, m, B] (already clamped)
-    X0: Tensor,       # [N+1, n̂, B] (rollout of U0)
-    X_ref: Tensor,    # [N+1, n̂, B] (barrier row 0)
-    U_ref: Tensor,    # [N, m, B]
-    C: Tensor,        # [nc, B]
-    max_iter: int,
-    tol: float,
-    reg: float,
-    alphas: Tuple[float, ...],
-) -> Tuple[Tensor, Tensor]:
-    """Fused-kernel iLQR; returns (X [N+1, n̂, B], U [N, m, B]).
+class _Carry(NamedTuple):
+    """The improvement loop's state over its lanes."""
 
-    Per lane: the best candidate of the alpha ladder (NaN costs never win, the
-    first minimum wins ties), and |prev_cost - best_cost| < tol freezes the lane.
-    The loop ends at max_iter or when every lane is frozen; the host reads
-    all(done) once per iteration, as the reference's while_loop condition does."""
+    it: int                    # iterations run (all lanes advance together)
+    X: Tensor                  # [N+1, n̂, B]
+    U: Tensor                  # [N, m, B]
+    prev_cost: Tensor          # [B]
+    done: Tensor               # [B] bool: frozen
+    lane_it: Optional[Tensor]  # [B] int32 iterations entered unconverged, or None
+
+
+def _improve(pb: LaneProblem, x_hat0: Tensor, X_ref: Tensor, U_ref: Tensor, C: Tensor,
+             s: _Carry, cap: int, tol: float, reg: float,
+             alphas: Tuple[float, ...]) -> _Carry:
+    """Iterate until ``cap`` iterations in all or every lane frozen, at the lane count of
+    the given inputs. Per lane: the best candidate of the alpha ladder (NaN costs never
+    win, the first minimum wins ties), and |prev_cost - best_cost| < tol freezes the
+    lane. The host reads all(done) once per iteration, as the reference's while_loop
+    condition does."""
     nh, m = pb.n_hat, pb.m
-    N, B = U0.shape[0], U0.shape[-1]
+    N, B = s.U.shape[0], s.U.shape[-1]
     na = len(alphas)
     term_rows = C[nh + m: 2 * nh + m]
-    X, U = X0, U0
-    prev_cost = torch.full((B,), float("inf"), dtype=U0.dtype, device=U0.device)
-    done = torch.zeros((B,), dtype=torch.bool, device=U0.device)
-
-    it = 0
-    while it < max_iter and not bool(done.all()):
+    it, X, U, prev_cost, done, lane_it = s
+    while it < cap and not bool(done.all()):
         phix = term_rows * (X[-1] - X_ref[-1])
         K, kff = ric(pb, reg, X[:-1], U, X_ref[:-1], U_ref, C, phix)
         Xn, Un, costs = fwd(pb, alphas, x_hat0, X[:-1], U, K, kff, X_ref[:-1], X_ref[-1], U_ref, C)
@@ -509,5 +505,89 @@ def lane_ilqr_solve(
         U = torch.where(live, U_new, U)
         done = done | ((prev_cost - best_cost).abs() < tol)
         prev_cost = torch.where(live, best_cost, prev_cost)
+        if lane_it is not None:
+            lane_it = lane_it + live.to(torch.int32)
         it += 1
-    return X, U
+    return _Carry(it, X, U, prev_cost, done, lane_it)
+
+
+# The JAX solver's lane block (block_b): the compaction stages halve the width it pads the
+# batch to, so that the port takes the JAX package's stages at the same B.
+JAX_BLOCK_B = 4096
+
+
+def stage_widths(B: int, n_stages: int) -> Tuple[int, ...]:
+    """The working width of each compaction stage after the first cap, by the JAX rule
+    (lane_solver.py:309-311, 465-466): B padded to whole blocks, halved at each stage,
+    at least 128 lanes, rounded up to whole blocks of its own; a width of at least the
+    padded B keeps the stage at full width."""
+    Bt = min(JAX_BLOCK_B, max(128, -(-B // 128) * 128))
+    B_pad = -(-B // Bt) * Bt
+    widths = []
+    for si in range(n_stages):
+        W = max(128, B_pad >> (si + 1))
+        Wt = min(Bt, W)
+        W = -(-W // Wt) * Wt
+        widths.append(B if W >= B_pad else W)
+    return tuple(widths)
+
+
+def lane_ilqr_solve(
+    pb: LaneProblem,
+    *,
+    x_hat0: Tensor,   # [n̂, B]
+    U0: Tensor,       # [N, m, B] (already clamped)
+    X0: Tensor,       # [N+1, n̂, B] (rollout of U0)
+    X_ref: Tensor,    # [N+1, n̂, B] (barrier row 0)
+    U_ref: Tensor,    # [N, m, B]
+    C: Tensor,        # [nc, B]
+    max_iter: int,
+    tol: float,
+    reg: float,
+    alphas: Tuple[float, ...],
+    with_lane_iters: bool = False,
+    compact_caps: Tuple[int, ...] = (),
+) -> Tuple:
+    """Fused-kernel iLQR; returns (X [N+1, n̂, B], U [N, m, B]), then each lane's count of
+    the iterations it entered unconverged ([B] int32) with ``with_lane_iters`` (their
+    maximum is the iterations the batch ran). The loop ends at max_iter or when every lane
+    is frozen (see _improve).
+
+    compact_caps = (c1, c2, ...): straggler compaction. The loop runs at full width up to
+    c1 iterations; at each later cap (and max_iter) the next stage runs on stage_widths'
+    narrower width W when the unconverged lanes fit in it: they are gathered first (a
+    stable sort of done), converged lanes fill the rest, the stage iterates on the W
+    lanes, and its results are scattered back. Otherwise the stage runs at full width.
+    The kernels compute each lane alone and the fillers are frozen, so the result is
+    bitwise that of compact_caps=() in every case. ``lane_ilqr_solve.stages`` counts the
+    stages after c1 that ran: "compacted" and "full" (width)."""
+    B = U0.shape[-1]
+    s = _Carry(0, X0, U0, torch.full((B,), float("inf"), dtype=U0.dtype, device=U0.device),
+               torch.zeros((B,), dtype=torch.bool, device=U0.device),
+               torch.zeros((B,), dtype=torch.int32, device=U0.device) if with_lane_iters
+               else None)
+    consts = (x_hat0, X_ref, U_ref, C)
+    loop = dict(tol=tol, reg=reg, alphas=alphas)
+    caps = tuple(int(c) for c in compact_caps if int(c) < max_iter)
+    s = _improve(pb, *consts, s, caps[0] if caps else max_iter, **loop)
+    later = caps[1:] + ((max_iter,) if caps else ())
+    for cap, W in zip(later, stage_widths(B, len(later))):
+        unconverged = int((~s.done).sum())   # a host read, as all(done) is
+        if unconverged == 0 or s.it >= cap:
+            continue
+        if W >= B or unconverged > W:
+            s = _improve(pb, *consts, s, cap, **loop)
+            lane_ilqr_solve.stages["full"] += 1
+            continue
+        # unconverged lanes first, then converged fillers; the first W entries of a
+        # permutation hold no index twice, so the scatter back writes each lane once
+        idx = torch.argsort(s.done.to(torch.uint8), stable=True)[:W]
+        take = lambda t: None if t is None else t.index_select(-1, idx)
+        sub = _improve(pb, *map(take, consts), _Carry(s.it, *map(take, s[1:])), cap, **loop)
+        s = _Carry(sub.it, *(None if t is None else t.index_copy(-1, idx, u)
+                             for t, u in zip(s[1:], sub[1:])))
+        lane_ilqr_solve.stages["compacted"] += 1
+    return (s.X, s.U, s.lane_it) if with_lane_iters else (s.X, s.U)
+
+
+lane_ilqr_solve.stages = {"compacted": 0, "full": 0}

@@ -6,8 +6,8 @@
 The counterpart of the root run_nominal.py, on the feature-major solvers: the solver and
 barrier stack without adaptation or disturbances, with success/collision checks, in the
 config's dtype. The same flags, with --device in place of --platform (the card by
-default); --plot is refused (ROADMAP.md, queue A item 4). ``main(argv)`` runs it
-in-process.
+default); --plot (or plot: true) writes the figures into the run directory (matplotlib).
+``main(argv)`` runs it in-process.
 """
 from __future__ import annotations
 
@@ -15,21 +15,18 @@ import argparse
 import json
 from typing import Any, Dict, Optional, Sequence
 
-from .run_experiment import NOT_PORTED
-
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser(prog="python -m tube_mpc_tpu_torch.run_nominal")
     ap.add_argument("--config", type=str, required=True)
-    ap.add_argument("--plot", action="store_true", help=NOT_PORTED["--plot"])
+    ap.add_argument("--plot", action="store_true", help="write the figures into the run "
+                    "directory (needs matplotlib)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--mode", choices=("receding", "once"), default="receding",
                     help="the receding horizon, or a single solve from x0")
     ap.add_argument("--feasible-filter", action="store_true",
                     help="once-mode: strict-feasibility line-search filter")
     args = ap.parse_args(argv)
-    if args.plot:
-        ap.error(f"--plot: {NOT_PORTED['--plot']}")
 
     import torch
 
@@ -38,8 +35,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     from .utils.io import make_run_dir, save_json
 
     cfg = load_config(args.config)
-    if cfg.plot:
-        ap.error(f"plot: true in {args.config}: {NOT_PORTED['--plot']}")
     torch.set_float32_matmul_precision("highest")
     run_dir = make_run_dir(cfg.out_dir, cfg.run_name + "_nominal")
     if args.mode == "once":
@@ -51,6 +46,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
 
     print(f"Saved run to: {run_dir}")
     print(json.dumps(results["summary"], indent=2, ensure_ascii=False))
+
+    if cfg.plot or args.plot:
+        from .plotting import plot_run
+
+        plot_run(run_dir, obstacles=[dict(o) for o in cfg.environment.obstacles], show=False)
+        print("Plots saved.")
     return dict(results, run_dir=run_dir)
 
 

@@ -58,9 +58,18 @@ def raw_thetas(cfg: ExperimentConfig, device: torch.device) -> Tuple[RawNominalT
     return raw_nom, raw_aux
 
 
+def parse_compact_caps(caps: Optional[str]) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(ancillary caps, nominal caps) of "c1,c2[;n1,n2]"; None or "" is no compaction."""
+    parts = str(caps or "").split(";")
+    aux = tuple(int(c) for c in parts[0].split(",") if c)
+    nom = tuple(int(c) for c in parts[1].split(",") if c) if len(parts) > 1 else ()
+    return aux, nom
+
+
 def run_experiment(cfg: ExperimentConfig, run_dir: str, *, w_seq=None,
                    batch: Optional[int] = None, engine: str = "lanes",
-                   device: DeviceLike = None) -> Dict[str, Any]:
+                   device: DeviceLike = None, checkpoint_every: Optional[int] = None,
+                   compact_caps: Optional[str] = None) -> Dict[str, Any]:
     """Closed-loop adaptive tube MPC; returns {"summary", "log"} (the summary also written
     to run_dir). Runs on the card unless device='cpu'.
 
@@ -72,9 +81,19 @@ def run_experiment(cfg: ExperimentConfig, run_dir: str, *, w_seq=None,
     cannot replay: the same config gives other disturbances, and so another run, than the
     JAX package's unless w_seq is passed. Lane 0 is saved as the single-run artifacts;
     with more than one lane, every field also as <field>_batch.npy.
+
+    checkpoint_every: run the closed loop in resumable segments of this many steps, the
+    carry written to <run_dir>/ckpt after each (utils/checkpoint.py); the same call with
+    the same run_dir resumes after the last segment written, and the result is bitwise
+    that of an uninterrupted run. Every lane-engine mode takes it; the XLA engine takes it
+    in paper mode for one trajectory. compact_caps (lane engine): "c1,c2[;n1,n2]", the
+    straggler compaction caps of the ancillary solves and, after ';', of the nominal ones
+    (lane_ilqr_solve), bitwise equal to none.
     """
     if engine not in ("lanes", "xla"):
         raise ValueError(f"unknown engine {engine!r} (xla or lanes)")
+    if engine == "xla" and compact_caps:
+        raise ValueError("compact_caps is a lanes-engine feature (--engine lanes)")
     B = int(batch) if batch else 0
     if B > 1 and w_seq is not None:
         raise ValueError("batch mode samples disturbances; don't pass w_seq")
@@ -84,6 +103,8 @@ def run_experiment(cfg: ExperimentConfig, run_dir: str, *, w_seq=None,
             "ancillary θ (the JAX lane loops ignore the key and adapt it anyway; ROADMAP.md, "
             "queue C)")
     paper_mode = cfg.paper_dubins_mode and not cfg.adaptation.adapt_nominal
+    if engine == "xla" and checkpoint_every and (not paper_mode or B > 1):
+        raise ValueError("checkpoint_every requires paper mode, single trajectory")
     forced_f32 = engine == "lanes" and cfg.use_float64
     if forced_f32:
         cfg = dataclasses.replace(cfg, use_float64=False)
@@ -100,13 +121,17 @@ def run_experiment(cfg: ExperimentConfig, run_dir: str, *, w_seq=None,
     else:
         B = max(B, 1)
         draw = dict(generator=torch.Generator(device=dev).manual_seed(cfg.seed), batch=B)
+    ckpt = dict(ckpt_dir=os.path.join(run_dir, "ckpt"),
+                segment_len=int(checkpoint_every)) if checkpoint_every else {}
     if engine == "xla":
         return _run_experiment_xla(cfg, built, run_dir, w_seq=w_seq, draw=draw, B=B,
-                                   paper_mode=paper_mode)
+                                   paper_mode=paper_mode, ckpt=ckpt)
 
     sys_c = lane_components(cfg)
+    aux_caps, nom_caps = parse_compact_caps(compact_caps)
     loop_kw = dict(x0=built.x0, target=built.target, w_seqs=w_seq, eps=cfg.dbas.eps,
-                   barrier_type=cfg.dbas.barrier_type, device=dev, **draw)
+                   barrier_type=cfg.dbas.barrier_type, device=dev, aux_compact_caps=aux_caps,
+                   nom_compact_caps=nom_caps, **draw, **ckpt)
 
     t0 = time.perf_counter()
     if paper_mode:
@@ -126,9 +151,10 @@ def run_experiment(cfg: ExperimentConfig, run_dir: str, *, w_seq=None,
 
 
 def _run_experiment_xla(cfg: ExperimentConfig, built, run_dir: str, *, w_seq, draw,
-                        B: int, paper_mode: bool) -> Dict[str, Any]:
+                        B: int, paper_mode: bool, ckpt: Dict[str, Any]) -> Dict[str, Any]:
     """The XLA engine's branch of run_experiment: the paper or generic loop of
-    tube/closed_loop.py over the B lanes, with debug_numerics' located checks armed;
+    tube/closed_loop.py over the B lanes, with debug_numerics' located checks armed (and
+    ``ckpt``'s ckpt_dir and segment_len in paper mode);
     B = 1 writes _finish_single's summary, B > 1 the population summary."""
     dev = built.device
     kw = dict(x0=built.x0, target=built.target, w_seq=w_seq, debug_checks=cfg.debug_numerics,
@@ -137,7 +163,7 @@ def _run_experiment_xla(cfg: ExperimentConfig, built, run_dir: str, *, w_seq, dr
     if paper_mode:
         log = run_paper_closed_loop(
             built.system, built.aug, built.tube_cfg, w_nominal=built.w_nominal,
-            aux_init=built.aux_init, bp=built.bp, **kw)
+            aux_init=built.aux_init, bp=built.bp, **kw, **ckpt)
     else:
         raw_nom, raw_aux = raw_thetas(cfg, dev)
         log, _ = run_generic_closed_loop(

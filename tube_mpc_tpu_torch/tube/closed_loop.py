@@ -32,6 +32,7 @@ from ..solvers.ilqr import ILQRConfig, ilqr_solve
 from ..solvers.sensitivity import ddp_sensitivity
 from ..solvers.weight_grads import grads_aux_from_deltas
 from ..systems.base import System
+from ..utils.checkpoint import run_steps
 from ..utils.debug import located_check
 from .params import (
     AdaptConfig,
@@ -245,11 +246,15 @@ def run_paper_closed_loop(
     batch: Optional[int] = None,
     debug_checks: bool = False,
     device: DeviceLike = None,
+    ckpt_dir: Optional[str] = None,
+    segment_len: Optional[int] = None,
 ) -> ClosedLoopLog:
     """H steps of the paper path on B lanes; returns a ClosedLoopLog of [B, H, ...].
 
     Disturbances are w_seq ([B, H, nx], or [H, nx] for one lane), or drawn from
-    ``generator`` for ``batch`` lanes. Runs on the card unless device='cpu'."""
+    ``generator`` for ``batch`` lanes. With ``ckpt_dir`` the loop runs in resumable
+    segments of ``segment_len`` steps (utils/checkpoint.py), bitwise the same. Runs on the
+    card unless device='cpu'."""
     dev = resolve_device(device)
     w_seq = _disturbances(system, cfg.H, w_seq, generator, batch, target.dtype)
     check_on(dev, (x0, target, w_seq, *w_nominal, *aux_init, *bp), "run_paper_closed_loop")
@@ -257,11 +262,9 @@ def run_paper_closed_loop(
                            debug_checks=debug_checks)
     state = paper_init_state(system, aug, cfg, aux_init=aux_init, bp=bp, x0=x0,
                              lanes=w_seq.shape[0])
-    logs = []
-    for t in range(cfg.H):
-        state, log = step(state, w_seq[:, t])
-        logs.append(log)
-    return _stack_logs(logs)
+    return run_steps(step, state, w_seq, ClosedLoopLog, ckpt_dir=ckpt_dir,
+                     segment_len=segment_len, cfg=cfg,
+                     inputs=(state, w_nominal, bp, target))[1]
 
 
 def make_paper_closed_loop_diff(

@@ -1,5 +1,6 @@
 """Batched closed-loop Algorithm 2 on the lane kernels (port of
-tube_mpc_tpu/tube/lane_closed_loop.py:47-262 in independent mode, and 336-650).
+tube_mpc_tpu/tube/lane_closed_loop.py:47-262 in independent mode, and 336-650), with the
+solves' straggler compaction and iteration telemetry.
 
 B adaptive tube-MPC closed loops advance together, one Python step per time step:
 two lane iLQR solves (nominal, ancillary), the δz sensitivity and its gradients,
@@ -22,6 +23,7 @@ from ..ops.costs import CostWeights
 from ..ops.dbas import AugmentedDynamics, BarrierParams
 from ..ops.lanes import ComponentSystem
 from ..systems.base import System
+from ..utils.checkpoint import run_steps
 from .closed_loop import ClosedLoopLog, TubeMPCConfig
 from .lane_interface import (
     make_lane_problem,
@@ -68,8 +70,16 @@ def make_paper_lane_step(
     B: int,
     dtype,
     device: DeviceLike = None,
+    iter_telemetry: bool = False,
+    nom_compact_caps: Tuple[int, ...] = (),
+    aux_compact_caps: Tuple[int, ...] = (),
 ) -> Callable[[LaneLoopState, Tensor], tuple]:
-    """The per-step body: (state, w_t [B, nx]) -> (new state, log tuple)."""
+    """The per-step body: (state, w_t [B, nx]) -> (new state, log tuple).
+
+    iter_telemetry appends each lane's solver iterations (nominal, ancillary; [B] int32
+    each) to the log tuple: a step costs the most lanes' iterations, and the useful work
+    is their mean. nom_compact_caps and aux_compact_caps: the two solves' straggler
+    compaction (lane_ilqr_solve), bitwise equal to none."""
     dev = resolve_device(device)
     nx, nu = system.nx, system.nu
     N = cfg.N
@@ -80,18 +90,22 @@ def make_paper_lane_step(
 
     def step(state: LaneLoopState, w_t: Tensor):
         x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
-        X_nom, U_nom = tube_ilqr_solve_lanes(
+        nom_out = tube_ilqr_solve_lanes(
             pb, nom_cfg, w=w_nominal, bp=bp, x_hat0=x_hat_bar, U_init=state.U_nom_ws,
-            X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev,
+            X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev, with_lane_iters=iter_telemetry,
+            compact_caps=nom_compact_caps,
         )
+        X_nom, U_nom = nom_out[:2]
         X_ref = X_nom[..., :nx]
 
         x_hat = torch.cat([state.x, state.b[:, None]], dim=-1)
         w_aux = CostWeights(Q=state.adapt.Q, R=state.adapt.R, Qf=state.adapt.Q, qb=state.adapt.qb)
-        X_aux, U_aux = tube_ilqr_solve_lanes(
+        aux_out = tube_ilqr_solve_lanes(
             pb, aux_cfg, w=w_aux, bp=bp, x_hat0=x_hat, U_init=state.U_aux_ws,
-            X_ref=X_ref, U_ref=U_nom, device=dev,
+            X_ref=X_ref, U_ref=U_nom, device=dev, with_lane_iters=iter_telemetry,
+            compact_caps=aux_compact_caps,
         )
+        X_aux, U_aux = aux_out[:2]
 
         dx = X_aux[..., :nx] - X_ref
         db = X_aux[..., nx]
@@ -134,6 +148,8 @@ def make_paper_lane_step(
             vel=vel,
         )
         log = (state.x, u, state.x_bar, u_bar, state.b, L, adapt.Q, adapt.R, adapt.qb)
+        if iter_telemetry:
+            log += (nom_out[2], aux_out[2])
         return new_state, log
 
     return step
@@ -178,11 +194,17 @@ def run_paper_closed_loop_lanes(
     eps: float = 1e-4,
     barrier_type: str = "inverse",
     device: DeviceLike = None,
+    nom_compact_caps: Tuple[int, ...] = (),
+    aux_compact_caps: Tuple[int, ...] = (),
+    ckpt_dir: Optional[str] = None,
+    segment_len: Optional[int] = None,
 ) -> ClosedLoopLog:
     """Run H steps of B closed loops; returns a ClosedLoopLog of [B, H, ...].
 
-    Disturbances are ``w_seqs``, or drawn from ``generator`` for ``batch`` lanes.
-    Runs on the card unless device='cpu'."""
+    Disturbances are ``w_seqs``, or drawn from ``generator`` for ``batch`` lanes. The
+    caps are the solves' straggler compaction (make_paper_lane_step). With ``ckpt_dir``
+    the loop runs in resumable segments of ``segment_len`` steps (utils/checkpoint.py),
+    bitwise the same. Runs on the card unless device='cpu'."""
     if not cfg.adapt_ancillary or cfg.adapt_nominal:
         raise ValueError("the paper loop adapts the ancillary θ only: it takes adapt_ancillary="
                          "True and adapt_nominal=False (run_generic_closed_loop_lanes adapts θ̄)")
@@ -200,13 +222,12 @@ def run_paper_closed_loop_lanes(
     step = make_paper_lane_step(
         system, aug, pb, cfg, w_nominal=w_nominal, bp=bp, target=target,
         B=B, dtype=dtype, device=dev,
+        nom_compact_caps=nom_compact_caps, aux_compact_caps=aux_compact_caps,
     )
     state = paper_lane_init_state(system, aug, cfg, aux_init=aux_init, bp=bp, x0=x0, B=B, dtype=dtype)
-    logs = []
-    for t in range(H):
-        state, log = step(state, w_seqs[:, t])
-        logs.append(log)
-    return ClosedLoopLog(*(torch.stack(field, dim=1) for field in zip(*logs)))
+    return run_steps(step, state, w_seqs, ClosedLoopLog, ckpt_dir=ckpt_dir,
+                     segment_len=segment_len, cfg=cfg,
+                     inputs=(state, w_nominal, bp, target))[1]
 
 
 class GenericLaneState(NamedTuple):
@@ -266,9 +287,11 @@ def make_generic_lane_step(
     B: int,
     dtype,
     device: DeviceLike = None,
+    nom_compact_caps: Tuple[int, ...] = (),
+    aux_compact_caps: Tuple[int, ...] = (),
 ) -> Callable[[GenericLaneState, Tensor], tuple]:
     """The per-step body of the generic/coupled loop: (state, w_t [B, nx]) ->
-    (new state, log tuple).
+    (new state, log tuple). The caps as in make_paper_lane_step.
 
     cfg.adapt.steps > 1 runs the reference's inner adaptation loop: iterations
     2..steps re-derive the gradient at this step's FIXED trajectories while θ
@@ -292,14 +315,14 @@ def make_generic_lane_step(
         x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
         X_nom, U_nom = tube_ilqr_solve_lanes(
             pb, nom_cfg, w=w_nom, bp=bp_nom, x_hat0=x_hat_bar, U_init=state.U_nom_ws,
-            X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev,
+            X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev, compact_caps=nom_compact_caps,
         )
         X_ref = X_nom[..., :nx]
 
         x_hat = torch.cat([state.x, state.b[:, None]], dim=-1)
         X_aux, U_aux = tube_ilqr_solve_lanes(
             pb, aux_cfg, w=w_aux, bp=bp_aux, x_hat0=x_hat, U_init=state.U_aux_ws,
-            X_ref=X_ref, U_ref=U_nom, device=dev,
+            X_ref=X_ref, U_ref=U_nom, device=dev, compact_caps=aux_compact_caps,
         )
 
         dx = X_aux[..., :nx] - X_ref
@@ -424,6 +447,10 @@ def run_generic_closed_loop_lanes(
     eps: float = 1e-6,
     barrier_type: str = "inverse",
     device: DeviceLike = None,
+    nom_compact_caps: Tuple[int, ...] = (),
+    aux_compact_caps: Tuple[int, ...] = (),
+    ckpt_dir: Optional[str] = None,
+    segment_len: Optional[int] = None,
 ) -> Tuple[ClosedLoopLog, Tuple[RawAuxTheta, RawNominalTheta]]:
     """Run H steps of B generic-path closed loops (raw softplus/tanh θ, adaptive
     barrier α/γ); returns (a ClosedLoopLog of [B, H, ...], (final raw ancillary θ,
@@ -436,8 +463,9 @@ def run_generic_closed_loop_lanes(
     raw sets update by projected momentum. cfg.coupling="full" adds the explicit
     ∂L/∂x̄ term. cfg.adapt.steps > 1 runs the inner fixed-trajectory loop.
 
-    Disturbances are ``w_seqs``, or drawn from ``generator`` for ``batch`` lanes.
-    Runs on the card unless device='cpu'."""
+    Disturbances are ``w_seqs``, or drawn from ``generator`` for ``batch`` lanes. The
+    caps and ``ckpt_dir`` as in run_paper_closed_loop_lanes. Runs on the card unless
+    device='cpu'."""
     if cfg.adapt.steps < 1:
         raise ValueError("adapt.steps must be >= 1")
     if cfg.coupling not in ("reference", "full"):
@@ -456,12 +484,11 @@ def run_generic_closed_loop_lanes(
     dtype = w_seqs.dtype
 
     pb = make_lane_problem(sys_c, barrier_type=barrier_type, eps=eps)
-    step = make_generic_lane_step(system, aug, pb, cfg, target=target, B=B, dtype=dtype, device=dev)
+    step = make_generic_lane_step(system, aug, pb, cfg, target=target, B=B, dtype=dtype, device=dev,
+                                  nom_compact_caps=nom_compact_caps,
+                                  aux_compact_caps=aux_compact_caps)
     state = generic_lane_init_state(system, aug, cfg, raw_nom=raw_nom, raw_aux_init=raw_aux_init,
                                     x0=x0, B=B, dtype=dtype)
-    logs = []
-    for t in range(H):
-        state, log = step(state, w_seqs[:, t])
-        logs.append(log)
-    log = ClosedLoopLog(*(torch.stack(field, dim=1) for field in zip(*logs)))
+    state, log = run_steps(step, state, w_seqs, ClosedLoopLog, ckpt_dir=ckpt_dir,
+                           segment_len=segment_len, cfg=cfg, inputs=(state, target))
     return log, (state.raw_aux, state.raw_nom)

@@ -80,9 +80,14 @@ def tube_ilqr_solve_lanes(
     X_ref: Tensor,       # [B, N+1, n] (or [N+1, n] shared: goal tracking)
     U_ref: Tensor,       # [B, N, m]   (or [N, m] shared)
     device: DeviceLike = None,
-) -> Tuple[Tensor, Tensor]:
+    with_lane_iters: bool = False,
+    compact_caps: Tuple[int, ...] = (),
+) -> Tuple:
     """Solve B tube OCPs at once on the lane kernels; returns
-    (X_hat [B, N+1, n̂], U [B, N, m]). Runs on the card unless device='cpu'."""
+    (X_hat [B, N+1, n̂], U [B, N, m]), then each lane's iterations [B] with
+    ``with_lane_iters``; ``compact_caps`` runs the
+    straggler compaction, bitwise equal to the uncompacted solve (lane_ilqr_solve).
+    Runs on the card unless device='cpu'."""
     dev = resolve_device(device)
     check_on(dev, (x_hat0, U_init, X_ref, U_ref), "tube_ilqr_solve_lanes")
     B, N, m = U_init.shape
@@ -101,11 +106,12 @@ def tube_ilqr_solve_lanes(
     C = _build_C(pb, w, bp, B, dtype, dev)
     X0_r = rollout(pb, x0_r, U0_r, Xr_r, Ur_r, C)
 
-    X_r, U_r = lane_ilqr_solve(
+    out = lane_ilqr_solve(
         pb, x_hat0=x0_r, U0=U0_r, X0=X0_r, X_ref=Xr_r, U_ref=Ur_r, C=C,
         max_iter=cfg.max_iter, tol=cfg.tol, reg=cfg.reg, alphas=cfg.alphas,
+        with_lane_iters=with_lane_iters, compact_caps=compact_caps,
     )
-    return _unrows(X_r), _unrows(U_r)
+    return (_unrows(out[0]), _unrows(out[1])) + out[2:]
 
 
 def tube_sensitivity_grads_lanes(
