@@ -4,7 +4,8 @@ check them.
 
     python3 chip_smoke.py            # from the repository root, on a machine with a card
 
-The paths are bench.py's paper workload (run_paper_closed_loop_lanes: K1-K4), its
+The paths are bench.py's paper workload (run_paper_closed_loop_lanes: K1-K4; also with one θ
+shared by the lanes, population=True, and sharded over a one-rank NCCL device mesh), its
 BENCH_MODE=coupled workload (run_generic_closed_loop_lanes with adapt_nominal: K1, K2
 and the generic and coupled variants K5, K6 of the sensitivity kernels), its
 BENCH_SYSTEM families, the double integrator, the planar quadrotor and the cart-pole
@@ -12,8 +13,9 @@ on the paper loop (K1-K4 built for each system; presets.family_paper_setup), and
 port's CLI (python -m tube_mpc_tpu_torch.run_experiment) on the shipped configs, the
 families' in coupled mode (K1, K2 and K5/K6 built for each system), and on four configs
 derived from them that take the lane engine's other branches, the exact-min obstacle
-aggregation and the log barrier (MINLOG: K1-K6 built for each in a library of its own).
-Phases, each of which fails the run (non-zero exit, no result line) if it fails:
+aggregation and the log barrier (MINLOG: K1-K6 built for each in a library of its own), and
+the scenario layer (tube_mpc_tpu_torch.parallel: tube verification on both engines, the
+population Algorithm 2 on the XLA engine, with and without a mesh). Phases, each of which fails the run (non-zero exit, no result line) if it fails:
 
 1. device:   the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build:    nvcc builds the three kernel sources for each of the four systems (eight
@@ -74,6 +76,7 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              all of them beside the card's phases;
    loop64_dubins_min_log, loop64_cartpole_log_coupled: phases 4 and 5 on the Dubins
              min + log configuration's paper loop and the cart-pole log one's coupled loop;
+   loop64_population: phase 4 with population=True (one θ shared by the lanes);
    xla64_paper, xla64_coupled: the feature-major (XLA) engine (tube/closed_loop.py, batched
              PyTorch operations; the JAX package's XLA path reaches no pl.pallas_call, so it
              has no kernel here) on phases 4's and 5's setups (the coupled one with the
@@ -93,13 +96,28 @@ Phases, each of which fails the run (non-zero exit, no result line) if it fails:
              and 7, with bench.py's default caps (COMPACT_CAPS): every log field bitwise
              equal to the uncompacted run's, the launches of K1 and K2 by width and the
              compacted and full-width stages of each loop (at least one compacted stage in
-             all), the walls of both versions run uncompacted, compacted, compacted,
-             uncompacted (AB_ORDER); the paper loop once more through the step with
+             all), the walls of both versions, each run once more after the phase's
+             first (AB_ORDER: compacted, then uncompacted); the paper loop once more through the step with
              iter_telemetry (each lane's iterations a solve); K1 and K2 timed at the
              stages' widths (COMPACT_WIDTHS);
    main_<family>: the full-width paper path of each family, B=16384, N=50, H=300 in f32
              (the counts set to 0 just before each): K1-K4 launched, K3 and K4 exactly
              H times, at least 99% of the lanes finite;
+   population: the full-width paper path with population=True (B=16384, N=50, H=300, f32;
+             the counts set to 0 just before it): K1-K4 launched from Dubins' libraries, K3
+             and K4 exactly H times, at least 99% of the lanes finite, the logged θ the same
+             on every lane at every step and moved from its start; wall, ms a step, solves/s;
+   scenarios: parallel.tube_verification with the lane kernels (sys_c) at the same size
+             (K1-K4 launched, K3/K4 H times although lr = 0), and on the XLA engine at
+             XLA_H, and run_population_adaptation (mesh=None) at B=16384, XLA_H: finite
+             statistics (the collision rate printed), θ frozen in the verification and moved
+             in the adaptation; run_population_adaptation in f64 at POP64_B, N, POP64_H, the
+             card against the CPU (a worker process) at the XLA loop's tolerances;
+   sharded:  over a one-rank NCCL mesh (parallel.init_distributed on tcp://localhost,
+             make_mesh): run_paper_closed_loop_lanes_sharded, independent and population, at
+             B=16384, N=50, H cut to SHARD_H, bitwise the unsharded loop; the same with
+             ckpt_dir at SHARD_H/2 a segment, and resumed after its last segment's files are
+             deleted, bitwise; run_population_adaptation over the mesh bitwise mesh=None's;
 8. cli:      the port's CLI in-process at --batch 16384 on configs/dubins.yaml and on a
              coupled copy of each family's config, at each config's own N and H
              (cli_phase: artifacts, summary keys, each run's kernels launched from its
@@ -252,7 +270,7 @@ XLA_LOOP_TOL = {**{k: (1e-6, 1e-8) for k in ("x_real", "u_real", "x_bar", "u_bar
                 **{k: (1e-5, 1e-8) for k in ("loss", "Q_hist", "R_hist", "qb_hist",
                                               "raw_aux", "raw_nom")}}
 XLA_CASES = {"paper": SEED + 90, "coupled": SEED + 91}   # xla64's loops: their draws' seeds
-XLA_H = 3                      # ~3.2 s a paper step, ~0.8 s a cart-pole coupled step
+XLA_H = 2                      # ~2-3 s a paper step, ~0.8 s a cart-pole coupled step
 XLA_FAMILY = "cartpole"        # the xla phase's coupled loop: m = 1, Jacobians by autodiff
 XLA_CLI_H, XLA_NOMINAL_H = 2, 10
 
@@ -261,15 +279,22 @@ XLA_CLI_H, XLA_NOMINAL_H = 2, 10
 # widths at which K1 and K2 are timed (the stages' at B, lane_solver.stage_widths).
 COMPACT_CAPS = {"paper": (2, 5, 8), "coupled": (1, 3, 5)}
 COMPACT_WIDTHS = (8192, 4096, 2048)
-# phase compact runs each loop uncompacted and compacted in this order, so that neither
-# version has the process's warm-up to itself
-AB_ORDER = ("uncompacted", "compacted", "compacted", "uncompacted")
+# phase compact runs each loop compacted, then uncompacted again, after the phase's own
+# uncompacted run: by then the process is warm (its first run of four was not the slowest)
+AB_ORDER = ("compacted", "uncompacted")
 # Checkpoint and resume through the CLI (phase cli_ckpt): the segment of the lane runs, the
 # family whose config runs there in coupled mode, and the XLA run's H (one segment a step).
 CKPT_EVERY = 100
 CKPT_COUPLED = "double_integrator"
 XLA_CKPT_H = 2
 PROFILE_CLI_H = 3   # phase cli_profile: the traced CLI run's H (cut from 300)
+
+# The scenario layer (parallel/, the paper lane loop's population mode; phases population,
+# loop64_population, scenarios, sharded): the sharded phase's H, cut from H so that its six
+# lane runs over the one-rank mesh fit the time limit; run_population_adaptation's f64 check,
+# the card against the CPU, at POP64_B scenarios and POP64_H steps.
+SHARD_H = 100
+POP64_B, POP64_H = 64, 2
 
 # The systems whose f64 loop is chaotic over LOOP64_H steps: the cart-pole's swing-up (a
 # 1e-15 perturbation of its start and disturbances grows to O(1) within five steps on the
@@ -575,15 +600,15 @@ def with_obstacles(pb, centers, eps):
     return make_lane_problem(sys_c, barrier_type=pb.barrier_type, eps=eps)
 
 
-def run_paper_loop(s, w, where, aux_caps=()):
+def run_paper_loop(s, w, where, aux_caps=(), population=False):
     """The paper loop of setup s under the disturbances w, on `where`, with the ancillary
-    solves' compaction caps `aux_caps`."""
+    solves' compaction caps `aux_caps`; with `population`, one θ shared by the lanes."""
     from tube_mpc_tpu_torch.tube.lane_closed_loop import run_paper_closed_loop_lanes
 
     return run_paper_closed_loop_lanes(
         s.system, s.aug, s.sys_c, s.cfg, w_nominal=s.w_nominal, aux_init=s.aux_init,
         bp=s.bp, x0=s.x0, target=s.target, w_seqs=w, eps=s.eps, barrier_type=s.barrier_type,
-        device=where, aux_compact_caps=aux_caps)
+        population=population, device=where, aux_compact_caps=aux_caps)
 
 
 def run_coupled(s, cfg, raw_nom, raw_aux, w, where, aux_caps=()):
@@ -603,19 +628,22 @@ def run_coupled(s, cfg, raw_nom, raw_aux, w, where, aux_caps=()):
 LOOP64_CASES = {("paper", "dubins"): SEED + 2, ("coupled", "dubins"): SEED + 5,
                 **{("paper", f): SEED + 20 + i for i, f in enumerate(FAMILIES)},
                 **{("coupled", f): SEED + 50 + i for i, f in enumerate(FAMILIES)},
-                ("paper", "dubins_min_log"): SEED + 70, ("coupled", "cartpole_log"): SEED + 71}
+                ("paper", "dubins_min_log"): SEED + 70, ("coupled", "cartpole_log"): SEED + 71,
+                ("population", "dubins"): SEED + 72}
 
 
 def loop64_case(torch, kind, family, where, H_=LOOP64_H, scale=1.0):
-    """(setup, run, w) of the f64 loop `kind` ("paper" or "coupled") of `family` at B=LOOP64_B,
-    N, H=H_ on `where`: run(setup, w, where) runs it under the disturbances w. With `scale`,
-    the start x0 and the disturbances are multiplied by it (1 + 1e-15: a perturbation of
-    their last bits)."""
+    """(setup, run, w) of the f64 loop `kind` ("paper", "population": the paper loop with one
+    θ shared by the lanes, or "coupled") of `family` at B=LOOP64_B, N, H=H_ on `where`:
+    run(setup, w, where) runs it under the disturbances w. With `scale`, the start x0 and the
+    disturbances are multiplied by it (1 + 1e-15: a perturbation of their last bits)."""
     f64 = torch.float64
-    if kind == "paper":
+    if kind in ("paper", "population"):
         st = paper_setup(family, N, H_, where, f64)
         st = dataclasses.replace(st, x0=st.x0 * scale)
-        run, s = run_paper_loop, st
+        run = lambda s_, w_, where_: run_paper_loop(s_, w_, where_,
+                                                    population=kind == "population")
+        s = st
     else:
         st = coupled_setup(torch, H_, where, f64, family)
         st = (dataclasses.replace(st[0], x0=st[0].x0 * scale), *st[1:])
@@ -690,6 +718,35 @@ def cpu_xla64(kind):
     run, _ = xla64_case(torch, kind, "cpu")
     t0 = time.perf_counter()
     out = run("xla")
+    return tree_map(lambda t: t.numpy(), out), time.perf_counter() - t0
+
+
+def population64_case(torch, where):
+    """run() of the scenarios phase's f64 check: run_population_adaptation (the XLA engine)
+    on the paper setup at POP64_B scenarios, N, POP64_H steps on `where`, the starts spread
+    over ±0.5 in px and py, from the draws of seed SEED + 92."""
+    from tube_mpc_tpu_torch.parallel import run_population_adaptation
+
+    f64 = torch.float64
+    s = paper_setup("dubins", N, POP64_H, where, f64)
+    gen = torch.Generator().manual_seed(SEED + 92)
+    w = s.system.sample_disturbance(gen, (POP64_B, POP64_H), dtype=f64).to(where)
+    spread = torch.rand((POP64_B, 3), generator=gen, dtype=f64) - 0.5
+    x0 = s.x0 + (spread * torch.tensor([1.0, 1.0, 0.0], dtype=f64)).to(where)
+    return lambda: run_population_adaptation(
+        s.system, s.aug, s.cfg, w_nominal=s.w_nominal, aux_init=s.aux_init, bp=s.bp,
+        x0_batch=x0, target=s.target, w_seqs=w, device=where)
+
+
+def cpu_population64():
+    """The CPU's side of the scenarios phase's f64 check, in a worker process: (its log and
+    final θ as numpy arrays, its seconds)."""
+    import torch
+
+    torch.set_num_threads(1)
+    run = population64_case(torch, "cpu")
+    t0 = time.perf_counter()
+    out = run()
     return tree_map(lambda t: t.numpy(), out), time.perf_counter() - t0
 
 
@@ -1191,6 +1248,200 @@ def bitwise(a, b) -> bool:
     return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
 
 
+def scenario_phases(torch, dev, t_start, cpu_pop64):
+    """The scenario layer's phases (the module's docstring): population, scenarios, sharded.
+    Each lane run's launches are counted from 0 and must come from Dubins' libraries, K1-K4
+    all launched and K3/K4 once a step."""
+    import math
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tube_mpc_tpu_torch.ops.costs import CostWeights
+    from tube_mpc_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from tube_mpc_tpu_torch.parallel import (
+        init_distributed, make_mesh, run_population_adaptation, tube_verification)
+    from tube_mpc_tpu_torch.presets import dubins_paper_setup
+    from tube_mpc_tpu_torch.tube.lane_closed_loop import run_paper_closed_loop_lanes_sharded
+
+    f32 = torch.float32
+
+    def timed(run):
+        """(run's result, its wall in s, the lane kernels' launches), the counts from 0."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, launch_counts()
+
+    def lane_kernels_ran(phase, counts, steps):
+        problems = [k for k in PAPER if counts[k] == 0]
+        problems += [f"{k}: {counts[k]}" for k in ("sbwd", "sfwd") if counts[k] != steps]
+        problems += [f"{k} from {v}" for k, v in launch_counts(by_system=True) if v != "dubins"]
+        if problems:
+            raise SystemExit(f"chip_smoke: {phase}: the lane kernels' launches are wrong "
+                             f"(K3/K4 once a step, {steps}): {problems}")
+
+    def rate(phase, what, wall, lanes, steps, finite):
+        log(f"[{phase}] {what}: B={lanes}, N={N}, H={steps} f32: {wall:.3f} s, "
+            f"{1e3 * wall / steps:.1f} ms/step, {2 * steps * lanes / wall:.1f} solves/s "
+            f"(2*H*B / elapsed), finite_lane_frac {finite!r}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+
+    def shared(out):
+        return all(torch.equal(h, h[:1].expand_as(h)) for h in (out.Q_hist, out.R_hist,
+                                                                  out.qb_hist))
+
+    # ---- population: the paper lane loop, one θ shared by the lanes ---------------------
+    s = dubins_paper_setup(N=N, H=H, device=dev, dtype=f32)
+    w = s.system.sample_disturbance(torch.Generator(device=dev).manual_seed(SEED + 80), (B, H),
+                                    dtype=f32)
+    out, wall, counts = timed(lambda: run_paper_loop(s, w, dev, population=True))
+    finite = float(torch.isfinite(out.loss[:, -1]).float().mean())
+    moved = float((out.Q_hist[0, -1] - s.aux_init.Q).abs().max())
+    rate("population", "the paper lane loop, population=True", wall, B, H, finite)
+    log(f"[population] launches: {json.dumps(counts)}; θ the same on every lane at every step: "
+        f"{shared(out)}; final Q {out.Q_hist[0, -1].tolist()}, R {out.R_hist[0, -1].tolist()}, "
+        f"qb {float(out.qb_hist[0, -1])!r} (max |Q - Q0| {moved!r})")
+    lane_kernels_ran("population", counts, H)
+    if finite < 0.99 or not shared(out) or moved == 0.0:
+        raise SystemExit(f"chip_smoke: population: finite_lane_frac {finite}, θ shared "
+                         f"{shared(out)}, θ moved by {moved}")
+    if tuple(out.Q_hist.shape) != (B, H, 3) or tuple(out.loss.shape) != (B, H):
+        raise SystemExit("chip_smoke: population: the log has the wrong shapes")
+    del out
+
+    # ---- scenarios: tube verification on both engines, the population Algorithm 2 ------
+    w_aux = CostWeights(Q=s.aux_init.Q, R=s.aux_init.R, Qf=s.aux_init.Q, qb=s.aux_init.qb)
+
+    def verified(what, logs, stats, lanes, steps):
+        nums = {k: float(v) for k, v in stats._asdict().items() if k != "deviations"}
+        frozen = torch.equal(logs.Q_hist[:, 0], logs.Q_hist[:, -1])
+        log(f"[scenarios] tube_verification {what}: {json.dumps(nums)}; θ frozen: {frozen}")
+        if not (all(math.isfinite(v) for v in nums.values()) and frozen
+                and bool(torch.isfinite(stats.deviations).all())
+                and tuple(stats.deviations.shape) == (lanes, steps)):
+            raise SystemExit(f"chip_smoke: scenarios: tube_verification {what} failed")
+
+    (logs, stats), wall, counts = timed(lambda: tube_verification(
+        s.system, s.aug, s.cfg, w_nominal=s.w_nominal, w_aux=w_aux, bp=s.bp, x0=s.x0,
+        target=s.target, w_seqs=w, sys_c=s.sys_c, eps=s.eps, device=dev))
+    rate("scenarios", "tube_verification on the lane kernels", wall, B, H,
+         float(torch.isfinite(logs.loss[:, -1]).float().mean()))
+    log(f"[scenarios] launches: {json.dumps(counts)}")
+    lane_kernels_ran("scenarios", counts, H)
+    verified("on the lane kernels", logs, stats, B, H)
+    del logs, stats
+
+    sx = dubins_paper_setup(N=N, H=XLA_H, device=dev, dtype=f32)
+    wx = w[:, :XLA_H].contiguous()
+    log(f"[scenarios] the XLA engine's runs at H={XLA_H} (cut from {H}: ~2-3 s a step)")
+    (logs, stats), wall, _ = timed(lambda: tube_verification(
+        sx.system, sx.aug, sx.cfg, w_nominal=sx.w_nominal, w_aux=w_aux, bp=sx.bp, x0=sx.x0,
+        target=sx.target, w_seqs=wx, device=dev))
+    rate("scenarios", "tube_verification on the XLA engine", wall, B, XLA_H,
+         float(torch.isfinite(logs.loss[:, -1]).float().mean()))
+    verified("on the XLA engine", logs, stats, B, XLA_H)
+    del logs, stats
+    x0_b = sx.x0.expand(B, 3).contiguous()
+
+    def population_run(mesh=None):
+        return run_population_adaptation(sx.system, sx.aug, sx.cfg, w_nominal=sx.w_nominal,
+                                         aux_init=sx.aux_init, bp=sx.bp, x0_batch=x0_b,
+                                         target=sx.target, w_seqs=wx, mesh=mesh, device=dev)
+
+    (pop_log, pop_final), wall, _ = timed(population_run)
+    ff = float(pop_log.finite_frac.min())
+    moved = float((pop_final.Q - sx.aux_init.Q).abs().max())
+    rate("scenarios", "run_population_adaptation (mesh=None)", wall, B, XLA_H, ff)
+    log(f"[scenarios] population: loss_mean {pop_log.loss_mean.tolist()}, finite_frac "
+        f"{pop_log.finite_frac.tolist()}, final Q {pop_final.Q.tolist()} (max |Q - Q0| {moved!r})")
+    if not bool(torch.isfinite(pop_log.loss_mean).all()) or ff < 0.99 or moved == 0.0:
+        raise SystemExit(f"chip_smoke: scenarios: run_population_adaptation: finite_frac {ff}, "
+                         f"θ moved by {moved}")
+    # f64, small: the card against the CPU (a worker process) at the XLA loop's tolerances
+    t0 = time.perf_counter()
+    card = population64_case(torch, dev)()
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    cpu_out, cpu_s = cpu_pop64.get()
+    ref_log, ref_final = tree_map(torch.as_tensor, cpu_out)
+    log(f"[scenarios] run_population_adaptation f64, B={POP64_B}, N={N}, H={POP64_H}: "
+        f"{cpu_s:.1f} s on the cpu (a worker process), {t_card:.1f} s on {dev}")
+    bad = []
+    for name, got, ref in ([(f"log.{k}", v, getattr(ref_log, k))
+                            for k, v in card[0]._asdict().items()]
+                           + [(f"final.{k}", v, getattr(ref_final, k))
+                              for k, v in card[1]._asdict().items()]):
+        rtol, atol = XLA_LOOP_TOL["loss" if name == "log.loss_mean" else "Q_hist"]
+        d = (got.cpu() - ref).abs()
+        ok = bool((d <= atol + rtol * ref.abs()).all())
+        log(f"[scenarios] f64 {name}: max |card - cpu| = {float(d.max())!r} (rtol {rtol}, "
+            f"atol {atol}) -> {'ok' if ok else 'FAIL'}")
+        bad += [] if ok else [name]
+    if bad:
+        raise SystemExit(f"chip_smoke: scenarios: run_population_adaptation f64 on the card "
+                         f"disagrees with the CPU: {bad}")
+    log(f"[scenarios] done at {time.perf_counter() - t_start:.0f} s")
+
+    # ---- sharded: the sharded paths over a one-rank NCCL mesh, bitwise the unsharded ------
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    init_distributed(f"tcp://localhost:{port}", world_size=1, rank=0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        mesh = make_mesh(device=dev)
+        log(f"[sharded] {mesh}, backend {dist.get_backend()}, H={SHARD_H} (cut from {H})")
+        ss = dubins_paper_setup(N=N, H=SHARD_H, device=dev, dtype=f32)
+        ws = w[:, :SHARD_H].contiguous()
+        for population in (False, True):
+            mode = "population" if population else "independent"
+            ref, wall_ref, _ = timed(lambda: run_paper_loop(ss, ws, dev, population=population))
+
+            def sharded(**kw):
+                return run_paper_closed_loop_lanes_sharded(
+                    ss.system, ss.aug, ss.sys_c, ss.cfg, w_nominal=ss.w_nominal,
+                    aux_init=ss.aux_init, bp=ss.bp, x0=ss.x0, target=ss.target, w_seqs=ws,
+                    mesh=mesh, eps=ss.eps, population=population, device=dev, **kw)
+
+            out, wall, counts = timed(sharded)
+            lane_kernels_ran(f"sharded {mode}", counts, SHARD_H)
+            ck = os.path.join(tmp, mode)
+            full, wall_ck, _ = timed(lambda: sharded(ckpt_dir=ck, segment_len=SHARD_H // 2))
+            for name in (f"state_{SHARD_H}.npz", f"logs_{SHARD_H}.npz"):
+                os.remove(os.path.join(ck, name))
+            resumed, wall_res, _ = timed(lambda: sharded(ckpt_dir=ck, segment_len=SHARD_H // 2))
+            same = {what: [f for f in ref._fields if not bitwise(getattr(o, f), getattr(ref, f))]
+                    for what, o in (("sharded", out), ("checkpointed", full),
+                                    ("resumed", resumed))}
+            log(f"[sharded] {mode}: unsharded {wall_ref:.3f} s, sharded {wall:.3f} s, "
+                f"checkpointed every {SHARD_H // 2} {wall_ck:.3f} s, resumed from step "
+                f"{SHARD_H // 2} {wall_res:.3f} s; launches {json.dumps(counts)}; fields not "
+                f"bitwise the unsharded run's: {json.dumps(same)}")
+            if any(same.values()):
+                raise SystemExit(f"chip_smoke: sharded {mode}: not bitwise the unsharded loop: "
+                                 f"{same}")
+            del ref, out, full, resumed
+        (mesh_log, mesh_final), wall, _ = timed(lambda: population_run(mesh))
+        same = [k for k in pop_log._fields if not bitwise(getattr(mesh_log, k), getattr(pop_log, k))]
+        same += [k for k in pop_final._fields if not bitwise(getattr(mesh_final, k),
+                                                              getattr(pop_final, k))]
+        log(f"[sharded] run_population_adaptation over the mesh: {wall:.3f} s at B={B}, "
+            f"H={XLA_H}; fields not bitwise mesh=None's: {same}")
+        if same:
+            raise SystemExit(f"chip_smoke: sharded: run_population_adaptation over the mesh is "
+                             f"not bitwise mesh=None's: {same}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+    log(f"[sharded] done at {time.perf_counter() - t_start:.0f} s")
+
+
 def compact_phase(torch, dev, t_start, cases, paper_w):
     """Phase compact: straggler compaction at full width (B=16384, N=50, H=300, f32), on
     the paper loop with COMPACT_CAPS["paper"] and the coupled loop with
@@ -1450,7 +1701,7 @@ def main() -> int:
         return 2
     # the CPU's f64 loops (loop64*) run in worker processes beside the card's phases; every
     # worker is stopped on the way out, whatever the phases did
-    workers = max(1, min(len(LOOP64_CASES) + 2 * len(CHAOTIC) + len(XLA_CASES),
+    workers = max(1, min(len(LOOP64_CASES) + 2 * len(CHAOTIC) + len(XLA_CASES) + 1,
                          (os.cpu_count() or 2) - 1))
     pool = multiprocessing.get_context("spawn").Pool(workers)
     try:
@@ -1486,6 +1737,7 @@ def run_phases(torch, pool) -> int:
                 log(f"[build] {name}: {kernel_label(line.strip())}")
     cpu_runs = {case: pool.apply_async(cpu_loop64, case) for case in LOOP64_CASES}
     cpu_xla = {kind: pool.apply_async(cpu_xla64, (kind,)) for kind in XLA_CASES}
+    cpu_pop64 = pool.apply_async(cpu_population64)
     # a chaotic loop's CPU side also with its start and disturbances times 1 + 1e-15
     cpu_perturbed = {(kind, family): pool.apply_async(cpu_loop64, (kind, family, LOOP64_H,
                                                                     1.0 + 1e-15))
@@ -1820,6 +2072,7 @@ def run_phases(torch, pool) -> int:
         log(f"[loop64 {family}] done at {time.perf_counter() - t_start:.0f} s")
     hold_loop64("loop64_dubins_min_log", "paper", "dubins_min_log", LOOP_TOL)
     hold_loop64("loop64_cartpole_log_coupled", "coupled", "cartpole_log", COUPLED_LOOP_TOL)
+    hold_loop64("loop64_population", "population", "dubins", LOOP_TOL)
     log(f"[loop64] all done at {time.perf_counter() - t_start:.0f} s")
 
     # ---- xla64: the XLA engine's f64 loops on the card against the CPU and the lane engine
@@ -1958,6 +2211,10 @@ def run_phases(torch, pool) -> int:
             raise SystemExit(f"chip_smoke: {family}'s closed-loop log has the wrong shapes")
         del out
     log(f"[main families] done at {time.perf_counter() - t_start:.0f} s")
+
+    # ---- the scenario layer: population mode, tube verification, population Algorithm 2,
+    # and the sharded paths over a one-rank NCCL mesh -------------------------------------
+    scenario_phases(torch, dev, t_start, cpu_pop64)
 
     # ---- 8. the CLI: the port's entry point on the shipped configs at full width, then on
     # the MINLOG configurations -------------------------------------------------------

@@ -115,6 +115,18 @@ def test_checkpoint_profiling_and_plotting_modules_are_held_by_the_no_jax_rule()
     assert {"utils/checkpoint.py", "utils/profiling.py", "plotting.py"} <= held
 
 
+def test_scenario_layer_modules_are_held_by_the_no_jax_rule():
+    """The no-JAX rule above covers the scenario layer: the mesh, the scenario engines and
+    the package that exports them, the JAX module's names."""
+    held = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/scenarios.py"} <= held
+    from tube_mpc_tpu_torch import parallel
+
+    assert parallel.__all__ == [
+        "SCENARIO_AXIS", "make_mesh", "scenario_sharding", "replicated", "init_distributed",
+        "vmap_paper_closed_loop", "tube_verification", "TubeStats", "run_population_adaptation"]
+
+
 def test_package_imports_without_nvcc_and_builds_nothing():
     """Every module imports in a process whose PATH holds no nvcc, importing builds no
     kernel, and nothing imports matplotlib (only plot_run does, when called)."""
@@ -186,6 +198,23 @@ def test_entry_points_raise_without_a_card(monkeypatch):
             raw_nom=raw_nom_from_numpy(dict(raws, tight_raw=0.0), "cpu", torch.float64),
             raw_aux_init=raw_aux_from_numpy(raws, "cpu", torch.float64), x0=s.x0,
             target=s.target, w_seqs=torch.zeros((B, 2, 3), dtype=torch.float64), eps=s.eps)
+    from tube_mpc_tpu_torch.parallel import (
+        make_mesh,
+        run_population_adaptation,
+        tube_verification,
+    )
+
+    w = torch.zeros((B, 2, 3), dtype=torch.float64)
+    for sys_c in (None, s.sys_c):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tube_verification(s.system, s.aug, s.cfg, w_nominal=s.w_nominal, w_aux=s.w_nominal,
+                              bp=s.bp, x0=s.x0, target=s.target, w_seqs=w, sys_c=sys_c)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_population_adaptation(s.system, s.aug, s.cfg, w_nominal=s.w_nominal,
+                                  aux_init=s.aux_init, bp=s.bp, x0_batch=s.x0.expand(B, 3),
+                                  target=s.target, w_seqs=w)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
     with pytest.raises(RuntimeError, match="requested but no CUDA device"):
         resolve_device("cuda")
 
@@ -436,6 +465,49 @@ def test_lane_state_round_trip(jax_setup):
                                  x0=s.x0, B=B, dtype=torch.float64)
     for f in ("x", "b", "x_bar", "b_bar", "U_nom_ws", "U_aux_ws"):
         np.testing.assert_allclose(getattr(mine, f).numpy(), d[f], rtol=1e-12, atol=0.0)
+
+
+def test_population_states_round_trip(jax_setup):
+    """A population lane state (θ shared: [nx], [nu], []) and a population state of the
+    scenarios (parallel/scenarios.py) carried across from the JAX package, leaf for leaf;
+    the port's own initial states against the JAX ones."""
+    from tube_mpc_tpu.parallel.scenarios import PopulationState as JPopulationState
+
+    from tube_mpc_tpu_torch.convert import population_state_from_numpy
+    from tube_mpc_tpu_torch.parallel.scenarios import PopulationState, _population_init
+
+    js = jax_setup
+    B = 3
+    arrays = ("x", "b", "x_bar", "b_bar", "U_nom_ws", "U_aux_ws")
+    j_lane = j_paper_lane_init_state(js.system, js.aug, js.cfg, aux_init=js.aux_init, bp=js.bp,
+                                     x0=js.x0, B=B, dtype=jnp.float64, population=True)
+    x0_b = jnp.tile(js.x0, (B, 1)) + 0.1 * jnp.arange(B, dtype=jnp.float64)[:, None]
+    b0 = js.aug.init_b0(x0_b, js.bp)
+    zeros_U = jnp.zeros((B, js.cfg.N, 2), dtype=jnp.float64)
+    j_pop = JPopulationState(x=x0_b, b=b0, x_bar=x0_b, b_bar=b0, U_nom_ws=zeros_U,
+                             U_aux_ws=zeros_U, adapt=js.aux_init,
+                             vel=type(js.aux_init)(*(jnp.zeros_like(v) for v in js.aux_init)))
+    s = setup_from_numpy(setup_as_numpy(js), device="cpu", dtype=torch.float64)
+    mine_lane = paper_lane_init_state(s.system, s.aug, s.cfg, aux_init=s.aux_init, bp=s.bp,
+                                      x0=s.x0, B=B, dtype=torch.float64, population=True)
+    mine_pop = _population_init(s.system, s.aug, s.cfg, aux_init=s.aux_init, bp=s.bp,
+                                     x0_batch=torch.as_tensor(np.array(x0_b)))
+    for convert_fn, j_state, mine in ((lane_state_from_numpy, j_lane, mine_lane),
+                                      (population_state_from_numpy, j_pop, mine_pop)):
+        d = {f: np.asarray(getattr(j_state, f)) for f in arrays}
+        for f in ("adapt", "vel"):
+            d[f] = {g: np.asarray(getattr(getattr(j_state, f), g)) for g in ("Q", "R", "qb")}
+        state = convert_fn(d, device="cpu", dtype=torch.float64)
+        assert type(state).__name__ == type(j_state).__name__
+        assert tuple(state.adapt.Q.shape) == (3,) and tuple(state.adapt.qb.shape) == ()
+        for f in arrays:
+            np.testing.assert_array_equal(getattr(state, f).numpy(), d[f])
+            np.testing.assert_allclose(getattr(mine, f).numpy(), d[f], rtol=1e-12, atol=0.0)
+        for f in ("adapt", "vel"):
+            for g in ("Q", "R", "qb"):
+                np.testing.assert_array_equal(getattr(getattr(state, f), g).numpy(), d[f][g])
+                np.testing.assert_array_equal(getattr(getattr(mine, f), g).numpy(), d[f][g])
+    assert isinstance(population_state_from_numpy(d, "cpu", torch.float64), PopulationState)
 
 
 def test_generic_lane_state_round_trip(jax_setup):

@@ -9,7 +9,9 @@ systems, each two lane iLQR solves and the lane sensitivity per step, on hand-wr
 CUDA kernels (``csrc/lane_solver.cu``, ``csrc/lane_sbwd.cu``, ``csrc/lane_sfwd.cu``)
 built at first use by ``ops.cuda._build``. Each kernel has a plain PyTorch version
 beside its wrapper, which runs for CPU tensors; the tests hold those against the JAX
-package.
+package. ``parallel`` holds the scenario layer: tube verification, the population
+Algorithm 2, and the device mesh over which the sharded paper loop
+(``run_paper_closed_loop_lanes_sharded``) and the population gradient run.
 """
 from .device import resolve_device, resolve_dtype
 

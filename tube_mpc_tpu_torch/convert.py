@@ -17,6 +17,7 @@ import torch
 from .device import DeviceLike, resolve_device, resolve_dtype
 from .ops.costs import CostWeights
 from .ops.dbas import BarrierParams
+from .parallel.scenarios import PopulationState
 from .presets import PaperSetup, build_dubins_setup, build_family_setup
 from .systems.dubins import DubinsConfig
 from .tube.closed_loop import (
@@ -126,7 +127,8 @@ def family_setup_from_numpy(name: str, d: Any, device: DeviceLike = None,
 
 def lane_state_from_numpy(d: Any, device: DeviceLike = None, dtype=torch.float32) -> LaneLoopState:
     """A LaneLoopState from ``d`` with x, b, x_bar, b_bar, U_nom_ws, U_aux_ws and
-    adapt{Q, R, qb}, vel{Q, R, qb}."""
+    adapt{Q, R, qb}, vel{Q, R, qb}: per lane ([B, nx], [B, nu], [B]), or shared in
+    population mode ([nx], [nu], [])."""
     dev = resolve_device(device)
     dtype = resolve_dtype(dtype)
 
@@ -231,6 +233,17 @@ def paper_state_from_numpy(d: Any, device: DeviceLike = None,
     return PaperLoopState(*(t(_get(d, f)) for f in _STATE_ARRAYS),
                           adapt=aux_adapt_from_numpy(_get(d, "adapt"), device, dtype),
                           vel=aux_adapt_from_numpy(_get(d, "vel"), device, dtype))
+
+
+def population_state_from_numpy(d: Any, device: DeviceLike = None,
+                                dtype=torch.float32) -> PopulationState:
+    """PopulationState (parallel/scenarios.py) from ``d`` with the arrays of
+    paper_state_from_numpy, each with the scenarios in front, and the shared adapt{Q, R,
+    qb} and vel{Q, R, qb} ([nx], [nu], [])."""
+    t = _tensor_fn(device, dtype)
+    return PopulationState(*(t(_get(d, f)) for f in _STATE_ARRAYS),
+                           adapt=aux_adapt_from_numpy(_get(d, "adapt"), device, dtype),
+                           vel=aux_adapt_from_numpy(_get(d, "vel"), device, dtype))
 
 
 def generic_state_from_numpy(d: Any, device: DeviceLike = None,

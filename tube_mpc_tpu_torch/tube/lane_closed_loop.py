@@ -1,12 +1,15 @@
 """Batched closed-loop Algorithm 2 on the lane kernels (port of
-tube_mpc_tpu/tube/lane_closed_loop.py:47-262 in independent mode, and 336-650), with the
-solves' straggler compaction and iteration telemetry.
+tube_mpc_tpu/tube/lane_closed_loop.py), with the solves' straggler compaction and
+iteration telemetry.
 
 B adaptive tube-MPC closed loops advance together, one Python step per time step:
 two lane iLQR solves (nominal, ancillary), the δz sensitivity and its gradients,
 the projected momentum update, and the disturbed propagation.
 - paper path (``run_paper_closed_loop_lanes``): every lane adapts its own
-  ancillary (Q, R, q_b);
+  ancillary (Q, R, q_b), or with ``population=True`` the lanes share one (Q, R, q_b),
+  updated with the finite-masked mean of their gradients;
+  ``run_paper_closed_loop_lanes_sharded`` runs the same loop over the ranks of a
+  ``torch.distributed`` device mesh (parallel/mesh.py), its lanes split among them;
 - generic path (``run_generic_closed_loop_lanes``): every lane adapts its own raw
   ancillary θ (weights with a separate Qf, and the barrier α, γ), and with
   ``cfg.adapt_nominal`` its raw nominal θ̄ too, by the coupled bilevel chain.
@@ -16,6 +19,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import Tensor
 
 from ..device import DeviceLike, check_on, resolve_device
@@ -23,7 +27,7 @@ from ..ops.costs import CostWeights
 from ..ops.dbas import AugmentedDynamics, BarrierParams
 from ..ops.lanes import ComponentSystem
 from ..systems.base import System
-from ..utils.checkpoint import run_steps
+from ..utils.checkpoint import LaneShards, run_steps
 from .closed_loop import ClosedLoopLog, TubeMPCConfig
 from .lane_interface import (
     make_lane_problem,
@@ -49,7 +53,7 @@ class LaneLoopState(NamedTuple):
     b_bar: Tensor     # [B]
     U_nom_ws: Tensor  # [B, N, nu]
     U_aux_ws: Tensor  # [B, N, nu]
-    adapt: AuxAdapt   # per lane
+    adapt: AuxAdapt   # per lane ([B, ..] leaves), or shared in population mode
     vel: AuxAdapt
 
 
@@ -70,11 +74,19 @@ def make_paper_lane_step(
     B: int,
     dtype,
     device: DeviceLike = None,
+    population: bool = False,
+    group: Optional[dist.ProcessGroup] = None,
     iter_telemetry: bool = False,
     nom_compact_caps: Tuple[int, ...] = (),
     aux_compact_caps: Tuple[int, ...] = (),
 ) -> Callable[[LaneLoopState, Tensor], tuple]:
     """The per-step body: (state, w_t [B, nx]) -> (new state, log tuple).
+
+    population: the lanes share one θ (Q [nx], R [nu], qb []), updated with the mean of
+    the lanes' finite gradients: Σ over the finite lanes / max(their count, 1). group: a
+    process group over which that mean is taken (the sharded loop; B is then this
+    rank's lanes): one all_reduce(SUM) a step of (Σ Q, Σ R, Σ qb, count) packed in one
+    tensor, before the division, so that θ stays the same on every rank.
 
     iter_telemetry appends each lane's solver iterations (nominal, ancillary; [B] int32
     each) to the log tuple: a step costs the most lanes' iterations, and the useful work
@@ -111,9 +123,12 @@ def make_paper_lane_step(
         db = X_aux[..., nx]
         L = torch.sum(dx * dx, dim=(-2, -1)) + torch.sum(db * db, dim=-1)
 
+        Q, R, qb = state.adapt
+        if population:
+            Q, R, qb = Q.expand(B, nx), R.expand(B, nu), qb.expand(B)
         grads = tube_sensitivity_grads_lanes(
-            pb, w=CostWeights(Q=state.adapt.Q, R=state.adapt.R, Qf=state.adapt.Q, qb=state.adapt.qb),
-            bp=bp, X_hat=X_aux, U=U_aux, X_ref=X_ref, U_ref=U_nom, reg=1e-9, device=dev,
+            pb, w=CostWeights(Q=Q, R=R, Qf=Q, qb=qb), bp=bp, X_hat=X_aux, U=U_aux, X_ref=X_ref,
+            U_ref=U_nom, reg=1e-9, device=dev,
         )
         # Fault isolation: a lane whose gradient or loss is not finite (the true
         # sensitivity overflows f32 in barrier-violating regimes) skips this
@@ -130,6 +145,8 @@ def make_paper_lane_step(
             R=torch.where(ok[:, None], grads.R, zero),
             qb=torch.where(ok, grads.qb, zero),
         )
+        if population:
+            grads = _population_mean(grads, ok, group)
         adapt, vel = momentum_update(state.adapt, grads, state.vel, cfg.adapt, project_aux_adapt)
 
         u = U_aux[:, 0]
@@ -147,7 +164,8 @@ def make_paper_lane_step(
             adapt=adapt,
             vel=vel,
         )
-        log = (state.x, u, state.x_bar, u_bar, state.b, L, adapt.Q, adapt.R, adapt.qb)
+        log = (state.x, u, state.x_bar, u_bar, state.b, L,
+               adapt.Q.expand(B, nx), adapt.R.expand(B, nu), adapt.qb.expand(B))
         if iter_telemetry:
             log += (nom_out[2], aux_out[2])
         return new_state, log
@@ -155,18 +173,35 @@ def make_paper_lane_step(
     return step
 
 
+def _population_mean(grads: AuxAdapt, ok: Tensor, group) -> AuxAdapt:
+    """The shared θ's gradient from the lanes' masked gradients [B, ..]: their sums and
+    the count of finite lanes ``ok``, summed over ``group``'s ranks too (one all_reduce of
+    one packed tensor), then the sums / max(count, 1)."""
+    nx, nu = grads.Q.shape[-1], grads.R.shape[-1]
+    packed = torch.cat([grads.Q.sum(dim=0), grads.R.sum(dim=0), grads.qb.sum(dim=0)[None],
+                        ok.to(grads.qb.dtype).sum()[None]])
+    if group is not None:
+        dist.all_reduce(packed, op=dist.ReduceOp.SUM, group=group)
+    sums = packed[:-1] / torch.clamp(packed[-1], min=1.0)
+    return AuxAdapt(Q=sums[:nx], R=sums[nx:nx + nu], qb=sums[nx + nu])
+
+
 def paper_lane_init_state(
     system: System, aug: AugmentedDynamics, cfg: TubeMPCConfig,
     *, aux_init: AuxAdapt, bp: BarrierParams, x0: Tensor, B: int, dtype,
+    population: bool = False,
 ) -> LaneLoopState:
+    """x0 [nx] or [B, nx]; θ per lane, or shared (as given) with ``population``; zero
+    velocities and warm starts."""
     nx, nu = system.nx, system.nu
     if x0.ndim == 1:
         x0 = x0.expand(B, nx)
-    aux_init = AuxAdapt(
-        Q=aux_init.Q.expand(B, nx).clone(),
-        R=aux_init.R.expand(B, nu).clone(),
-        qb=aux_init.qb.expand(B).clone(),
-    )
+    if not population:
+        aux_init = AuxAdapt(
+            Q=aux_init.Q.expand(B, nx).clone(),
+            R=aux_init.R.expand(B, nu).clone(),
+            qb=aux_init.qb.expand(B).clone(),
+        )
     b0 = aug.init_b0(x0, bp)
     zeros_U = torch.zeros((B, cfg.N, nu), dtype=dtype, device=x0.device)
     return LaneLoopState(
@@ -193,6 +228,7 @@ def run_paper_closed_loop_lanes(
     batch: Optional[int] = None,
     eps: float = 1e-4,
     barrier_type: str = "inverse",
+    population: bool = False,
     device: DeviceLike = None,
     nom_compact_caps: Tuple[int, ...] = (),
     aux_compact_caps: Tuple[int, ...] = (),
@@ -201,19 +237,75 @@ def run_paper_closed_loop_lanes(
 ) -> ClosedLoopLog:
     """Run H steps of B closed loops; returns a ClosedLoopLog of [B, H, ...].
 
-    Disturbances are ``w_seqs``, or drawn from ``generator`` for ``batch`` lanes. The
-    caps are the solves' straggler compaction (make_paper_lane_step). With ``ckpt_dir``
-    the loop runs in resumable segments of ``segment_len`` steps (utils/checkpoint.py),
-    bitwise the same. Runs on the card unless device='cpu'."""
-    if not cfg.adapt_ancillary or cfg.adapt_nominal:
-        raise ValueError("the paper loop adapts the ancillary θ only: it takes adapt_ancillary="
-                         "True and adapt_nominal=False (run_generic_closed_loop_lanes adapts θ̄)")
+    Disturbances are ``w_seqs``, or drawn from ``generator`` for ``batch`` lanes.
+    population: one θ shared by the lanes (make_paper_lane_step); the log holds it for
+    every lane. The caps are the solves' straggler compaction (make_paper_lane_step). With
+    ``ckpt_dir`` the loop runs in resumable segments of ``segment_len`` steps
+    (utils/checkpoint.py), bitwise the same. Runs on the card unless device='cpu'."""
     dev = resolve_device(device)
-    H = cfg.H
     if w_seqs is None:
         if generator is None or batch is None:
             raise ValueError("provide w_seqs or (generator, batch)")
-        w_seqs = system.sample_disturbance(generator, (batch, H), dtype=target.dtype)
+        w_seqs = system.sample_disturbance(generator, (batch, cfg.H), dtype=target.dtype)
+    return _paper_lanes(system, aug, sys_c, cfg, w_nominal=w_nominal, aux_init=aux_init, bp=bp,
+                        x0=x0, target=target, w_seqs=w_seqs, eps=eps, barrier_type=barrier_type,
+                        population=population, dev=dev, shards=None,
+                        nom_compact_caps=nom_compact_caps, aux_compact_caps=aux_compact_caps,
+                        ckpt_dir=ckpt_dir, segment_len=segment_len)
+
+
+def run_paper_closed_loop_lanes_sharded(
+    system: System,
+    aug: AugmentedDynamics,
+    sys_c: ComponentSystem,
+    cfg: TubeMPCConfig,
+    *,
+    w_nominal: CostWeights,
+    aux_init: AuxAdapt,
+    bp: BarrierParams,
+    x0: Tensor,          # [nx] shared or [B, nx]
+    target: Tensor,
+    w_seqs: Tensor,      # [B, H, nx], the whole run's
+    mesh,
+    eps: float = 1e-4,
+    barrier_type: str = "inverse",
+    population: bool = False,
+    device: DeviceLike = None,
+    ckpt_dir: Optional[str] = None,
+    segment_len: Optional[int] = None,
+) -> ClosedLoopLog:
+    """run_paper_closed_loop_lanes over the ranks of ``mesh`` (a 1-D DeviceMesh,
+    parallel/mesh.py::make_mesh), SPMD: every rank calls it with the whole run's inputs,
+    steps B / (the mesh's size) of the lanes, and returns the whole run's [B, H, ...] log
+    (one all_gather at the end). In population mode the shared θ's gradient is the mean
+    over every rank's lanes (make_paper_lane_step's group), so θ is the same on every rank.
+
+    With ``ckpt_dir`` (on a file system every rank sees): after each segment of
+    ``segment_len`` steps rank 0 writes the whole run's carry and logs, gathered from every
+    rank, in the files of run_paper_closed_loop_lanes; the fingerprint also holds the mesh's
+    size and the mode, so a run on another number of ranks refuses the checkpoint. Each
+    rank resumes from its own lanes of it."""
+    B = w_seqs.shape[0]
+    world = mesh.size()
+    if B % world != 0:
+        raise ValueError(f"global batch {B} not divisible by mesh size {world}")
+    dev = resolve_device(device)
+    group = mesh.get_group()
+    shards = LaneShards(group=group, rank=dist.get_rank(group), world=world, lanes=B // world,
+                        shared=("adapt", "vel") if population else ())
+    return _paper_lanes(system, aug, sys_c, cfg, w_nominal=w_nominal, aux_init=aux_init, bp=bp,
+                        x0=x0, target=target, w_seqs=w_seqs, eps=eps, barrier_type=barrier_type,
+                        population=population, dev=dev, shards=shards, ckpt_dir=ckpt_dir,
+                        segment_len=segment_len)
+
+
+def _paper_lanes(system, aug, sys_c, cfg, *, w_nominal, aux_init, bp, x0, target, w_seqs, eps,
+                 barrier_type, population, dev, shards: Optional[LaneShards],
+                 nom_compact_caps=(), aux_compact_caps=(), ckpt_dir, segment_len):
+    """The paper loop, plain or sharded; ``shards``: the sharded loop's split of the lanes."""
+    if not cfg.adapt_ancillary or cfg.adapt_nominal:
+        raise ValueError("the paper loop adapts the ancillary θ only: it takes adapt_ancillary="
+                         "True and adapt_nominal=False (run_generic_closed_loop_lanes adapts θ̄)")
     check_on(dev, (x0, target, w_seqs), "run_paper_closed_loop_lanes")
     B = w_seqs.shape[0]
     dtype = w_seqs.dtype
@@ -221,13 +313,17 @@ def run_paper_closed_loop_lanes(
     pb = make_lane_problem(sys_c, barrier_type=barrier_type, eps=eps)
     step = make_paper_lane_step(
         system, aug, pb, cfg, w_nominal=w_nominal, bp=bp, target=target,
-        B=B, dtype=dtype, device=dev,
+        B=B if shards is None else shards.lanes, dtype=dtype, device=dev, population=population,
+        group=shards.group if shards is not None and population else None,
         nom_compact_caps=nom_compact_caps, aux_compact_caps=aux_compact_caps,
     )
-    state = paper_lane_init_state(system, aug, cfg, aux_init=aux_init, bp=bp, x0=x0, B=B, dtype=dtype)
+    state = paper_lane_init_state(system, aug, cfg, aux_init=aux_init, bp=bp, x0=x0, B=B,
+                                  dtype=dtype, population=population)
+    fingerprint = (None if shards is None
+                   else {"mesh_devices": shards.world, "population": population})
     return run_steps(step, state, w_seqs, ClosedLoopLog, ckpt_dir=ckpt_dir,
-                     segment_len=segment_len, cfg=cfg,
-                     inputs=(state, w_nominal, bp, target))[1]
+                     segment_len=segment_len, cfg=cfg, inputs=(state, w_nominal, bp, target),
+                     shards=shards, fingerprint=fingerprint)[1]
 
 
 class GenericLaneState(NamedTuple):
