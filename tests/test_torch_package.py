@@ -409,6 +409,29 @@ def test_build_needs_no_work_at_import_and_names_its_sources():
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 
 
+@pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cu*")), ids=lambda p: p.name)
+def test_every_quoted_include_is_a_header_of_the_digest(path):
+    """A kernel source includes, in quotes, only headers of _build.HEADERS, so that an edit
+    to any of them changes every library's digest and rebuilds it."""
+    quoted = re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), flags=re.M)
+    assert set(quoted) <= set(_build.HEADERS), f"{path.name} includes {quoted}"
+    for header in _build.HEADERS:
+        assert (_build.CSRC / header).exists()
+
+
+def test_an_edited_header_changes_every_librarys_digest(tmp_path, monkeypatch):
+    for src in (PKG / "csrc").iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {name: _build._digest(name) for name in _build.LIBRARIES}
+    for header in _build.HEADERS:
+        with open(tmp_path / header, "a") as f:
+            f.write("\n// edited\n")
+        after = {name: _build._digest(name) for name in _build.LIBRARIES}
+        assert all(after[name] != before[name] for name in before), header
+        before = after
+
+
 @pytest.fixture(scope="module")
 def jax_setup():
     return j_dubins_paper_setup(N=5, H=4, dtype=jnp.float64, nominal_max_iter=3,

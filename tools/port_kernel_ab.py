@@ -2,25 +2,35 @@
 """Compare the port's kernels of this tree with those of another checkout, on one NVIDIA
 card, in one process.
 
-    python3 tools/port_kernel_ab.py BASE_DIR     # from the repository root
+    python3 tools/port_kernel_ab.py BASE_DIR [--variants dubins quadrotor2d ...]
+                                             # from the repository root
 
 BASE_DIR holds another commit's tree (e.g. `git archive <commit>` unpacked into a
 gitignored directory). Every `tube_mpc_tpu_torch/csrc/*.cu` of both trees (the two may
-split the kernels over different sources) is built with this tree's nvcc flags, all at
-once; the script prints each build's ptxas registers, shared memory and spills and, where
-`cuobjdump` is found, the SASS instruction count of each kernel. Then it times the f32
-kernels of both builds on the same inputs: K1 `ric`, K2 `fwd` (at nα=7 and at the
+split the kernels over different sources) is built for each library variant of
+`--variants` (default VARIANTS: Dubins, the double integrator, the quadrotor, the
+cart-pole and the quadrotor with the exact min and the log barrier) with this tree's nvcc
+flags for that variant (`_build.flags`: `-DLANE_SYSTEM`, `-DLANE_AGG`, `-DLANE_BARRIER`),
+all at once. The script prints each build's ptxas registers, shared memory and spills,
+where `cuobjdump` is found each kernel's SASS instruction count, and, for every kernel
+that both trees build, whether its SASS is the same instruction for instruction (a kernel
+whose source did not change compiles to what it was). Then it times the f32 kernels of
+both builds on the same inputs (CASES): for Dubins K1 `ric`, K2 `fwd` (at nα=7 and at the
 rollout's nα=1), K3 `sbwd` and K4 `sfwd` on one closed-loop step of the paper setup, and
 K5 `sbwd_generic`, `sbwd_upper`, K6 `sfwd_generic`, `sfwd_ref` on one step of the coupled
-setup, at B=16384, N=50 (chip_smoke.paper_step, coupled_step). Each is called through
-this tree's wrapper with the wrapper's library lookup pointed at one build or the other,
-in the order base, this, this, base, each the device time per launch of RUNS launches back
-to back (chip_smoke.device_time_ms), and the two builds' outputs must be bitwise equal.
-The last line is one JSON object with the times.
+setup, at B=16384, N=50 (chip_smoke.paper_step, coupled_step); for another family its K1
+and K3 on its paper step (N=50) and, for the quadrotor, K1 and the K5 variants on the
+coupled step of configs/quadrotor2d.yaml and of chip_smoke.MINLOG's quadrotor2d_min_log at
+the file's N=200. Each is called through this tree's wrapper with the wrapper's library
+lookup pointed at one build or the other, in the order base, this, this, base, each the
+device time per launch of RUNS launches back to back (chip_smoke.device_time_ms), and the
+two builds' outputs must be bitwise equal. The last line is one JSON object with the times.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -34,6 +44,24 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 RUNS = 50
+VARIANTS = ("dubins", "double_integrator", "quadrotor2d", "cartpole", "quadrotor2d_min_log")
+# variant: [(label suffix, chip_smoke's step function by name, its keyword arguments,
+#            the kernels timed on it, None for all)]
+CASES = {
+    "dubins": [("", "paper_step", {}, None), ("", "coupled_step", {}, None)],
+    "double_integrator": [(" double_integrator", "paper_step",
+                           {"family": "double_integrator"}, ("ric", "sbwd"))],
+    "cartpole": [(" cartpole", "paper_step", {"family": "cartpole"}, ("ric", "sbwd"))],
+    "quadrotor2d": [
+        (" quadrotor2d", "paper_step", {"family": "quadrotor2d"}, ("ric", "sbwd")),
+        (" quadrotor2d N=200", "coupled_step",
+         {"family": "quadrotor2d", "N_": 200, "solver": True},
+         ("ric", "sbwd_generic", "sbwd_upper"))],
+    "quadrotor2d_min_log": [
+        (" quadrotor2d_min_log N=200", "coupled_step",
+         {"family": "quadrotor2d_min_log", "N_": 200, "solver": True},
+         ("ric", "sbwd_generic", "sbwd_upper"))],
+}
 
 
 def build_all(nvcc: str, jobs):
@@ -48,21 +76,23 @@ def build_all(nvcc: str, jobs):
         return list(pool.map(one, jobs))
 
 
-def sass_counts(so: Path):
-    """{kernel symbol: SASS instructions} of a built library, or {} without cuobjdump."""
+def sass_of(so: Path):
+    """{kernel symbol: (SASS instructions, digest of their text)} of a built library, or {}
+    without cuobjdump. The digest leaves out the instructions' addresses."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return {}
     out = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, timeout=300)
-    counts, fn = {}, None
+    texts, fn = {}, None
     for line in out.stdout.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = 0
+            texts[fn] = []
         elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
-            counts[fn] += 1
-    return counts
+            texts[fn].append(re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).strip())
+    return {fn: (len(t), hashlib.sha256("\n".join(t).encode()).hexdigest()[:16])
+            for fn, t in texts.items()}
 
 
 class TreeLib:
@@ -78,30 +108,36 @@ class TreeLib:
         raise AttributeError(fn)
 
 
-def on_build(lib: TreeLib, fn):
-    """fn with the wrappers' library lookup (ops.cuda._build.load) pointed at `lib`."""
+def on_build(libs, fn):
+    """fn with the wrappers' library lookup (ops.cuda._build.load) pointed at `libs`: a
+    TreeLib for every library, or {variant: TreeLib} (_build.VARIANTS)."""
     from tube_mpc_tpu_torch.ops.cuda import _build
 
     def run():
-        _build.load = lambda name: lib
+        if isinstance(libs, dict):
+            _build.load = lambda name: libs[_build.LIBRARIES[name][1]]
+        else:
+            _build.load = lambda name: libs
         return fn()
     return run
 
 
-def step_cases(torch, dev):
-    """{label: (f32 call of a kernel's wrapper, its inputs)}: the paper step's K1-K4 and
-    the coupled step's K5/K6 variants at B, N of chip_smoke."""
+def step_cases(torch, dev, cases=CASES["dubins"]):
+    """{label: (f32 call of a kernel's wrapper, its inputs)} of `cases` (CASES' entries):
+    by default the paper step's K1-K4 and the coupled step's K5/K6 variants at B, N of
+    chip_smoke."""
     import chip_smoke
 
-    cases = {}
-    for step_of in (chip_smoke.paper_step, chip_smoke.coupled_step):
-        pb, _, make, inputs, _ = step_of(torch, dev, torch.float32)
+    out = {}
+    for suffix, step, kwargs, kernels in cases:
+        pb, _, make, inputs, _ = getattr(chip_smoke, step)(torch, dev, torch.float32, **kwargs)
         fns = make(pb)
         for name, ins in inputs.items():
-            cases[name] = (fns[name][0], ins)
-        if "fwd" in inputs:
-            cases["fwd nα=1"] = (fns["fwd nα=1"][0], inputs["fwd"])
-    return cases
+            if kernels is None or name in kernels:
+                out[name + suffix] = (fns[name][0], ins)
+        if "fwd" in inputs and kernels is None:
+            out["fwd nα=1" + suffix] = (fns["fwd nα=1"][0], inputs["fwd"])
+    return out
 
 
 def bitwise_equal(torch, xs, ys) -> bool:
@@ -112,13 +148,14 @@ def bitwise_equal(torch, xs, ys) -> bool:
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2:
-        print(__doc__, file=sys.stderr)
-        return 2
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("base", type=Path)
+    ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=sorted(CASES))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_kernel_ab: no CUDA device is available", file=sys.stderr)
         return 2
-    base = Path(sys.argv[1]).resolve()
+    base = args.base.resolve()
 
     import chip_smoke
     from tube_mpc_tpu_torch.ops.cuda import _build
@@ -127,26 +164,40 @@ def main() -> int:
     print(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     out_dir = _build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    srcs = {(tree, src.stem): src for tree, root in (("base", base), ("this", REPO))
+    srcs = {(tree, variant, src.stem): src
+            for variant in args.variants for tree, root in (("base", base), ("this", REPO))
             for src in sorted((root / "tube_mpc_tpu_torch/csrc").glob("*.cu"))}
-    sos = {key: out_dir / f"lib{key[0]}_{key[1]}.so" for key in srcs}
-    logs = build_all(_build.nvcc_path(), [(_build.NVCC_FLAGS, srcs[k], sos[k]) for k in srcs])
-    libs = {"base": [], "this": []}
-    for (tree, name), (rc, log) in zip(srcs, logs):
+    sos = {key: out_dir / f"lib{key[0]}_{key[2]}_{key[1]}.so" for key in srcs}
+    jobs = [(_build.flags(_build.library_name("lane_solver", k[1])), srcs[k], sos[k])
+            for k in srcs]
+    logs = build_all(_build.nvcc_path(), jobs)
+    libs = {}
+    sass = {"base": {}, "this": {}}
+    for (tree, variant, name), (rc, log) in zip(srcs, logs):
         if rc != 0:
-            raise SystemExit(f"nvcc failed on {srcs[tree, name]}:\n{log}")
+            raise SystemExit(f"nvcc failed on {srcs[tree, variant, name]} ({variant}):\n{log}")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"[build] {tree}: {chip_smoke.kernel_label(line.strip())}", flush=True)
-        for sym, n in sass_counts(sos[tree, name]).items():
+                print(f"[build] {tree} {variant}: {chip_smoke.kernel_label(line.strip())}",
+                      flush=True)
+        for sym, (n, digest) in sass_of(sos[tree, variant, name]).items():
+            sass[tree][sym] = (n, digest)
             print(f"[sass] {tree}: {chip_smoke.kernel_label(sym)}: {n} instructions", flush=True)
-        libs[tree].append(ctypes.CDLL(str(sos[tree, name])))
-    builds = {tree: TreeLib(found) for tree, found in libs.items()}
+        libs.setdefault(tree, {}).setdefault(variant, []).append(
+            ctypes.CDLL(str(sos[tree, variant, name])))
+    same_sass = {chip_smoke.kernel_label(sym): sass["base"][sym][1] == sass["this"][sym][1]
+                 for sym in sorted(set(sass["base"]) & set(sass["this"]))}
+    changed = sorted(k for k, same in same_sass.items() if not same)
+    print(f"[sass] kernels built by both trees: {len(same_sass)}, the same SASS: "
+          f"{len(same_sass) - len(changed)}; changed: {json.dumps(changed)}", flush=True)
+    builds = {tree: {v: TreeLib(found) for v, found in by.items()} for tree, by in libs.items()}
 
     dev = torch.device("cuda", 0)
-    cases = on_build(builds["this"], lambda: step_cases(torch, dev))()
+    cases = {}
+    for variant in args.variants:
+        cases.update(on_build(builds["this"], lambda: step_cases(torch, dev, CASES[variant]))())
     torch.cuda.synchronize()
-    result = {"card": card, "B": chip_smoke.B, "N": chip_smoke.N, "runs": RUNS, "ms": {}}
+    result = {"card": card, "B": chip_smoke.B, "runs": RUNS, "sass_changed": changed, "ms": {}}
     for label, (call, ins) in cases.items():
         runs = {tree: on_build(lib, lambda: call(*ins)) for tree, lib in builds.items()}
         outs = {tree: run() for tree, run in runs.items()}

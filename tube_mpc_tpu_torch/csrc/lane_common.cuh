@@ -5,8 +5,8 @@
 // its hand-written tangent map (the counterpart of jax.jvp in
 // tube_mpc_tpu/ops/lanes.py::jac_rows) and its derivatives in the barrier parameters
 // (the three jax.jvp calls of the generic _sfwd_kernel); the chunked sweep that K1 and
-// K3-K6 share (sweep), and with_system, which launches a kernel for the problem's
-// obstacle count.
+// K3-K6 share (sweep), the split sweep that K3/K5 take above n̂ = 5 (sweep_split), and
+// with_system, which launches a kernel for the problem's obstacle count.
 //
 // Every kernel is a template on its system, System<T, SYS, NOBS> (SYS one of the ids
 // below, NOBS the obstacle count); a library is built for one system, LANE_SYSTEM, one
@@ -752,12 +752,14 @@ constexpr int SWEEP_WARPS = 4;
 constexpr int SWEEP_THREADS = 32 * SWEEP_WARPS;
 constexpr int SWEEP_KC = 3;            // steps per chunk, one per phase-A warp
 
-// Blocks each SM must hold at once: four f32 blocks (at most 128 registers a thread)
-// hold all 512 blocks of B=16384 on the 132 SMs. Above n̂ = 5 (the quadrotor's n̂ = 7,
-// whose 49-entry V_xx carry and Q blocks cannot fit in 128) two f32 blocks, at most 255
-// registers a thread. f64 is not capped.
+// Blocks each SM must hold at once (K1, K3/K5; K4/K6 take SfwdBlocksPerSM): four f32
+// blocks of 128 threads (at most 128 registers a thread) hold all 512 blocks of B=16384
+// on the 132 SMs in one wave. Above n̂ = 5 (the quadrotor) the same four: K1 spills 312
+// bytes there and still runs 1.5x faster than at two blocks (255 registers, two waves),
+// and K3/K5's split sweep (sweep_split) holds half the carry in each thread.
+// tools/ric_probe.py varies the two caps apart. f64 is not capped.
 template <typename T, int NH> struct SweepBlocksPerSM {
-  static constexpr int value = NH > 5 ? (sizeof(T) == 4 ? 2 : 1) : (sizeof(T) == 4 ? 4 : 1);
+  static constexpr int value = NH > 5 ? (sizeof(T) == 4 ? 4 : 1) : (sizeof(T) == 4 ? 4 : 1);
 };
 
 // Barrier 1 over the block's threads, which warp 0 and the phase-A warps reach from
@@ -828,9 +830,140 @@ __device__ __forceinline__ void sweep(int N, bool live, T* lin, Lin&& lin_step, 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The split sweep of K3/K5 (lane_sbwd.cu) above n̂ = 5: the quadrotor's n̂ = 7, whose
+// recursion is some 2,500 operations a lane and step, five times Dubins', and whose
+// 7x7 V_xx carry and Q blocks took 253-255 registers a thread in the chunked sweep: two
+// f32 blocks an SM, two waves for B=16384, one chain warp in four, and phase B alone 89%
+// of the kernel's time (tools/ric_probe.py --family quadrotor2d; PERF.md §6, PR 12).
+// - A block owns 32 lanes, as in sweep: SPLIT_CW warps run phase B, SPLIT_AW warps
+//   phase A, double-buffered as in sweep (the phase-A warps write chunk j+1 while the
+//   phase-B warps run chunk j), SPLIT_KC = SPLIT_AW steps a chunk.
+// - Phase B: SPLIT_PARTS neighbouring threads of a phase-B warp share one lane. The part
+//   p owns the carry's rows i = p + SPLIT_PARTS r (SPLIT_ROWS of them; a last one past
+//   n̂ is computed on row n̂ - 1 and thrown away) and computes its rows of V A, V Bm,
+//   Q_xx, Q_xu, tQ_x, the new carry, and its columns of Q_ux and K; every part forms
+//   Q_uu, tQ_u, the 2x2 solve and kff alike. The parts exchange V A, V Bm, tV_x (before
+//   Q) and K (before the new carry) through an exchange area after the buffers, XROWS
+//   rows of 32 lanes, behind __syncwarp over the lane's group; rescale_split's maximum
+//   over the carry is a shuffle across the group (exact, and jmax gives NaN whatever the
+//   order). So every value is computed by the same operations in the same order as the
+//   plain version's and rounds as it does.
+// - Two parts a lane hold half the carry each: the kernel fits 128 registers (with
+//   84-152 bytes of f32 spill), four blocks an SM (SweepBlocksPerSM) hold B=16384 in one
+//   wave, and 8 warps an SM run the chain where there were 2. Shared memory: two buffers
+//   of two steps (72 rows, 74 with UPPER) and the exchange's 84 rows, 47,616 or 48,640
+//   bytes f32, fit four blocks in the SM's 228 KB.
+// - Measured against the alternatives (PERF.md §6): four parts a lane in every warp
+//   (each warp both phases, one buffer) and four parts with one or two phase-A warps
+//   (80-96 registers, 260-488 bytes of spill) were slower; so were two parts with one
+//   phase-A warp, which could not keep up.
+// ---------------------------------------------------------------------------
+constexpr int SPLIT_PARTS = 2;                          // threads of one lane in phase B
+constexpr int SPLIT_AW = 2;                             // phase-A warps of a block
+constexpr int SPLIT_CW = SPLIT_PARTS;                   // phase-B warps: 32 lanes a block
+constexpr int SPLIT_THREADS = 32 * (SPLIT_CW + SPLIT_AW);
+constexpr int SPLIT_KC = SPLIT_AW;                      // steps per chunk: one per phase-A warp
+
+// The carry rows a part owns.
+template <int NH> constexpr int SPLIT_ROWS = (NH + SPLIT_PARTS - 1) / SPLIT_PARTS;
+
+// Phase B's lane of this thread within its block (a thread of the first SPLIT_CW
+// warps), its part, and its group's mask.
+__device__ __forceinline__ int split_lane() { return threadIdx.x / SPLIT_PARTS; }
+__device__ __forceinline__ int split_part() { return threadIdx.x & (SPLIT_PARTS - 1); }
+__device__ __forceinline__ unsigned split_group() {
+  return ((1u << SPLIT_PARTS) - 1) << ((threadIdx.x & 31) & ~(SPLIT_PARTS - 1));
+}
+
+// Barrier 1 over the split sweep's block.
+__device__ __forceinline__ void split_sync() {
+  asm volatile("bar.sync 1, %0;" :: "n"(SPLIT_THREADS) : "memory");
+}
+
+// Dynamic shared memory of a split sweep with ROWS rows a step and XROWS exchange rows:
+// two buffers of SPLIT_KC steps, then the exchange area.
+template <typename T, int ROWS, int XROWS> constexpr int split_smem() {
+  return (2 * SPLIT_KC * ROWS + XROWS) * 32 * static_cast<int>(sizeof(T));
+}
+
+// Backwards from k = N-1, as sweep: every warp linearises chunk 0, then the phase-A
+// warps write chunk j+1 into one buffer while the phase-B warps run chunk j from the
+// other. lin(k, row) writes step k's rows at row[r * 32] for the lane
+// threadIdx.x % 32 (live_a: below B); rec(k, row) reads them at phase B's lane (live_b:
+// a phase-B thread's lane below B) and keeps its part of the carry.
+template <int ROWS, typename T, typename Lin, typename Rec>
+__device__ __forceinline__ void sweep_split(int N, bool live_a, bool live_b, T* lin,
+                                            Lin&& lin_step, Rec&& rec_step) {
+  constexpr int STEP = ROWS * 32, CHUNK = SPLIT_KC * STEP;
+  const int warp = threadIdx.x >> 5;
+  const int chunks = (N + SPLIT_KC - 1) / SPLIT_KC;
+  auto lo_of = [&](int j) { return N - j * SPLIT_KC > SPLIT_KC ? N - (j + 1) * SPLIT_KC : 0; };
+  auto linearise = [&](int j, int first, int stride) {   // steps lo + first, + stride, ...
+    const int lo = lo_of(j), hi = N - j * SPLIT_KC;
+    T* buf = lin + (j & 1) * CHUNK + (threadIdx.x & 31);
+    if (live_a)
+      for (int k = lo + first; k < hi; k += stride) lin_step(k, buf + (k - lo) * STEP);
+  };
+
+  linearise(0, warp, SPLIT_CW + SPLIT_AW);
+  split_sync();
+  if (warp < SPLIT_CW) {
+    for (int j = 0; j < chunks; ++j) {
+      const int lo = lo_of(j), hi = N - j * SPLIT_KC;
+      const T* buf = lin + (j & 1) * CHUNK + split_lane();
+      if (live_b)
+        for (int k = hi - 1; k >= lo; --k) rec_step(k, buf + (k - lo) * STEP);
+      split_sync();
+    }
+  } else {
+    for (int j = 0; j < chunks; ++j) {
+      if (j + 1 < chunks) linearise(j + 1, warp - SPLIT_CW, SPLIT_AW);
+      split_sync();
+    }
+  }
+}
+
+// rescale_carry on a part's rows (vx_new, vxx_new: rows part + SPLIT_PARTS r): the
+// maximum over the lane's whole carry by a shuffle across its group.
+template <int NH, typename T>
+__device__ __forceinline__ void rescale_split(int part, unsigned group,
+                                              const T vx_new[SPLIT_ROWS<NH>],
+                                              const T vxx_new[SPLIT_ROWS<NH>][NH],
+                                              T vx[SPLIT_ROWS<NH>],
+                                              T vxx[SPLIT_ROWS<NH>][NH], T& logs) {
+  constexpr int RP = SPLIT_ROWS<NH>;
+  T mmax = T(0);
+#pragma unroll
+  for (int r = 0; r < RP; ++r) {
+    T m = jmax(mmax, m_abs(vx_new[r]));
+#pragma unroll
+    for (int j = 0; j < NH; ++j) m = jmax(m, m_abs(vxx_new[r][j]));
+    mmax = (part + SPLIT_PARTS * r < NH) ? m : mmax;
+  }
+#pragma unroll
+  for (int o = 1; o < SPLIT_PARTS; o <<= 1) mmax = jmax(mmax, __shfl_xor_sync(group, mmax, o));
+  const T thresh = T(1e8);
+  const T scale_inv = (mmax > thresh) ? thresh / mmax : T(1);
+#pragma unroll
+  for (int r = 0; r < RP; ++r) {
+    vx[r] = scrub(vx_new[r] * scale_inv);
+#pragma unroll
+    for (int j = 0; j < NH; ++j) vxx[r][j] = scrub(vxx_new[r][j] * scale_inv);
+  }
+  logs = logs - m_log(jmax(scale_inv, tiny<T>()));
+}
+
 // Rows of f̂'s Jacobians in a step's phase-A rows (K1, K3/K5): A [0, n̂²), Bm [n̂², n̂² + n̂m).
 template <typename S> constexpr int ROW_BM = S::NH * S::NH;
 template <typename S> constexpr int JAC_ROWS = ROW_BM<S> + S::NH * S::M;
+
+// Rows of the split sweep's exchange area (per lane, 32 apart): V A [0, n̂²), V Bm
+// [n̂², n̂² + n̂m), the tV_x carry (n̂), K (m n̂, row a n̂ + i).
+template <typename S> constexpr int XCH_VB = S::NH * S::NH;
+template <typename S> constexpr int XCH_VX = XCH_VB<S> + S::NH * S::M;
+template <typename S> constexpr int XCH_K = XCH_VX<S> + S::NH;
+template <typename S> constexpr int XCH_ROWS = XCH_K<S> + S::M * S::NH;
 
 template <typename S, typename T>
 __device__ __forceinline__ void store_jac(const T A[S::NH][S::NH], const T Bm[S::NH][S::M],

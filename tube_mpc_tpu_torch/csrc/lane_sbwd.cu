@@ -39,6 +39,18 @@
 // longer), and the two phases mostly add, since their warps share each SM's dispatch
 // slots. The f32 register cap (SweepBlocksPerSM) keeps all 512 blocks of B=16384 in one
 // wave for a few bytes of spill at 5 obstacles; lifting it is far slower.
+// Above n̂ = 5 (the quadrotor's n̂ = 7, sbwd_split) phase B bounds it: its recursion is
+// O(n̂³), and its carry and Q blocks took 253-255 f32 registers in the chunked sweep, so
+// two blocks an SM ran B=16384 in two waves with one chain warp in four.
+// tools/ric_probe.py --family quadrotor2d on that design (f32; PERF.md §6, PR 12): K3 at
+// N=50 0.485 ms, phase B alone 0.433, phase A alone 0.110; four blocks an SM at 128
+// registers, with 460-520 bytes of spill, 0.339 (K5 at N=200: 1.43-1.48 against
+// 1.87-1.88). So K3/K5 take the split sweep (lane_common.cuh, sweep_split): two
+// threads a lane in two phase-B warps, each with half the rows of the carry and of
+// V A, Q_xx, Q_xu, tQ_x and the new carry and its columns of Q_ux and K, exchanging
+// V A, V Bm, tV_x and K through shared memory, beside two phase-A warps; with GENERIC
+// each part writes its rows of the carry, lane fastest as before. Registers, spills and
+// times: PERF.md §6.
 // The arithmetic and its order are those of the plain version
 // (ops/cuda/lane_sensitivity.py::_sbwd_sweep, whose two phases are these).
 #include "lane_common.cuh"
@@ -246,8 +258,245 @@ __device__ __forceinline__ void sbwd_step(const T* row, const T c[S::NC], T reg0
   rescale_carry<NH>(tv_new, vxx_new, tv, vxx, logs);
 }
 
+// sbwd_step on the split sweep (lane_common.cuh, sweep_split) for the part `part` of a
+// lane: its rows i = part + SPLIT_PARTS r of the carry (tv, vxx) and of the step's
+// products, the exchange area at xch[r * 32]; cd[r] = c[i], cu[a] = c[n̂ + a]. Every
+// value is sbwd_step's, by the same operations in the same order.
+template <typename S, bool GENERIC, bool UPPER, typename T>
+__device__ __forceinline__ void sbwd_step_split(
+    const T* __restrict__ row, T* __restrict__ xch, int part, unsigned group,
+    const T cd[SPLIT_ROWS<S::NH>], const T cu[S::M], T reg0, T tv[SPLIT_ROWS<S::NH>],
+    T vxx[SPLIT_ROWS<S::NH>][S::NH], T& logs, T* __restrict__ Kout, T* __restrict__ kffout,
+    T* __restrict__ tVx_out, T* __restrict__ Vxx_out, T* __restrict__ LogS_out, int k,
+    size_t Bs, int lane) {
+  constexpr int NH = S::NH, M = S::M, RP = SPLIT_ROWS<NH>;
+  auto A = [&](int q, int j) { return row[(q * NH + j) * 32]; };
+  auto Bm = [&](int q, int a) { return row[(ROW_BM<S> + q * M + a) * 32]; };
+  auto VA = [&](int q, int j) { return xch[(q * NH + j) * 32]; };
+  auto VB = [&](int q, int a) { return xch[(XCH_VB<S> + q * M + a) * 32]; };
+  auto TV = [&](int j) { return xch[(XCH_VX<S> + j) * 32]; };
+  auto Kx = [&](int a, int j) { return xch[(XCH_K<S> + a * NH + j) * 32]; };
+  if constexpr (GENERIC) {
+#pragma unroll
+    for (int r = 0; r < RP; ++r) {
+      const int i = part + SPLIT_PARTS * r;
+      if (i < NH) {
+        tVx_out[(static_cast<size_t>(k) * NH + i) * Bs + lane] = tv[r];
+#pragma unroll
+        for (int j = 0; j < NH; ++j)
+          Vxx_out[(static_cast<size_t>(k) * (NH * NH) + i * NH + j) * Bs + lane] = vxx[r][j];
+      }
+    }
+    if (part == 0) LogS_out[static_cast<size_t>(k) * Bs + lane] = logs;
+  }
+  const T inv_s = m_exp(-logs);
+#pragma unroll
+  for (int r = 0; r < RP; ++r) {   // this part's rows of V A, V Bm and the carry tV_x
+    const int i = part + SPLIT_PARTS * r;
+    T va[NH], vb[M];
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      T s = vxx[r][0] * A(0, j);
+#pragma unroll
+      for (int l = 1; l < NH; ++l) s = s + vxx[r][l] * A(l, j);
+      va[j] = s;
+    }
+#pragma unroll
+    for (int a = 0; a < M; ++a) {
+      T s = vxx[r][0] * Bm(0, a);
+#pragma unroll
+      for (int l = 1; l < NH; ++l) s = s + vxx[r][l] * Bm(l, a);
+      vb[a] = s;
+    }
+    if (i < NH) {
+#pragma unroll
+      for (int j = 0; j < NH; ++j) xch[(i * NH + j) * 32] = va[j];
+#pragma unroll
+      for (int a = 0; a < M; ++a) xch[(XCH_VB<S> + i * M + a) * 32] = vb[a];
+      xch[(XCH_VX<S> + i) * 32] = tv[r];
+    }
+  }
+  __syncwarp(group);
+
+  // this part's rows of Q_xx, Q_xu and tQ_x, and its columns of Q_ux
+  T Qxx[RP][NH], Qxu[RP][M], tQx[RP], Qux[M][RP];
+#pragma unroll
+  for (int r = 0; r < RP; ++r) {
+    const int i = part + SPLIT_PARTS * r < NH ? part + SPLIT_PARTS * r : NH - 1;
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      T s = A(0, i) * VA(0, j);
+#pragma unroll
+      for (int l = 1; l < NH; ++l) s = s + A(l, i) * VA(l, j);
+      Qxx[r][j] = (i == j) ? cd[r] * inv_s + s : s;
+    }
+#pragma unroll
+    for (int a = 0; a < M; ++a) {
+      T s = A(0, i) * VB(0, a);
+#pragma unroll
+      for (int l = 1; l < NH; ++l) s = s + A(l, i) * VB(l, a);
+      Qxu[r][a] = s;
+    }
+#pragma unroll
+    for (int a = 0; a < M; ++a) {
+      T s = Bm(0, a) * VA(0, i);
+#pragma unroll
+      for (int l = 1; l < NH; ++l) s = s + Bm(l, a) * VA(l, i);
+      Qux[a][r] = s;
+    }
+    T s = A(0, i) * TV(0);
+#pragma unroll
+    for (int l = 1; l < NH; ++l) s = s + A(l, i) * TV(l);
+    tQx[r] = row[(ROW_G<S> + i) * 32] * inv_s + s;
+  }
+  T Quu[M][M], tQu[M];
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+#pragma unroll
+    for (int b = 0; b < M; ++b) {
+      T s = Bm(0, a) * VB(0, b);
+#pragma unroll
+      for (int l = 1; l < NH; ++l) s = s + Bm(l, a) * VB(l, b);
+      Quu[a][b] = (a == b) ? cu[a] * inv_s + s : s;
+    }
+    T s = Bm(0, a) * TV(0);
+#pragma unroll
+    for (int l = 1; l < NH; ++l) s = s + Bm(l, a) * TV(l);
+    if constexpr (UPPER) {
+      tQu[a] = row[(ROW_GU<S> + a) * 32] * inv_s + s;
+    } else {
+      tQu[a] = s;
+    }
+  }
+  const T regs = reg0 * inv_s;
+
+  T am[M], act[M];
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+    am[a] = row[(ROW_AM<S> + a) * 32];
+    act[a] = T(1) - am[a];
+  }
+  T Qm[M][M], Qux_m[M][RP], tQu_m[M];
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+#pragma unroll
+    for (int b = 0; b < M; ++b)
+      Qm[a][b] = (a == b) ? ((Quu[a][b] + regs) * am[a]) * am[b] + act[a]
+                          : (Quu[a][b] * am[a]) * am[b];
+#pragma unroll
+    for (int r = 0; r < RP; ++r) Qux_m[a][r] = Qux[a][r] * am[a];
+    tQu_m[a] = tQu[a] * am[a];
+  }
+
+  T inv[M][M];
+  if constexpr (M == 1) {
+    inv[0][0] = T(1) / Qm[0][0];
+  } else {
+    inv2(Qm[0][0], Qm[0][1], Qm[1][0], Qm[1][1], inv);
+  }
+
+  T K[M][RP], kf[M];   // this part's columns of K
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+#pragma unroll
+    for (int r = 0; r < RP; ++r) {
+      T s = inv[a][0] * Qux_m[0][r];
+#pragma unroll
+      for (int b = 1; b < M; ++b) s = s + inv[a][b] * Qux_m[b][r];
+      K[a][r] = -s;
+    }
+    T s = inv[a][0] * tQu_m[0];
+#pragma unroll
+    for (int b = 1; b < M; ++b) s = s + inv[a][b] * tQu_m[b];
+    kf[a] = -s;
+    if (part == 0) kffout[(static_cast<size_t>(k) * M + a) * Bs + lane] = kf[a];
+  }
+#pragma unroll
+  for (int r = 0; r < RP; ++r) {
+    const int i = part + SPLIT_PARTS * r;
+    if (i < NH) {
+#pragma unroll
+      for (int a = 0; a < M; ++a) {
+        Kout[(static_cast<size_t>(k) * (M * NH) + a * NH + i) * Bs + lane] = K[a][r];
+        xch[(XCH_K<S> + a * NH + i) * 32] = K[a][r];
+      }
+    }
+  }
+  __syncwarp(group);
+
+  T tv_new[RP], vxx_new[RP][NH];
+#pragma unroll
+  for (int r = 0; r < RP; ++r) {
+    T s = Qxu[r][0] * kf[0];
+#pragma unroll
+    for (int a = 1; a < M; ++a) s = s + Qxu[r][a] * kf[a];
+    tv_new[r] = tQx[r] + s;
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      T t = Qxu[r][0] * Kx(0, j);
+#pragma unroll
+      for (int a = 1; a < M; ++a) t = t + Qxu[r][a] * Kx(a, j);
+      vxx_new[r][j] = Qxx[r][j] + t;
+    }
+  }
+  rescale_split<NH>(part, group, tv_new, vxx_new, tv, vxx, logs);
+}
+
+// K3/K5 on the split sweep (n̂ > 5).
+template <typename S, bool GENERIC, bool UPPER, typename T>
+__device__ __forceinline__ void sbwd_split(
+    const Consts& p, const T* __restrict__ gX, const T* __restrict__ gU,
+    const T* __restrict__ gXN, const T* __restrict__ U, const T* __restrict__ X,
+    const T* __restrict__ Xr, const T* __restrict__ C, const T* __restrict__ XN,
+    const T* __restrict__ XrN, T* __restrict__ Kout, T* __restrict__ kffout,
+    T* __restrict__ tVx_out, T* __restrict__ Vxx_out, T* __restrict__ LogS_out, int N, int B,
+    T* smem) {
+  constexpr int NH = S::NH, M = S::M, RP = SPLIT_ROWS<NH>, ROWS = SBWD_ROWS<S, UPPER>;
+  const size_t Bs = static_cast<size_t>(B);
+  const int lane_a = blockIdx.x * 32 + (threadIdx.x & 31);
+  const int lane = blockIdx.x * 32 + split_lane();
+  const int part = split_part();
+  const unsigned group = split_group();
+  const bool live = threadIdx.x < 32 * SPLIT_CW && lane < B;   // a phase-B thread's
+  T cd[RP], cu[M], tv[RP], vxx[RP][NH];
+  T logs = T(0);
+#pragma unroll
+  for (int a = 0; a < M; ++a) cu[a] = live ? C[(NH + a) * Bs + lane] : T(0);
+#pragma unroll
+  for (int r = 0; r < RP; ++r) {
+    const int i = part + SPLIT_PARTS * r;
+    const bool own = live && i < NH;
+    cd[r] = own ? C[i * Bs + lane] : T(0);
+    if (!own) {
+      tv[r] = T(0);
+    } else if constexpr (UPPER) {
+      tv[r] = gXN[i * Bs + lane];
+    } else {
+      tv[r] = T(2) * (XN[i * Bs + lane] - XrN[i * Bs + lane]);
+    }
+    const T term = own ? C[(NH + M + i) * Bs + lane] : T(0);
+#pragma unroll
+    for (int j = 0; j < NH; ++j) vxx[r][j] = (i == j) ? term : T(0);
+  }
+  const T reg0 = T(p.reg);
+  T* xch = smem + 2 * SPLIT_KC * ROWS * 32 + split_lane();
+  sweep_split<ROWS>(
+      N, lane_a < B, live, smem,
+      [&](int k, T* row) {
+        T c[S::NC];
+#pragma unroll
+        for (int r = 0; r < S::NC; ++r) c[r] = C[r * Bs + lane_a];
+        sbwd_lin<S, UPPER>(p, gX, gU, U, X, Xr, c, k, Bs, lane_a, row);
+      },
+      [&](int k, const T* row) {
+        sbwd_step_split<S, GENERIC, UPPER>(row, xch, part, group, cd, cu, reg0, tv, vxx, logs,
+                                           Kout, kffout, tVx_out, Vxx_out, LogS_out, k, Bs,
+                                           lane);
+      });
+}
+
 template <typename T, bool GENERIC, bool UPPER, int SYS, int NOBS>
-__global__ void __launch_bounds__(SWEEP_THREADS,
+__global__ void __launch_bounds__(System<T, SYS, NOBS>::NH > 5 ? SPLIT_THREADS : SWEEP_THREADS,
                                   SweepBlocksPerSM<T, System<T, SYS, NOBS>::NH>::value)
 sbwd_kernel(const T* __restrict__ gX, const T* __restrict__ gU, const T* __restrict__ gXN,
             const T* __restrict__ U, const T* __restrict__ X, const T* __restrict__ Xr,
@@ -257,35 +506,40 @@ sbwd_kernel(const T* __restrict__ gX, const T* __restrict__ gU, const T* __restr
   using S = System<T, SYS, NOBS>;
   constexpr int NH = S::NH, M = S::M;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = blockIdx.x * 32 + (threadIdx.x & 31);
-  const bool live = lane < B;
-  const size_t Bs = static_cast<size_t>(B);
+  if constexpr (NH > 5) {
+    sbwd_split<S, GENERIC, UPPER>(p, gX, gU, gXN, U, X, Xr, C, XN, XrN, Kout, kffout, tVx_out,
+                                  Vxx_out, LogS_out, N, B, reinterpret_cast<T*>(smem));
+  } else {
+    const int lane = blockIdx.x * 32 + (threadIdx.x & 31);
+    const bool live = lane < B;
+    const size_t Bs = static_cast<size_t>(B);
 
-  T c[S::NC];
+    T c[S::NC];
 #pragma unroll
-  for (int r = 0; r < S::NC; ++r) c[r] = live ? C[r * Bs + lane] : T(0);
-  T tv[NH], vxx[NH][NH];
-  T logs = T(0);
+    for (int r = 0; r < S::NC; ++r) c[r] = live ? C[r * Bs + lane] : T(0);
+    T tv[NH], vxx[NH][NH];
+    T logs = T(0);
 #pragma unroll
-  for (int i = 0; i < NH; ++i) {
-    if (!live) {
-      tv[i] = T(0);
-    } else if constexpr (UPPER) {
-      tv[i] = gXN[i * Bs + lane];
-    } else {
-      tv[i] = T(2) * (XN[i * Bs + lane] - XrN[i * Bs + lane]);
+    for (int i = 0; i < NH; ++i) {
+      if (!live) {
+        tv[i] = T(0);
+      } else if constexpr (UPPER) {
+        tv[i] = gXN[i * Bs + lane];
+      } else {
+        tv[i] = T(2) * (XN[i * Bs + lane] - XrN[i * Bs + lane]);
+      }
+#pragma unroll
+      for (int j = 0; j < NH; ++j) vxx[i][j] = (i == j) ? c[NH + M + i] : T(0);
     }
-#pragma unroll
-    for (int j = 0; j < NH; ++j) vxx[i][j] = (i == j) ? c[NH + M + i] : T(0);
+    const T reg0 = T(p.reg);
+    sweep<true, SBWD_ROWS<S, UPPER>>(
+        N, live, reinterpret_cast<T*>(smem),
+        [&](int k, T* row) { sbwd_lin<S, UPPER>(p, gX, gU, U, X, Xr, c, k, Bs, lane, row); },
+        [&](int k, const T* row) {
+          sbwd_step<S, GENERIC, UPPER>(row, c, reg0, tv, vxx, logs, Kout, kffout, tVx_out,
+                                       Vxx_out, LogS_out, k, Bs, lane);
+        });
   }
-  const T reg0 = T(p.reg);
-  sweep<true, SBWD_ROWS<S, UPPER>>(
-      N, live, reinterpret_cast<T*>(smem),
-      [&](int k, T* row) { sbwd_lin<S, UPPER>(p, gX, gU, U, X, Xr, c, k, Bs, lane, row); },
-      [&](int k, const T* row) {
-        sbwd_step<S, GENERIC, UPPER>(row, c, reg0, tv, vxx, logs, Kout, kffout, tVx_out,
-                                     Vxx_out, LogS_out, k, Bs, lane);
-      });
 }
 
 template <typename T, bool GENERIC, bool UPPER>
@@ -294,15 +548,19 @@ int launch_sbwd(const void* gX, const void* gU, const void* gXN, const void* U, 
                 void* kff, void* tVx, void* Vxx, void* LogS, int N, int B, const Consts* p,
                 void* stream) {
   // Two buffers: Dubins' 30 rows f32 23,040 bytes, f64 46,080; 32 rows (UPPER) f64
-  // 49,152; the quadrotor's 72 rows f64 110,592 (allow_smem).
-  const dim3 grid((B + 31) / 32);
+  // 49,152; the quadrotor's split sweep two buffers of two steps of 72 rows (74 with
+  // UPPER) and the exchange's 84, f32 47,616 (48,640), f64 95,232 (97,280) (allow_smem).
   return with_system(*p, [&](auto nobs) {
     constexpr int NOBS = decltype(nobs)::value;
-    constexpr int smem = sweep_smem<T, SBWD_ROWS<System<T, LANE_SYSTEM, NOBS>, UPPER>>();
+    using S = System<T, LANE_SYSTEM, NOBS>;
+    constexpr int smem = S::NH > 5 ? split_smem<T, SBWD_ROWS<S, UPPER>, XCH_ROWS<S>>()
+                                   : sweep_smem<T, SBWD_ROWS<S, UPPER>>();
+    const dim3 grid((B + 31) / 32);
     const auto kernel = sbwd_kernel<T, GENERIC, UPPER, LANE_SYSTEM, NOBS>;
     const int err = allow_smem(kernel, smem);
     if (err != 0) return err;
-    kernel<<<grid, SWEEP_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<grid, S::NH > 5 ? SPLIT_THREADS : SWEEP_THREADS, smem,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(gX), static_cast<const T*>(gU), static_cast<const T*>(gXN),
         static_cast<const T*>(U), static_cast<const T*>(X), static_cast<const T*>(Xr),
         static_cast<const T*>(C), static_cast<const T*>(XN), static_cast<const T*>(XrN),

@@ -136,9 +136,15 @@ __device__ __forceinline__ void load_gains(Gains<T, S>& g, const T* __restrict__
   }
 }
 
+// K4/K6 keep two f32 blocks an SM above n̂ = 5, where K1 and K3/K5 take four
+// (SweepBlocksPerSM): the quadrotor's K4/K6 fit 152-193 registers without spill there.
+template <typename T, int NH> struct SfwdBlocksPerSM {
+  static constexpr int value = NH <= 5 ? SweepBlocksPerSM<T, NH>::value : (sizeof(T) == 4 ? 2 : 1);
+};
+
 template <typename T, bool GENERIC, bool EMIT, int SYS, int NOBS>
 __global__ void __launch_bounds__(SWEEP_THREADS,
-                                  SweepBlocksPerSM<T, System<T, SYS, NOBS>::NH>::value)
+                                  SfwdBlocksPerSM<T, System<T, SYS, NOBS>::NH>::value)
 sfwd_kernel(const T* __restrict__ Kg, const T* __restrict__ kff, const T* __restrict__ X,
             const T* __restrict__ Xr, const T* __restrict__ U, const T* __restrict__ Ur,
             const T* __restrict__ C, const T* __restrict__ XN, const T* __restrict__ XrN,

@@ -40,6 +40,15 @@
 //   warps of both share each SM's dispatch slots. The f32 register cap (SweepBlocksPerSM)
 //   costs 36 bytes of spill at 5 obstacles, nearly all in phase A. tools/ric_probe.py
 //   times each phase alone, other chunk sizes and caps, and places the spills.
+// K1 above n̂ = 5 (the quadrotor's n̂ = 7): phase B bounds it. Its recursion is O(n̂³),
+// some 2,500 operations a lane and step, and its 7x7 carry and Q blocks need 241
+// registers; at two f32 blocks an SM (255 registers) B=16384 ran in two waves with one
+// chain warp in four. tools/ric_probe.py --family quadrotor2d (PERF.md §6, PR 12): phase
+// B alone took 0.418 ms of the kernel's 0.476 (N=50), phase A alone 0.185; four blocks an
+// SM at 128 registers, with 312 bytes of spill, 0.314 ms, 1.28 ms at N=200 against 1.91.
+// K3/K5's split sweep (lane_common.cuh, sweep_split: two threads share each lane's
+// chain) ran K1 at 0.353 ms and 1.58 ms, slower than that, so K1 keeps this sweep with
+// SweepBlocksPerSM's four f32 blocks above n̂ = 5 too.
 // The arithmetic and its order are those of the plain version
 // (ops/cuda/lane_solver.py::ric_plain, whose two phases are these); only where each
 // value is computed differs.
