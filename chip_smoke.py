@@ -390,6 +390,19 @@ def count_ops(torch, fn, args, lanes: int) -> int:
     return Counter.ops
 
 
+def work_bound(torch, name, plain, inputs, outputs, nc: int):
+    """(bytes, operations, ms at the card's memory rate, ms at its peak rate) of the kernel
+    `name`'s work on B lanes: each input read once (of the const rows C [nc, B] only those
+    it reads) and each output written once; the plain version's operations, counted on 8
+    lanes."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    nbytes -= (nc - C_ROWS_READ.get(name, nc)) * B * outputs[0].element_size()
+    lanes = 8
+    ops = count_ops(torch, plain, inputs, lanes) * (B // lanes)
+    dname = str(outputs[0].dtype).replace("torch.", "")
+    return nbytes, ops, nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
+
+
 def max_err(torch, got, ref, rtol, atol_frac):
     """(max |got - ref| where ref is finite, inf if got is not finite there; whether the
     outputs agree): where ref is finite, |got - ref| <= rtol |ref| + atol_frac * (largest
@@ -1942,22 +1955,16 @@ def run_phases(torch, pool) -> int:
             # the check's call just before is the plain version's warm-up
             plain_ms = (device_time_ms(torch, lambda: plain(*inputs), plain_runs, warmup=0)
                         if plain_runs else plain_wall)
-            out_bytes = sum(t.numel() * t.element_size() for t in got)
-            in_bytes = sum(t.numel() * t.element_size() for t in inputs)
-            in_bytes -= (nc - C_ROWS_READ.get(name, nc)) * B * got[0].element_size()
-            lanes = 8
-            ops = count_ops(torch, plain, inputs, lanes) * (B // lanes)
-            t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS_PER_S[dname] * 1e3
+            nbytes, ops, t_bytes, t_ops = work_bound(torch, name, plain, inputs, got, nc)
             results[name + suffix] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=in_bytes + out_bytes, ops=ops)
+                bytes=nbytes, ops=ops)
             log(f"[{phase}] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back), plain "
                 f"{plain_ms:.2f} ms ({f'mean of {plain_runs}' if plain_runs else 'its check'}"
                 f", while the CPU's loop64 workers run); "
-                f"{in_bytes + out_bytes} bytes "
+                f"{nbytes} bytes "
                 f"-> {t_bytes:.4f} ms, {ops} ops -> {t_ops:.4f} ms at peak "
                 f"({2 * t_ops:.4f} ms without fused multiply-adds)")
         for label, name, kernel, plain, inputs, timed in extra:

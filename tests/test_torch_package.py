@@ -4,6 +4,7 @@ setup and a loop state are carried across from the JAX package.
 import ast
 import dataclasses
 import importlib
+import importlib.util
 import re
 import os
 import pkgutil
@@ -618,3 +619,40 @@ def test_xla_values_round_trip():
     same(state, generic)
     f32 = convert.cost_weights_from_numpy(w, "cpu", torch.float32)
     assert f32.Q.dtype == torch.float32
+
+
+def _ric_probe():
+    spec = importlib.util.spec_from_file_location("ric_probe", REPO / "tools" / "ric_probe.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("family, variant", [
+    (family, variant) for family, variants in _ric_probe().VARIANTS.items() for variant in variants])
+def test_probe_edits_match_the_sources(family, variant, tmp_path):
+    """Each variant of tools/ric_probe.py applies to today's kernel sources (every edit
+    matches as often as it says), so that an edit the kernels outgrew fails here and not
+    on the card; only the files the variant names are edited (a variant may restate the
+    sources' own value, as the quadrotor's cap4 does)."""
+    probe = _ric_probe()
+    csrc = PKG / "csrc"
+    probe.variant_sources(csrc, probe.VARIANTS[family][variant], tmp_path)
+    changed = {src.name for src in csrc.glob("*.cu*")
+               if (tmp_path / src.name).read_text() != src.read_text()}
+    assert changed <= {name for name, *_ in probe.VARIANTS[family][variant]}
+
+
+def test_kernel_ab_compares_each_librarys_own_sass():
+    """tools/port_kernel_ab.py compares a kernel's SASS within its library variant: the
+    quadrotor's default and min + log libraries build the same symbol from different code,
+    and a change in one of them is reported even where the other is unchanged."""
+    spec = importlib.util.spec_from_file_location("port_kernel_ab",
+                                                  REPO / "tools" / "port_kernel_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    sym = "_ZN4lane10fwd_kernelIfLi2ELi4EEEvPKT_"
+    base = {("quadrotor2d", sym): (10, "a"), ("quadrotor2d_min_log", sym): (10, "b")}
+    this = {("quadrotor2d", sym): (12, "c"), ("quadrotor2d_min_log", sym): (10, "b")}
+    assert ab.changed_kernels(base, this) == (2, ["quadrotor2d: fwd_kernel<float, quadrotor2d, 4>"])
+    assert ab.changed_kernels(base, dict(base)) == (2, [])

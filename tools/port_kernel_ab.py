@@ -19,12 +19,17 @@ both builds on the same inputs (CASES): for Dubins K1 `ric`, K2 `fwd` (at nα=7 
 rollout's nα=1), K3 `sbwd` and K4 `sfwd` on one closed-loop step of the paper setup, and
 K5 `sbwd_generic`, `sbwd_upper`, K6 `sfwd_generic`, `sfwd_ref` on one step of the coupled
 setup, at B=16384, N=50 (chip_smoke.paper_step, coupled_step); for another family its K1
-and K3 on its paper step (N=50) and, for the quadrotor, K1 and the K5 variants on the
-coupled step of configs/quadrotor2d.yaml and of chip_smoke.MINLOG's quadrotor2d_min_log at
-the file's N=200. Each is called through this tree's wrapper with the wrapper's library
-lookup pointed at one build or the other, in the order base, this, this, base, each the
-device time per launch of RUNS launches back to back (chip_smoke.device_time_ms), and the
-two builds' outputs must be bitwise equal. The last line is one JSON object with the times.
+and K3 on its paper step (N=50), for the cart-pole K1 also in f64 and, with the variant
+`cartpole_log`, on the coupled step of chip_smoke.MINLOG's cartpole_log at the file's N=40;
+for the quadrotor also K2 (at the config's nα and at nα=1) on its paper step, and K1, K2
+and the K5 variants on the coupled step of configs/quadrotor2d.yaml and of
+chip_smoke.MINLOG's quadrotor2d_min_log at the file's N=200. Each is called through this
+tree's wrapper with the wrapper's library lookup pointed at one build or the other, in the
+order base, this, this, base, each the device time per launch of RUNS launches back to back
+(chip_smoke.device_time_ms), beside its bound as chip_smoke.py computes it (the larger of
+bytes over the card's memory rate and the plain version's operations over its peak rate),
+and the two builds' outputs must be bitwise equal. The last line is one JSON object with
+the times.
 """
 from __future__ import annotations
 
@@ -44,23 +49,30 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 RUNS = 50
-VARIANTS = ("dubins", "double_integrator", "quadrotor2d", "cartpole", "quadrotor2d_min_log")
-# variant: [(label suffix, chip_smoke's step function by name, its keyword arguments,
-#            the kernels timed on it, None for all)]
+VARIANTS = ("dubins", "double_integrator", "quadrotor2d", "cartpole", "cartpole_log",
+            "quadrotor2d_min_log")
+FWD = ("fwd", "fwd nα=1")
+# variant: [(label suffix, chip_smoke's step function by name, its keyword arguments (with
+#            "dtype", a torch dtype's name, for another than f32), the kernels timed on it,
+#            None for all)]
 CASES = {
     "dubins": [("", "paper_step", {}, None), ("", "coupled_step", {}, None)],
     "double_integrator": [(" double_integrator", "paper_step",
                            {"family": "double_integrator"}, ("ric", "sbwd"))],
-    "cartpole": [(" cartpole", "paper_step", {"family": "cartpole"}, ("ric", "sbwd"))],
+    "cartpole": [(" cartpole", "paper_step", {"family": "cartpole"}, ("ric", "sbwd")),
+                 (" cartpole f64", "paper_step", {"family": "cartpole", "dtype": "float64"},
+                  ("ric",))],
+    "cartpole_log": [(" cartpole_log N=40", "coupled_step",
+                      {"family": "cartpole_log", "N_": 40, "solver": True}, ("ric",))],
     "quadrotor2d": [
-        (" quadrotor2d", "paper_step", {"family": "quadrotor2d"}, ("ric", "sbwd")),
+        (" quadrotor2d", "paper_step", {"family": "quadrotor2d"}, ("ric", "sbwd", *FWD)),
         (" quadrotor2d N=200", "coupled_step",
          {"family": "quadrotor2d", "N_": 200, "solver": True},
-         ("ric", "sbwd_generic", "sbwd_upper"))],
+         ("ric", *FWD, "sbwd_generic", "sbwd_upper"))],
     "quadrotor2d_min_log": [
         (" quadrotor2d_min_log N=200", "coupled_step",
          {"family": "quadrotor2d_min_log", "N_": 200, "solver": True},
-         ("ric", "sbwd_generic", "sbwd_upper"))],
+         ("ric", *FWD, "sbwd_generic", "sbwd_upper"))],
 }
 
 
@@ -123,21 +135,36 @@ def on_build(libs, fn):
 
 
 def step_cases(torch, dev, cases=CASES["dubins"]):
-    """{label: (f32 call of a kernel's wrapper, its inputs)} of `cases` (CASES' entries):
-    by default the paper step's K1-K4 and the coupled step's K5/K6 variants at B, N of
-    chip_smoke."""
+    """{label: (call of a kernel's wrapper, its plain version, its inputs, the kernel's
+    name, the problem's count of const rows)} of `cases` (CASES' entries): by default the
+    paper step's K1-K4 and the coupled step's K5/K6 variants at B, N of chip_smoke, in f32."""
     import chip_smoke
 
     out = {}
     for suffix, step, kwargs, kernels in cases:
-        pb, _, make, inputs, _ = getattr(chip_smoke, step)(torch, dev, torch.float32, **kwargs)
+        kwargs = dict(kwargs)
+        dtype = getattr(torch, kwargs.pop("dtype", "float32"))
+        pb, _, make, inputs, _ = getattr(chip_smoke, step)(torch, dev, dtype, **kwargs)
         fns = make(pb)
+        if "fwd" in inputs:
+            inputs = {**inputs, "fwd nα=1": inputs["fwd"]}
         for name, ins in inputs.items():
             if kernels is None or name in kernels:
-                out[name + suffix] = (fns[name][0], ins)
-        if "fwd" in inputs and kernels is None:
-            out["fwd nα=1" + suffix] = (fns["fwd nα=1"][0], inputs["fwd"])
+                out[name + suffix] = (*fns[name], ins, name, 2 * pb.n_hat + pb.m + 3)
     return out
+
+
+def changed_kernels(base, this):
+    """(how many kernels both builds have, the labels of those whose SASS differs) of two
+    builds' {(library variant, kernel symbol): (instructions, digest)}. A kernel is a
+    symbol in one variant: the variants of a system (its aggregations and barriers) build
+    the same symbols from different code."""
+    import chip_smoke
+
+    both = sorted(set(base) & set(this))
+    changed = [f"{variant}: {chip_smoke.kernel_label(sym)}" for variant, sym in both
+               if base[variant, sym][1] != this[variant, sym][1]]
+    return len(both), changed
 
 
 def bitwise_equal(torch, xs, ys) -> bool:
@@ -181,15 +208,14 @@ def main() -> int:
                 print(f"[build] {tree} {variant}: {chip_smoke.kernel_label(line.strip())}",
                       flush=True)
         for sym, (n, digest) in sass_of(sos[tree, variant, name]).items():
-            sass[tree][sym] = (n, digest)
-            print(f"[sass] {tree}: {chip_smoke.kernel_label(sym)}: {n} instructions", flush=True)
+            sass[tree][variant, sym] = (n, digest)
+            print(f"[sass] {tree} {variant}: {chip_smoke.kernel_label(sym)}: {n} instructions",
+                  flush=True)
         libs.setdefault(tree, {}).setdefault(variant, []).append(
             ctypes.CDLL(str(sos[tree, variant, name])))
-    same_sass = {chip_smoke.kernel_label(sym): sass["base"][sym][1] == sass["this"][sym][1]
-                 for sym in sorted(set(sass["base"]) & set(sass["this"]))}
-    changed = sorted(k for k, same in same_sass.items() if not same)
-    print(f"[sass] kernels built by both trees: {len(same_sass)}, the same SASS: "
-          f"{len(same_sass) - len(changed)}; changed: {json.dumps(changed)}", flush=True)
+    both, changed = changed_kernels(sass["base"], sass["this"])
+    print(f"[sass] kernels built by both trees: {both}, the same SASS: {both - len(changed)}; "
+          f"changed: {json.dumps(changed)}", flush=True)
     builds = {tree: {v: TreeLib(found) for v, found in by.items()} for tree, by in libs.items()}
 
     dev = torch.device("cuda", 0)
@@ -197,17 +223,22 @@ def main() -> int:
     for variant in args.variants:
         cases.update(on_build(builds["this"], lambda: step_cases(torch, dev, CASES[variant]))())
     torch.cuda.synchronize()
-    result = {"card": card, "B": chip_smoke.B, "runs": RUNS, "sass_changed": changed, "ms": {}}
-    for label, (call, ins) in cases.items():
+    result = {"card": card, "B": chip_smoke.B, "runs": RUNS, "sass_changed": changed, "ms": {},
+              "bound_ms": {}}
+    for label, (call, plain, ins, name, nc) in cases.items():
         runs = {tree: on_build(lib, lambda: call(*ins)) for tree, lib in builds.items()}
         outs = {tree: run() for tree, run in runs.items()}
         torch.cuda.synchronize()
         same = bitwise_equal(torch, outs["base"], outs["this"])
         times = [(tree, chip_smoke.device_time_ms(torch, runs[tree], RUNS))
                  for tree in ("base", "this", "this", "base")]
+        *_, t_bytes, t_ops = chip_smoke.work_bound(torch, name, plain, ins, outs["this"], nc)
+        bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
         result["ms"][label] = times
+        result["bound_ms"][label] = [bound, by]
         print(f"[time] {label}: " + ", ".join(f"{k} {ms!r} ms" for k, ms in times)
-              + f" (mean of {RUNS} back to back); outputs bitwise equal: {same}", flush=True)
+              + f" (mean of {RUNS} back to back); bound {bound!r} ms ({by}); outputs "
+              f"bitwise equal: {same}", flush=True)
         if not same:
             raise SystemExit(f"port_kernel_ab: {label} differs between the two builds")
     print(json.dumps(result))

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Where the chunked sweeps' time and register spills go (K1 `ric_kernel`, K3/K5
-`sbwd_kernel`, K4/K6 `sfwd_kernel`, all on lane_common.cuh's sweeps), on one NVIDIA
-card, in one process.
+`sbwd_kernel`, K4/K6 `sfwd_kernel`, all on lane_common.cuh's sweeps), and the quadrotor's
+K2 (`fwd_kernel`, `fwd_staged_kernel`), on one NVIDIA card, in one process.
 
     python3 tools/ric_probe.py                           # Dubins, from the repository root
     python3 tools/ric_probe.py --family quadrotor2d      # the quadrotor's n̂ = 7 kernels
+    python3 tools/ric_probe.py --family cartpole         # the cart-pole's K1 and K3/K5
+    python3 tools/ric_probe.py --family cartpole_log     # its K1 with the log barrier
     python3 tools/ric_probe.py --family quadrotor2d --tree chip_tree/base   # another tree's
     python3 tools/ric_probe.py --family quadrotor2d --variants "A only" parts2   # some (and kept)
 
 1. Builds variants of a tree's kernel sources (`tube_mpc_tpu_torch/csrc/`, of this tree or
    of `--tree`), each a copy of the sources with textual edits (VARIANTS[family]), all at
    once with the package's nvcc flags for the family's library, and prints each variant's
-   ptxas registers and spills of the family's f32 and f64 instantiations (PROBED).
+   ptxas registers and spills and SASS instruction counts of the family's f32 and f64
+   instantiations (PROBED).
    Dubins (`--family dubins`):
    - kept:   the sources as they are;
    - A only: the recursion's warps skip phase B (the recursion), so phase A and the
@@ -22,19 +25,40 @@ card, in one process.
              buffers the launchers set the dynamic shared memory attribute);
    - cap3, cap2: 3 or 2 f32 blocks per SM in __launch_bounds__ (at most 168 or 255
              registers a thread), not 4 (128), for the systems with n̂ <= 5.
-   The quadrotor (`--family quadrotor2d`; K1 and K3/K5 are timed):
+   The cart-pole (`--family cartpole`): kept, A only, B only, kc2/4/6, cap3, cap2 as
+   Dubins', and
+   - rot:    the sweep's phase-B warp is the block's slot on the SM ((%warpid / 4) mod
+             SWEEP_WARPS, read by thread 0 and shared), not warp 0, which would spread an
+             SM's chains over its four schedulers if a warp's scheduler were its slot mod 4;
+   - rot B only: rot with phase A skipped;
+   - w6, w6 cap3: six warps a block, five in phase A with a step each a chunk
+             (SWEEP_WARPS 6, SWEEP_KC 5), at four or three f32 blocks an SM;
+   - A only cap2, B only cap2: a phase alone at the lifted cap;
+   - no lean: K1's phase B without LEAN (RIC_LEAN), the parent's K1.
+   The quadrotor (`--family quadrotor2d`; K1, K2 and K3/K5 are timed):
    kept, A only and B only as above, cap2, cap3, cap4: 2, 3 or 4 f32 blocks per SM
-   for n̂ > 5 (SweepBlocksPerSM), whatever the tree's value, and "parts<P> aw<W>": K3/K5's
+   for n̂ > 5 (SweepBlocksPerSM), whatever the tree's value, "parts<P> aw<W>": K3/K5's
    split sweep (sweep_split) with P threads a lane in phase B and W phase-A warps
-   (SPLIT_PARTS, SPLIT_AW; a tree without the split sweep fails these).
-   The edits are to the shared sweeps, so each variant changes every kernel on them alike.
+   (SPLIT_PARTS, SPLIT_AW; a tree without the split sweep fails these), and K2's: "fwd
+   cap3", "fwd cap4" (fwd_kernel, the rollout's, at 3 or 4 blocks an SM in its
+   __launch_bounds__: at most 80 or 64 registers a thread), "fwd unstaged" (the parent's
+   fwd_kernel at every nα), "fwd staged nα=1" (fwd_staged_kernel for the rollout too),
+   "fwd kc1", "fwd kc4", "fwd bufs3" (its steps a chunk and chunks in the ring), "fwd
+   unroll1", "fwd unroll4" (the rollout's step loop not unrolled, or four times) and "fwd
+   lanes32" (32-lane blocks at any nα).
+   The cart-pole with the log barrier (`--family cartpole_log`): kept and "no lean".
+   The edits are to the shared sweeps (K2's to its own kernels), so each variant changes
+   every kernel on them alike; an edit of a `.cu` file alone rebuilds that source alone.
 2. Times every f32 kernel of the family's cases (Dubins: tools/port_kernel_ab.py's paper
-   step's K1-K4 and coupled step's K5/K6 at B=16384, N=50; the quadrotor: K1 and K3 on its
-   paper step at N=50, K1 and the two K5 on the coupled step of configs/quadrotor2d.yaml
-   at its N=200) through its wrapper on every variant's build, in turns (every variant,
-   then every variant in reverse order), each the device time per launch of RUNS
-   launches back to back, and says whether each variant's outputs are bitwise those of
-   `kept`.
+   step's K1-K4 and coupled step's K5/K6 at B=16384, N=50; the cart-pole: K1 and K3 on its
+   paper step at N=50, K1 and the two K5 on the coupled step of configs/cartpole.yaml at
+   its N=40, with the log barrier K1 on that step of chip_smoke.MINLOG's cartpole_log; the
+   quadrotor: tools/port_kernel_ab.py's cases, K1, K2 at the config's nα and
+   at nα=1 and K3 on its paper step at N=50, K1, K2 and the two K5 on the coupled step of
+   configs/quadrotor2d.yaml at its N=200) through its wrapper on every variant's build, in
+   turns (every variant, then every variant in reverse order), each the device time per
+   launch of RUNS launches back to back, and says whether each variant's outputs are
+   bitwise those of `kept`.
 3. Compiles `kept` once more to cubins with -lineinfo (which leaves the code as it
    is), disassembles them with nvdisasm -gi, and counts each instantiation's
    local-memory stores and loads (STL, LDL: the register spills) by the source line
@@ -42,7 +66,11 @@ card, in one process.
    kernel on a shared sweep carry the line of the kernel's sweep call, whichever
    phase they serve: the phase shows in the `A only` and `B only` variants' ptxas
    lines instead. The stack frame of the math library's out-of-line paths, which every
-   f64 instantiation has, shows at the kernel's last line.
+   f64 instantiation has, shows at the kernel's last line. For the instantiations of
+   PROBED it also counts the SASS instructions, all of them and those of one step of
+   K1's phase A (lin_step) and of its phase B (ric_step): those with a frame in the
+   function's lines (one step's code, unless the compiler unrolled a step loop). The
+   disassembly stays in `_build/probe/<family>/<source>_lineinfo.sass`.
 
 A variant's edit that matches no line of the tree's sources fails the run (an edit with a
 count must match exactly that often): update VARIANTS with the kernels.
@@ -68,17 +96,79 @@ import port_kernel_ab as ab  # noqa: E402
 
 RUNS = 50
 SWEEP = "lane_common.cuh"
+SOLVER = "lane_solver.cu"
 A_ONLY = (SWEEP, r"rec_step\(k, buf \+ \(k - lo\) \* STEP\);", "(void)buf;", None)
 B_ONLY = (SWEEP, r"lin_step\(k, buf \+ \(k - lo\) \* STEP\);", "(void)buf;", None)
+KC = {f"kc{kc}": [(SWEEP, r"constexpr int SWEEP_KC = 3;", f"constexpr int SWEEP_KC = {kc};", 1)]
+      for kc in (2, 4, 6)}
+CAP = {f"cap{n}": [(SWEEP, r"\) : \(sizeof\(T\) == 4 \? 4 : 1\);",
+                    f") : (sizeof(T) == 4 ? {n} : 1);", 1)] for n in (3, 2)}
+# The sweep's phase-B warp taken by the block's slot on the SM, (%warpid / 4) mod the warps a
+# block, not always warp 0, so that the chains of an SM's blocks are spread over its four
+# schedulers (a warp's scheduler is its slot mod 4); thread 0 reads its slot and the block
+# shares it through shared memory.
+ROT = [(SWEEP, r"  linearise\(0, warp, SWEEP_WARPS\);\n  sweep_sync\(\);\n  if \(warp == 0\) \{",
+        "  __shared__ int chain_warp;\n"
+        "  if (threadIdx.x == 0) {\n"
+        "    unsigned slot;\n"
+        "    asm volatile(\"mov.u32 %0, %%warpid;\" : \"=r\"(slot));\n"
+        "    chain_warp = (slot >> 2) % SWEEP_WARPS;\n"
+        "  }\n"
+        "  linearise(0, warp, SWEEP_WARPS);\n  sweep_sync();\n"
+        "  const int chain = chain_warp;\n  if (warp == chain) {", 1),
+       (SWEEP, r"linearise\(j \+ 1, warp - 1, SWEEP_WARPS - 1\);",
+        "linearise(j + 1, (warp - chain - 1 + SWEEP_WARPS) % SWEEP_WARPS, SWEEP_WARPS - 1);", 1)]
+# Six warps a block, five of them phase A with a step each a chunk.
+W6 = [(SWEEP, r"constexpr int SWEEP_WARPS = 4;", "constexpr int SWEEP_WARPS = 6;", 1),
+      (SWEEP, r"constexpr int SWEEP_KC = 3;", "constexpr int SWEEP_KC = 5;", 1)]
+# K2's blocks an SM in __launch_bounds__ (at most 65536 / (n 32 MAX_ALPHAS) registers).
+FWD_CAP = {f"fwd cap{n}": [(SOLVER, r"__launch_bounds__\(32 \* MAX_ALPHAS\)",
+                            f"__launch_bounds__(32 * MAX_ALPHAS, {n})", 1)] for n in (3, 4)}
+# The quadrotor's K2 staged in shared memory (fwd_staged_kernel) from nα = FWD_STAGE_MIN:
+# never (fwd_kernel alone, the parent's K2), or also for the rollout's nα = 1; its steps a
+# chunk (FWD_KC) and chunks in the ring (FWD_BUFS).
+FWD_MIN = r"constexpr int FWD_STAGE_MIN = \d+;"
+FWD_STAGED = {
+    "fwd unstaged": [(SOLVER, FWD_MIN, "constexpr int FWD_STAGE_MIN = 9;", 1)],
+    "fwd staged nα=1": [(SOLVER, FWD_MIN, "constexpr int FWD_STAGE_MIN = 1;", 1)],
+    **{f"fwd kc{kc}": [(SOLVER, r"constexpr int FWD_KC = \d+;", f"constexpr int FWD_KC = {kc};", 1)]
+       for kc in (1, 4)},
+    "fwd bufs3": [(SOLVER, r"constexpr int FWD_BUFS = \d+;", "constexpr int FWD_BUFS = 3;", 1)],
+    # fwd_kernel (the rollout's): its step loop unrolled once (not at all) or four times,
+    # not twice, or 32 lanes a block at any nα
+    **{f"fwd unroll{n}": [(SOLVER, r"#pragma unroll 2\n#endif", f"#pragma unroll {n}\n#endif", 1)]
+       for n in (1, 4)},
+    "fwd lanes32": [(SOLVER, r"const int lanes = na >= 4 \? 32 : 32 \* \(4 / na\);",
+                     "const int lanes = 32;", 1)],
+}
+# The cart-pole's K1 without ric_step's LEAN phase B (RIC_LEAN), the parent's K1.
+NO_LEAN = [(SOLVER, r"constexpr bool RIC_LEAN = SYS == CARTPOLE;",
+            "constexpr bool RIC_LEAN = false;", 1)]
 VARIANTS = {  # family: {name: [(file, regex, replacement, matches, None for at least one)]}
     "dubins": {
         "kept": [],
         "A only": [A_ONLY],
         "B only": [B_ONLY],
-        **{f"kc{kc}": [(SWEEP, r"constexpr int SWEEP_KC = 3;",
-                        f"constexpr int SWEEP_KC = {kc};", 1)] for kc in (2, 4, 6)},
-        **{f"cap{n}": [(SWEEP, r"\) : \(sizeof\(T\) == 4 \? 4 : 1\);",
-                        f") : (sizeof(T) == 4 ? {n} : 1);", 1)] for n in (3, 2)},
+        **KC,
+        **CAP,
+    },
+    "cartpole": {
+        "kept": [],
+        "A only": [A_ONLY],
+        "B only": [B_ONLY],
+        "A only cap2": [A_ONLY, *CAP["cap2"]],
+        "B only cap2": [B_ONLY, *CAP["cap2"]],
+        **KC,
+        **CAP,
+        "rot": ROT,
+        "rot B only": [*ROT, B_ONLY],
+        "w6": W6,
+        "w6 cap3": [*W6, *CAP["cap3"]],
+        "no lean": NO_LEAN,
+    },
+    "cartpole_log": {
+        "kept": [],
+        "no lean": NO_LEAN,
     },
     "quadrotor2d": {
         "kept": [],
@@ -90,19 +180,33 @@ VARIANTS = {  # family: {name: [(file, regex, replacement, matches, None for at 
                    1),
                   (SWEEP, r"constexpr int SPLIT_AW = \d+;", f"constexpr int SPLIT_AW = {aw};", 1)]
            for name, n, aw in (("parts4 aw2", 4, 2), ("parts4 aw1", 4, 1), ("parts2 aw1", 2, 1))},
+        **FWD_CAP,
+        **FWD_STAGED,
     },
 }
 SOURCES = ("lane_solver", "lane_sbwd", "lane_sfwd")   # the steps' inputs run every kernel
 PROBED = {  # the instantiations whose ptxas lines are printed
     "dubins": ("ric_kernel<float, dubins, 5>", "sbwd_kernel<float, false, false, dubins, 5>",
                "sfwd_kernel<float, false, false, dubins, 5>"),   # the paper's
+    "cartpole": tuple(f"{k}<{t}{flags}, cartpole, 0>" for t in ("float", "double")
+                      for k, flags in (("ric_kernel", ""), ("sbwd_kernel", ", false, false"))),
+    "cartpole_log": tuple(f"ric_kernel<{t}, cartpole, 0>" for t in ("float", "double")),
     "quadrotor2d": tuple(f"{k}<{t}{flags}, quadrotor2d, 4>" for t in ("float", "double")
                          for k, flags in (("ric_kernel", ""), ("sbwd_kernel", ", false, false"),
                                           ("sbwd_kernel", ", true, false"),
-                                          ("sbwd_kernel", ", true, true"))),
+                                          ("sbwd_kernel", ", true, true"), ("fwd_kernel", ""),
+                                          ("fwd_staged_kernel", ""))),
 }
 CASES = {"dubins": ab.CASES["dubins"],
+         "cartpole": [(" cartpole", "paper_step", {"family": "cartpole"}, ("ric", "sbwd")),
+                      (" cartpole N=40", "coupled_step",
+                       {"family": "cartpole", "N_": 40, "solver": True},
+                       ("ric", "sbwd_generic", "sbwd_upper"))],
+         "cartpole_log": ab.CASES["cartpole_log"],
          "quadrotor2d": ab.CASES["quadrotor2d"]}
+# The device functions of one step of each phase of K1 (lane_solver.cu), whose SASS
+# instructions are counted by their line info.
+PHASES = {"phase A (lin_step)": (SOLVER, "lin_step"), "phase B (ric_step)": (SOLVER, "ric_step")}
 
 
 def variant_sources(csrc: Path, edits, out: Path):
@@ -119,6 +223,15 @@ def variant_sources(csrc: Path, edits, out: Path):
         (out / src.name).write_text(text)
 
 
+def built(edits, names):
+    """The sources a variant builds: all of them where an edit is to the shared header,
+    else those it edits (the others are kept's)."""
+    files = {name for name, *_ in edits}
+    if not files or SWEEP in files:
+        return names
+    return [n for n in names if f"{n}.cu" in files]
+
+
 def ptxas_lines(log: str, label, kernel: str):
     """The ptxas lines of `kernel` (a label as chip_smoke.kernel_label writes it)."""
     lines = [label(x.strip()) for x in log.splitlines()]
@@ -128,26 +241,62 @@ def ptxas_lines(log: str, label, kernel: str):
     return []
 
 
-def spill_sites(sass: str, sources):
-    """{kernel symbol: Counter((STL or LDL, "<source> line N"))}: each local-memory
-    instruction at the innermost frame of its line-info chain that lies in one of
-    `sources` (file names)."""
-    counts, fn, chain = {}, None, []
+def frames(sass: str):
+    """(kernel symbol, line-info chain [(file name, line), innermost first], instruction)
+    of each SASS instruction of nvdisasm -gi's output."""
+    fn, chain, fresh = None, [], True
     for line in sass.splitlines():
         if "/*" not in line:
             m = re.search(r"\.text\.(_Z\w+)", line)
             if m:
                 fn = m.group(1)
                 continue
-        if "//##" in line:
-            chain = [(Path(f).name, int(n)) for f, n in re.findall(r'"([^"]+)", line (\d+)', line)]
+        if "//##" in line:   # one frame and its caller a line, innermost first
+            frames_ = [(Path(f).name, int(n)) for f, n in re.findall(r'"([^"]+)", line (\d+)', line)]
+            chain = frames_ if fresh else chain + frames_
+            fresh = False
             continue
-        m = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?(STL|LDL)\b", line)
-        if not (m and fn):
+        m = re.search(r"/\*[0-9a-f]+\*/\s+(\S.*?)\s*;", line)
+        if m and fn:
+            fresh = True
+            yield fn, chain, m.group(1)
+
+
+def spill_sites(sass: str, sources):
+    """{kernel symbol: Counter((STL or LDL, "<source> line N"))}: each local-memory
+    instruction at the innermost frame of its line-info chain that lies in one of
+    `sources` (file names)."""
+    counts = {}
+    for fn, chain, ins in frames(sass):
+        m = re.match(r"(?:@!?U?P\w+\s+)?(STL|LDL)\b", ins)
+        if not m:
             continue
         ours = [(f, ln) for f, ln in chain if f in sources]
         site = f"{ours[0][0]} line {ours[0][1]}" if ours else "unplaced"
         counts.setdefault(fn, Counter())[(m.group(1), site)] += 1
+    return counts
+
+
+def function_lines(text: str, name: str):
+    """The lines (1-based, first and last) of the device function `name` in a source's
+    text: from its declaration to the first closing brace at the start of a line."""
+    lines = text.splitlines()
+    first = next(i for i, x in enumerate(lines) if re.search(rf"\bvoid {name}\(", x))
+    last = next(i for i in range(first, len(lines)) if lines[i].startswith("}"))
+    return first + 1, last + 1
+
+
+def phase_instructions(sass: str, ranges):
+    """{kernel symbol: Counter(phase, "all")}: the SASS instructions of each kernel, and
+    those with a frame of their line-info chain in a phase's lines (ranges: {phase: (file
+    name, first line, last line)})."""
+    counts = {}
+    for fn, chain, _ in frames(sass):
+        c = counts.setdefault(fn, Counter())
+        c["all"] += 1
+        for phase, (name, lo, hi) in ranges.items():
+            if any(f == name and lo <= ln <= hi for f, ln in chain):
+                c[phase] += 1
     return counts
 
 
@@ -181,7 +330,7 @@ def main() -> int:
     for variant, edits in variants.items():
         vdir = out_dir / variant.replace(" ", "_")
         variant_sources(csrc, edits, vdir)
-        for name in names:
+        for name in built(edits, names):
             keys.append((variant, name))
             jobs.append((flags, vdir / f"{name}.cu", vdir / f"lib{name}.so"))
     cubin_flags = [f for f in flags if f not in ("-shared", "-Xcompiler", "-fPIC")]
@@ -189,7 +338,7 @@ def main() -> int:
         keys.append(("kept, -lineinfo cubin", name))
         jobs.append((["-cubin", "-lineinfo", *cubin_flags], csrc / f"{name}.cu",
                      out_dir / f"{name}_lineinfo.cubin"))
-    libs = {}
+    libs, paths = {}, {}
     for (variant, name), job, (rc, log) in zip(keys, jobs, ab.build_all(_build.nvcc_path(), jobs)):
         if rc != 0:
             raise SystemExit(f"ric_probe: nvcc failed on {variant} {name}:\n{log}")
@@ -199,13 +348,20 @@ def main() -> int:
                 print(f"[build] {variant}: {kernel}: {' | '.join(found)}", flush=True)
         if variant in variants:
             libs.setdefault(variant, []).append(ctypes.CDLL(str(job[2])))
+            paths.setdefault(variant, []).append(job[2])
+    for variant in variants:   # a variant's unedited sources: kept's libraries
+        libs[variant] = libs.get(variant, []) + libs["kept"]
+        for so in paths.get(variant, []):
+            for sym, (n, _) in sorted(ab.sass_of(so).items()):
+                if label(sym) in PROBED[family]:
+                    print(f"[sass] {variant}: {label(sym)}: {n} instructions", flush=True)
     builds = {variant: ab.TreeLib(found) for variant, found in libs.items()}
 
     result = {"card": card, "family": family, "tree": str(args.tree), "B": chip_smoke.B,
-              "runs": RUNS, "ms": {}, "bitwise": {}, "spills": {}}
+              "runs": RUNS, "ms": {}, "bitwise": {}, "spills": {}, "instructions": {}}
     dev = torch.device("cuda", 0)
     cases = ab.on_build(builds["kept"], lambda: ab.step_cases(torch, dev, CASES[family]))()
-    for case, (call, ins) in cases.items():
+    for case, (call, _, ins, *_) in cases.items():
         runs = {v: ab.on_build(lib, lambda: call(*ins)) for v, lib in builds.items()}
         outs = {v: run() for v, run in runs.items()}
         torch.cuda.synchronize()
@@ -222,13 +378,21 @@ def main() -> int:
 
     tool = shutil.which("nvdisasm") or "/usr/local/cuda/bin/nvdisasm"
     sources = [f"{name}.cu" for name in names] + list(_build.HEADERS)
+    ranges = {phase: (f, *function_lines((csrc / f).read_text(), fn))
+              for phase, (f, fn) in PHASES.items()}
+    probed = set(PROBED[family])
     for name in names:
         sass = subprocess.run([tool, "-gi", "-c", str(out_dir / f"{name}_lineinfo.cubin")],
                               capture_output=True, text=True, timeout=600, check=True).stdout
+        (out_dir / f"{name}_lineinfo.sass").write_text(sass)
         for sym, c in sorted(spill_sites(sass, sources).items(), key=lambda kv: label(kv[0])):
             by = {f"{op} {part}": n for (op, part), n in sorted(c.items())}
             result["spills"][label(sym)] = by
             print(f"[sass] {label(sym)}: local-memory instructions {json.dumps(by)}", flush=True)
+        for sym, c in sorted(phase_instructions(sass, ranges).items(), key=lambda kv: label(kv[0])):
+            if label(sym) in probed:
+                result["instructions"][label(sym)] = dict(c)
+                print(f"[sass] {label(sym)}: SASS instructions {json.dumps(dict(c))}", flush=True)
 
     print(json.dumps(result))
     return 0

@@ -108,6 +108,17 @@ template <> __device__ __forceinline__ double epsilon<double>() { return DBL_EPS
 template <typename T> __device__ __forceinline__ T jmax(T a, T b) { return (a > b || a != a) ? a : b; }
 template <typename T> __device__ __forceinline__ T jmin(T a, T b) { return (a < b || a != a) ? a : b; }
 
+// The larger of a and b, NaN if either is: PTX's max.NaN, one instruction for f32 where
+// jmax takes a compare and a select. Its NaN is canonical where jmax returns the NaN
+// operand, so it serves where the result only meets a comparison, which both fail alike
+// (the rescale's maximum over the carry, rescale_carry).
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ double nan_max(double a, double b) { return jmax(a, b); }
+
 // The reference scrubs a carry entry unless it is finite after a cast to f32,
 // in f64 too: a double above FLT_MAX is scrubbed to 0.
 template <typename T> __device__ __forceinline__ T scrub(T v) {
@@ -715,17 +726,50 @@ __device__ __forceinline__ void inv2(T q00, T q01, T q10, T q11, T inv[2][2]) {
 
 // Renormalise the value-function carry above 1e8 and scrub non-finite entries
 // (ops/pallas/lane_solver.py:173-189). vx is V_x (K1) or tV_x (K3).
-template <int NH, typename T>
+// LEAN (the cart-pole's K1, on its chain's critical path): the maximum over |carry| by
+// nan_max as a tree, 5 steps deep where jmax's chain is 30 compare-and-selects long (a
+// maximum is exact in any order, and either way a NaN fails the test against 1e8), and a
+// warp none of whose lanes rescales skips the multiplies by scale_inv = 1 and LogS's
+// log(1) = 0: x * 1 is x for every x that scrub keeps, and LogS - 0 is LogS, so the carry
+// is the same. Every active lane of the warp must call it.
+template <int NH, bool LEAN = false, typename T>
 __device__ __forceinline__ void rescale_carry(const T vx_new[NH], const T vxx_new[NH][NH],
                                               T vx[NH], T vxx[NH][NH], T& logs) {
   T mmax = T(0);
+  if constexpr (LEAN) {
+    constexpr int K = NH + NH * NH;
+    T m[K];
 #pragma unroll
-  for (int i = 0; i < NH; ++i) {
-    mmax = jmax(mmax, m_abs(vx_new[i]));
+    for (int i = 0; i < NH; ++i) {
+      m[i] = m_abs(vx_new[i]);
 #pragma unroll
-    for (int j = 0; j < NH; ++j) mmax = jmax(mmax, m_abs(vxx_new[i][j]));
+      for (int j = 0; j < NH; ++j) m[NH + i * NH + j] = m_abs(vxx_new[i][j]);
+    }
+#pragma unroll
+    for (int w = 1; w < K; w *= 2)
+#pragma unroll
+      for (int i = 0; i + w < K; i += 2 * w) m[i] = nan_max(m[i], m[i + w]);
+    mmax = m[0];
+  } else {
+#pragma unroll
+    for (int i = 0; i < NH; ++i) {
+      mmax = jmax(mmax, m_abs(vx_new[i]));
+#pragma unroll
+      for (int j = 0; j < NH; ++j) mmax = jmax(mmax, m_abs(vxx_new[i][j]));
+    }
   }
   const T thresh = T(1e8);
+  if constexpr (LEAN) {
+    if (!__any_sync(__activemask(), mmax > thresh)) {
+#pragma unroll
+      for (int i = 0; i < NH; ++i) {
+        vx[i] = scrub(vx_new[i]);
+#pragma unroll
+        for (int j = 0; j < NH; ++j) vxx[i][j] = scrub(vxx_new[i][j]);
+      }
+      return;
+    }
+  }
   const T scale_inv = (mmax > thresh) ? thresh / mmax : T(1);
 #pragma unroll
   for (int i = 0; i < NH; ++i) {

@@ -49,6 +49,15 @@
 // K3/K5's split sweep (lane_common.cuh, sweep_split: two threads share each lane's
 // chain) ran K1 at 0.353 ms and 1.58 ms, slower than that, so K1 keeps this sweep with
 // SweepBlocksPerSM's four f32 blocks above n̂ = 5 too.
+// The cart-pole's K1 (n̂ = 5, m = 1) is bound by issue slots (tools/ric_probe.py --family
+// cartpole; PERF.md §6): some 1,000 instructions a lane and step in phase A (43
+// IEEE divisions) and 1,100 in phase B, and the two phases alone take 0.049 and 0.042 ms
+// of the kernel's 0.085 at N=50: the chain, which sets the pace, shares its scheduler with
+// phase A. More phase-A warps, other chunk sizes and caps, and the chain warp moved by its
+// slot lost or gained at most 5%; what helps is fewer instructions on the chain, so its
+// phase B is LEAN (ric_step): rescale_carry's maximum by max.NaN as a tree, its multiplies
+// by 1 and log(1) skipped by a warp where no lane rescales, and exp(-LogS) by one where
+// LogS is 0 on every lane, each with the same values.
 // The arithmetic and its order are those of the plain version
 // (ops/cuda/lane_solver.py::ric_plain, whose two phases are these); only where each
 // value is computed differs.
@@ -62,7 +71,8 @@
 // thread loads step k+1's inputs before it computes step k, so their latency
 // leaves the chain. The barrier value at the next state is carried into the next
 // step as the barrier at the current state (lane_common.cuh::fhat_carry), so each
-// step evaluates h once, not twice. chip_smoke.py measures each
+// step evaluates h once, not twice. The quadrotor's candidates share their step inputs
+// through shared memory instead (fwd_staged_kernel). chip_smoke.py measures each
 // kernel's time beside its bound; PERF.md keeps the numbers with the card they
 // came from.
 #include "lane_common.cuh"
@@ -105,8 +115,9 @@ __device__ __forceinline__ void lin_step(const Consts& p, const T* __restrict__ 
 
 // Phase B for step k of one lane: K and kff from the step's rows (row[r * 32]) and
 // the carry, which it advances to step k. Every sum over the controls runs a = 0..m-1
-// left to right, as the reference's.
-template <typename S, typename T>
+// left to right, as the reference's. LEAN: rescale_carry's, and exp(-LogS) = 1 not
+// computed where LogS is 0 on every lane of the warp (LogS only grows from 0).
+template <typename S, bool LEAN, typename T>
 __device__ __forceinline__ void ric_step(const T* row, const T c[S::NC], T reg0, T vx[S::NH],
                                          T vxx[S::NH][S::NH], T& logs, T* __restrict__ Kout,
                                          T* __restrict__ kffout, int k, size_t Bs, int lane) {
@@ -117,7 +128,7 @@ __device__ __forceinline__ void ric_step(const T* row, const T c[S::NC], T reg0,
   for (int i = 0; i < NH; ++i) lx[i] = row[(ROW_LX<S> + i) * 32];
 #pragma unroll
   for (int a = 0; a < M; ++a) lu[a] = row[(ROW_LU<S> + a) * 32];
-  const T inv_s = m_exp(-logs);
+  const T inv_s = (LEAN && !__any_sync(__activemask(), logs != T(0))) ? T(1) : m_exp(-logs);
   T Qx[NH], Qu[M], VA[NH][NH], VB[NH][M], Qxx[NH][NH], Qux[M][NH], Quu[M][M];
 #pragma unroll
   for (int i = 0; i < NH; ++i) {
@@ -243,8 +254,11 @@ __device__ __forceinline__ void ric_step(const T* row, const T c[S::NC], T reg0,
       vxx_new[i][j] = ((Qxx[i][j] + t1) + t2) + t3;
     }
   }
-  rescale_carry<NH>(vx_new, vxx_new, vx, vxx, logs);
+  rescale_carry<NH, LEAN>(vx_new, vxx_new, vx, vxx, logs);
 }
+
+// The cart-pole's K1 takes ric_step's LEAN phase B (PERF.md §6).
+template <int SYS> constexpr bool RIC_LEAN = SYS == CARTPOLE;
 
 template <typename T, int SYS, int NOBS>
 __global__ void __launch_bounds__(SWEEP_THREADS,
@@ -275,7 +289,7 @@ ric_kernel(const T* __restrict__ X, const T* __restrict__ U, const T* __restrict
       N, live, reinterpret_cast<T*>(smem),
       [&](int k, T* row) { lin_step<S>(p, X, U, Xr, Ur, c, k, Bs, lane, row); },
       [&](int k, const T* row) {
-        ric_step<S>(row, c, reg0, vx, vxx, logs, Kout, kffout, k, Bs, lane);
+        ric_step<S, RIC_LEAN<SYS>>(row, c, reg0, vx, vxx, logs, Kout, kffout, k, Bs, lane);
       });
 }
 
@@ -335,6 +349,13 @@ fwd_kernel(const T* __restrict__ x0, const T* __restrict__ Xo, const T* __restri
 
   FwdStep<T, S> s;
   fwd_load<S>(s, Xo, Uo, Kg, kff, Xr, Ur, 0, Bs, lane);
+  // The quadrotor's rollout (its nα = 1: one warp a scheduler, bound by latency) with the
+  // smooth-min and the inverse barrier unrolls the step loop twice, so that step k+1's
+  // loads, sin and cos start while step k's barrier runs: 5.6% faster at N=50; with the
+  // exact min and the log barrier it was 7.7% slower (PERF.md §6).
+#if LANE_SYSTEM == 2 && LANE_AGG == 0 && LANE_BARRIER == 0   // QUADROTOR2D, SMOOTHMIN, INVERSE
+#pragma unroll 2
+#endif
   for (int k = 0; k < N; ++k) {
     FwdStep<T, S> next;   // step k+1's inputs (step k's again at the last step)
     fwd_load<S>(next, Xo, Uo, Kg, kff, Xr, Ur, k + 1 < N ? k + 1 : k, Bs, lane);
@@ -383,6 +404,184 @@ fwd_kernel(const T* __restrict__ x0, const T* __restrict__ Xo, const T* __restri
   cost[a * Bs + lane] = acc;
 }
 
+// K2 for the quadrotor (n̂ = 7, m = 2) at nα >= FWD_STAGE_MIN: the step inputs that the
+// candidates share (Xo, Xr, Uo, Ur, kff, K: FWD_ROWS = 34 rows a step) are copied once a
+// block into shared memory, and every candidate warp reads them there.
+// - fwd_kernel's candidate warps each load the 34 values through L1 (nα loads of each
+//   where one is needed) and hold step k+1's in registers while they compute step k:
+//   105 registers, three 192-thread blocks an SM at nα = 6, so B=16384's 512 blocks ran in
+//   two waves, the second a third full, at 2.0x the byte bound (PERF.md §6).
+// - Here the steps go in chunks of FWD_KC through a ring of FWD_BUFS chunks in shared
+//   memory: while the block computes chunk j, the copies of chunk j+1 are in flight
+//   (cp.async, which takes no registers). Warp a copies the steps a, a+nα, ... of a chunk,
+//   each a row of 32 lanes at a time (coalesced). One __syncthreads a chunk, after the
+//   thread's own copies of chunk j are waited for, makes all of them visible and frees the
+//   buffer that chunk j+1 then refills (the one chunk j-1 was read from).
+// - Without the prefetch registers the kernel takes 72 registers, four 192-thread f32
+//   blocks an SM (FwdBlocksPerSM; 17,408 bytes of shared memory a block), so B=16384
+//   runs in one wave. tools/ric_probe.py --family quadrotor2d times other chunks and rings:
+//   larger ones were slower (four steps a chunk, three chunks: 1.13x at N=50).
+// - The rollout (nα = 1, two launches a closed-loop step) keeps fwd_kernel, whose
+//   one thread a lane in 128-lane blocks has no copies to share (staged, it was slower).
+// The rollout of a candidate, its operations and their order are fwd_kernel's, so the
+// outputs are bitwise its own and the plain version's.
+constexpr int FWD_STAGE_MIN = 4;   // the least nα that takes fwd_staged_kernel
+constexpr int FWD_KC = 2;          // steps a chunk
+constexpr int FWD_BUFS = 2;        // chunks in the ring
+
+template <typename S> constexpr int FWD_XR = S::NH;                 // rows of a step: Xo, Xr,
+template <typename S> constexpr int FWD_UO = 2 * S::NH;             //   Uo, Ur, kff, K
+template <typename S> constexpr int FWD_UR = FWD_UO<S> + S::M;
+template <typename S> constexpr int FWD_KF = FWD_UR<S> + S::M;
+template <typename S> constexpr int FWD_K = FWD_KF<S> + S::M;
+template <typename S> constexpr int FWD_ROWS = FWD_K<S> + S::M * S::NH;
+
+template <typename T> constexpr int fwd_smem(int rows) {
+  return FWD_BUFS * FWD_KC * rows * 32 * static_cast<int>(sizeof(T));
+}
+
+// f32 blocks an SM of fwd_staged_kernel (f64 is not capped).
+template <typename T> struct FwdBlocksPerSM {
+  static constexpr int value = sizeof(T) == 4 ? 3 : 1;   // 3 of 256 threads: 4 of 192
+};
+
+// An asynchronous copy of one value from device memory into shared memory.
+template <typename T> __device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(d), "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+
+// Copies step k's shared inputs of the lane into a step of the ring (row r at dst[r * 32]).
+template <typename S, typename T>
+__device__ __forceinline__ void fwd_stage(T* dst, const T* __restrict__ Xo,
+                                          const T* __restrict__ Uo, const T* __restrict__ Kg,
+                                          const T* __restrict__ kff, const T* __restrict__ Xr,
+                                          const T* __restrict__ Ur, int k, size_t Bs, int lane) {
+  constexpr int NH = S::NH, M = S::M;
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    cp_async(dst + i * 32, Xo + (static_cast<size_t>(k) * NH + i) * Bs + lane);
+    cp_async(dst + (FWD_XR<S> + i) * 32, Xr + (static_cast<size_t>(k) * NH + i) * Bs + lane);
+  }
+#pragma unroll
+  for (int cc = 0; cc < M; ++cc) {
+    cp_async(dst + (FWD_UO<S> + cc) * 32, Uo + (static_cast<size_t>(k) * M + cc) * Bs + lane);
+    cp_async(dst + (FWD_UR<S> + cc) * 32, Ur + (static_cast<size_t>(k) * M + cc) * Bs + lane);
+    cp_async(dst + (FWD_KF<S> + cc) * 32, kff + (static_cast<size_t>(k) * M + cc) * Bs + lane);
+#pragma unroll
+    for (int i = 0; i < NH; ++i)
+      cp_async(dst + (FWD_K<S> + cc * NH + i) * 32,
+               Kg + (static_cast<size_t>(k) * (M * NH) + cc * NH + i) * Bs + lane);
+  }
+}
+
+// threadIdx.x is the lane of the block's 32, threadIdx.y the candidate. Every thread
+// reaches every barrier; a lane past B copies and computes nothing.
+template <typename T, int SYS, int NOBS>
+__global__ void __launch_bounds__(32 * MAX_ALPHAS, FwdBlocksPerSM<T>::value)
+fwd_staged_kernel(const T* __restrict__ x0, const T* __restrict__ Xo, const T* __restrict__ Uo,
+                  const T* __restrict__ Kg, const T* __restrict__ kff, const T* __restrict__ Xr,
+                  const T* __restrict__ XrN, const T* __restrict__ Ur, const T* __restrict__ C,
+                  T* __restrict__ Xn, T* __restrict__ Un, T* __restrict__ cost, int N, int B,
+                  Consts p) {
+  using S = System<T, SYS, NOBS>;
+  constexpr int NH = S::NH, M = S::M, STEP = FWD_ROWS<S> * 32, CHUNK = FWD_KC * STEP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  const int l = threadIdx.x;
+  const int a = threadIdx.y;
+  const int na = p.n_alphas;
+  const int lane = blockIdx.x * 32 + l;
+  const bool live = lane < B;
+  const size_t Bs = static_cast<size_t>(B);
+  const int chunks = (N + FWD_KC - 1) / FWD_KC;
+
+  // Chunk j into its buffer, one cp.async group a chunk (empty past the last).
+  auto stage = [&](int j) {
+    if (live && j < chunks) {
+      const int k0 = j * FWD_KC, kn = N - k0 < FWD_KC ? N - k0 : FWD_KC;
+      T* buf = ring + (j % FWD_BUFS) * CHUNK + l;
+      for (int s = a; s < kn; s += na)
+        fwd_stage<S>(buf + s * STEP, Xo, Uo, Kg, kff, Xr, Ur, k0 + s, Bs, lane);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+#pragma unroll
+  for (int j = 0; j < FWD_BUFS - 1; ++j) stage(j);
+
+  T c[NH + M + 3];   // stage diagonal, 2R, and alpha, gamma, tight; the terminal rows at the end
+#pragma unroll
+  for (int r = 0; r < NH + M; ++r) c[r] = live ? C[r * Bs + lane] : T(0);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) c[NH + M + r] = live ? C[(S::ROW_ALPHA + r) * Bs + lane] : T(0);
+  const T alpha_b = c[NH + M], gamma = c[NH + M + 1], tight = c[NH + M + 2];
+  const T al = T(p.alphas[a]);
+
+  T x[NH];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) x[i] = live ? x0[i * Bs + lane] : T(0);
+  T bc = barrier_at<S>(p, x, alpha_b, tight);
+  T acc = T(0);
+
+  for (int j = 0; j < chunks; ++j) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(FWD_BUFS - 2) : "memory");
+    __syncthreads();
+    stage(j + FWD_BUFS - 1);
+    if (!live) continue;
+    const int k0 = j * FWD_KC, kn = N - k0 < FWD_KC ? N - k0 : FWD_KC;
+    const T* buf = ring + (j % FWD_BUFS) * CHUNK + l;
+    for (int s = 0; s < kn; ++s) {
+      const T* row = buf + s * STEP;
+      const int k = k0 + s;
+      T u[M];
+#pragma unroll
+      for (int cc = 0; cc < M; ++cc) {
+        const T* Kr = row + (FWD_K<S> + cc * NH) * 32;
+        T d = Kr[0] * (x[0] - row[0]);
+#pragma unroll
+        for (int i = 1; i < NH; ++i) d = d + Kr[i * 32] * (x[i] - row[i * 32]);
+        const T du = row[(FWD_KF<S> + cc) * 32] + d;
+        u[cc] = jmin(T(p.u_max[cc]), jmax(T(p.u_min[cc]), row[(FWD_UO<S> + cc) * 32] + al * du));
+      }
+      const T* xr = row + FWD_XR<S> * 32;
+      T sx = (T(0.5) * c[0]) * ((x[0] - xr[0]) * (x[0] - xr[0]));
+#pragma unroll
+      for (int i = 1; i < NH; ++i)
+        sx = sx + (T(0.5) * c[i]) * ((x[i] - xr[i * 32]) * (x[i] - xr[i * 32]));
+      const T* ur = row + FWD_UR<S> * 32;
+      T su = (T(0.5) * c[NH]) * ((u[0] - ur[0]) * (u[0] - ur[0]));
+#pragma unroll
+      for (int cc = 1; cc < M; ++cc)
+        su = su + (T(0.5) * c[NH + cc]) * ((u[cc] - ur[cc * 32]) * (u[cc] - ur[cc * 32]));
+      acc = acc + (sx + su);
+
+      T xn[NH];
+      fhat_carry<S>(p, x, u, alpha_b, gamma, tight, bc, xn);
+#pragma unroll
+      for (int i = 0; i < NH; ++i) {
+        Xn[(static_cast<size_t>(k) * (na * NH) + a * NH + i) * Bs + lane] = xn[i];
+        x[i] = xn[i];
+      }
+#pragma unroll
+      for (int cc = 0; cc < M; ++cc)
+        Un[(static_cast<size_t>(k) * (na * M) + a * M + cc) * Bs + lane] = u[cc];
+    }
+  }
+  if (!live) return;
+  const size_t term = static_cast<size_t>(NH + M) * Bs + lane;   // the terminal rows of C
+  if (N > 0) {
+    T t = (T(0.5) * C[term]) * ((x[0] - XrN[lane]) * (x[0] - XrN[lane]));
+#pragma unroll
+    for (int i = 1; i < NH; ++i) {
+      const T d = x[i] - XrN[i * Bs + lane];
+      t = t + (T(0.5) * C[term + i * Bs]) * (d * d);
+    }
+    acc = acc + t;
+  }
+  cost[a * Bs + lane] = acc;
+}
+
 template <typename T>
 int launch_ric(const void* X, const void* U, const void* Xr, const void* Ur, const void* C,
                const void* phix, void* K, void* kff, int N, int B, const Consts* p,
@@ -410,12 +609,27 @@ int launch_fwd(const void* x0, const void* Xo, const void* Uo, const void* K, co
                void* Un, void* cost, int N, int B, const Consts* p, void* stream) {
   const int na = p->n_alphas;
   if (na < 1 || na > MAX_ALPHAS) return static_cast<int>(cudaErrorInvalidValue);
-  const int lanes = na >= 4 ? 32 : 32 * (4 / na);   // 32 x nα threads, at least 96
-  const dim3 block(lanes, na);
-  const dim3 grid((B + lanes - 1) / lanes);
   return with_system(*p, [&](auto nobs) {
     constexpr int NOBS = decltype(nobs)::value;
-    fwd_kernel<T, LANE_SYSTEM, NOBS><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+    const auto s = static_cast<cudaStream_t>(stream);
+    if constexpr (LANE_SYSTEM == QUADROTOR2D) {
+      if (na >= FWD_STAGE_MIN) {
+        constexpr int smem = fwd_smem<T>(FWD_ROWS<System<T, LANE_SYSTEM, NOBS>>);
+        const auto kernel = fwd_staged_kernel<T, LANE_SYSTEM, NOBS>;
+        const int err = allow_smem(kernel, smem);
+        if (err != 0) return err;
+        kernel<<<(B + 31) / 32, dim3(32, na), smem, s>>>(
+            static_cast<const T*>(x0), static_cast<const T*>(Xo), static_cast<const T*>(Uo),
+            static_cast<const T*>(K), static_cast<const T*>(kff), static_cast<const T*>(Xr),
+            static_cast<const T*>(XrN), static_cast<const T*>(Ur), static_cast<const T*>(C),
+            static_cast<T*>(Xn), static_cast<T*>(Un), static_cast<T*>(cost), N, B, *p);
+        return static_cast<int>(cudaGetLastError());
+      }
+    }
+    const int lanes = na >= 4 ? 32 : 32 * (4 / na);   // 32 x nα threads, at least 96
+    const dim3 block(lanes, na);
+    const dim3 grid((B + lanes - 1) / lanes);
+    fwd_kernel<T, LANE_SYSTEM, NOBS><<<grid, block, 0, s>>>(
         static_cast<const T*>(x0), static_cast<const T*>(Xo), static_cast<const T*>(Uo),
         static_cast<const T*>(K), static_cast<const T*>(kff), static_cast<const T*>(Xr),
         static_cast<const T*>(XrN), static_cast<const T*>(Ur), static_cast<const T*>(C),
