@@ -35,9 +35,13 @@ population Algorithm 2 on the XLA engine, with and without a mesh). Phases, each
              1000 lanes and 37 steps of the same inputs, and there with 1 and with 8
              obstacles (each kernel is built for each count), and with 8 obstacles at
              the main shape too. Each variant is timed with CUDA events over 20
-             launches back to back, in f64 and in f32 (its plain version, 2, in f32,
-             while the CPU's loop64 workers run), and so are K2 at nα=1 and every
-             variant with 8 obstacles at the main shape;
+             launches back to back, in f64 and in f32, and so are K2 at nα=1 and every
+             variant with 8 obstacles at the main shape, first and with nothing else on
+             the card; then CHECKERS processes hold the kernels against their plain
+             versions on the card (a plain version's time: its check's one call there),
+             while this one runs the loop64 and xla64 phases; a bound's operations are
+             counted by a
+             CPU worker;
    kernels_<family>, for each family: K1-K4 against their plain versions as in phase 3,
              on the inputs of a closed-loop step of the family's setup at B=16384, N=50
              in f64 and f32, each timed; also at B=1000, N=37, there with 1 and 8
@@ -51,8 +55,8 @@ population Algorithm 2 on the XLA engine, with and without a mesh). Phases, each
              gives them, in f32 as the CLI runs, each timed;
    kernels_<variant>, for each MINLOG configuration: its library's K1-K4 on a paper step
              and K5/K6 on a coupled step of the configuration at B=16384 and its own N
-             (50, 30, 200, 40), in f64 and f32, each timed (the plain version by its
-             check's one call), and at B=1000, N=37, there with 1 and 8 obstacles where
+             (50, 30, 200, 40), in f64 and f32, each timed, and at B=1000, N=37, there
+             with 1 and 8 obstacles where
              the system has circles; and every kernel with the branch lanes
              (branch_checks: lanes on the bisector of two equal obstacles, where the min
              chain ties, and lanes with h - tight < eps, where the log barrier's tangent
@@ -180,8 +184,7 @@ SEED = 0  # every random number here comes from torch.Generator seeded from it
 
 B, N, H = 16384, 50, 300  # the main paths: bench.py's paper and coupled workloads, full width and depth
 RAGGED_B, RAGGED_N = 1000, 37  # every kernel also here: B not a multiple of 32, N not of 3
-RUNS = 20                 # timed runs per kernel
-PLAIN_RUNS = 2            # timed runs per plain version (one small PyTorch kernel per operation)
+RUNS = 20                 # timed runs per kernel (a plain version: by its check's one call)
 LOOP64_B, LOOP64_H = 256, 5
 PROFILE_H = 5
 
@@ -302,8 +305,14 @@ POP64_B, POP64_H = 64, 2
 CHAOTIC = ("cartpole",)
 
 
+_CAPTURED = None   # in a checker process (hold_group): its log lines, returned to the main one
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    if _CAPTURED is not None:
+        _CAPTURED.append(msg)
+    else:
+        print(msg, flush=True)
 
 
 def nvidia_smi() -> str:
@@ -390,17 +399,29 @@ def count_ops(torch, fn, args, lanes: int) -> int:
     return Counter.ops
 
 
+OPS_LANES = 8   # the lanes on which a plain version's operations are counted
+
+
+def io_bytes(name, inputs, outputs, nc: int) -> int:
+    """The bytes the kernel `name` must move on B lanes: each input read once (of the const
+    rows C [nc, B] only those it reads) and each output written once."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    return nbytes - (nc - C_ROWS_READ.get(name, nc)) * B * outputs[0].element_size()
+
+
+def bound_ms(nbytes: int, ops: int, dname: str):
+    """(ms at the card's memory rate, ms at its peak rate for dname) of that work."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
+
+
 def work_bound(torch, name, plain, inputs, outputs, nc: int):
     """(bytes, operations, ms at the card's memory rate, ms at its peak rate) of the kernel
-    `name`'s work on B lanes: each input read once (of the const rows C [nc, B] only those
-    it reads) and each output written once; the plain version's operations, counted on 8
-    lanes."""
-    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
-    nbytes -= (nc - C_ROWS_READ.get(name, nc)) * B * outputs[0].element_size()
-    lanes = 8
-    ops = count_ops(torch, plain, inputs, lanes) * (B // lanes)
+    `name`'s work on B lanes: io_bytes, and the plain version's operations, counted on
+    OPS_LANES lanes."""
+    nbytes = io_bytes(name, inputs, outputs, nc)
+    ops = count_ops(torch, plain, inputs, OPS_LANES) * (B // OPS_LANES)
     dname = str(outputs[0].dtype).replace("torch.", "")
-    return nbytes, ops, nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
+    return (nbytes, ops, *bound_ms(nbytes, ops, dname))
 
 
 def max_err(torch, got, ref, rtol, atol_frac):
@@ -528,6 +549,66 @@ def solver_fns(q, cfg):
     }
 
 
+def paper_fns(q, cfg):
+    """{kernel: (its wrapper, its plain version)} of the paper step's kernels on the problem
+    q with the solver settings of cfg (K2 also at the rollout's nα=1, as "fwd nα=1")."""
+    from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
+    from tube_mpc_tpu_torch.ops.cuda.lane_sensitivity import sbwd_plain, sfwd_plain
+
+    return {
+        **solver_fns(q, cfg),
+        "sbwd": (lambda *t: WRAPPERS["sbwd"](q, REG_SENS, ACTIVE_TOL, *t),
+                 lambda *t: sbwd_plain(q, REG_SENS, ACTIVE_TOL, *t)),
+        "sfwd": (lambda *t: WRAPPERS["sfwd"](q, *t), lambda *t: sfwd_plain(q, *t)),
+    }
+
+
+def coupled_fns(q, cfg):
+    """The same for the coupled step's kernels: K1, K2 and the K5/K6 variants."""
+    from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
+    from tube_mpc_tpu_torch.ops.cuda.lane_sensitivity import sbwd_plain, sbwd_upper_plain, sfwd_plain
+
+    return {
+        **solver_fns(q, cfg),
+        "sbwd_generic": (lambda *t: WRAPPERS["sbwd_generic"](q, REG_SENS, ACTIVE_TOL, *t),
+                         lambda *t: sbwd_plain(q, REG_SENS, ACTIVE_TOL, *t, generic=True)),
+        "sbwd_upper": (lambda *t: WRAPPERS["sbwd_upper"](q, REG_SENS, ACTIVE_TOL, *t),
+                       lambda *t: sbwd_upper_plain(q, REG_SENS, ACTIVE_TOL, *t)),
+        "sfwd_generic": (lambda *t: WRAPPERS["sfwd_generic"](q, *t),
+                         lambda *t: sfwd_plain(q, *t[:9], value=t[9:])),
+        "sfwd_ref": (lambda *t: WRAPPERS["sfwd_ref"](q, *t),
+                     lambda *t: sfwd_plain(q, *t[:9], value=t[9:], emit_ref_grads=True)),
+    }
+
+
+STEP_FNS = {"paper": paper_fns, "coupled": coupled_fns}
+
+
+def step_problem(torch, kind, family, N_, dtype, where):
+    """(lane problem, TubeMPCConfig) of the setup whose step `kind` ("paper": paper_step's,
+    "coupled": coupled_step's) gives a kernel its inputs, without running a step."""
+    from tube_mpc_tpu_torch.tube.lane_interface import make_lane_problem
+
+    if kind == "paper":
+        s = paper_setup(family, N_, 4, where, dtype)
+        cfg = s.cfg
+    else:
+        s, cfg, _, _ = coupled_setup(torch, 4, where, dtype, family, N_)
+    return make_lane_problem(s.sys_c, barrier_type=s.barrier_type, eps=s.eps), cfg
+
+
+def cpu_count_ops(kind, family, N_, name, arrays):
+    """The operations of the plain version of the kernel `name` of step `kind` on B lanes:
+    count_ops on `arrays`, the first OPS_LANES lanes of its inputs in f32, on the CPU in a
+    worker process (the plain versions take no branch by device)."""
+    import torch
+
+    torch.set_num_threads(1)
+    pb, cfg = step_problem(torch, kind, family, N_, torch.float32, "cpu")
+    plain = STEP_FNS[kind](pb, cfg)[name][1]
+    return count_ops(torch, plain, [torch.from_numpy(a) for a in arrays], OPS_LANES) * (B // OPS_LANES)
+
+
 def paper_step(torch, dev, dtype, family="dubins", N_=N):
     """The four paper kernels' inputs in one real closed-loop step of the paper setup
     (paper_setup: Dubins', a family's, a MINLOG configuration's) at full width and the
@@ -538,7 +619,6 @@ def paper_step(torch, dev, dtype, family="dubins", N_=N):
     the rollout's nα=1 as "fwd nα=1"."""
     from tube_mpc_tpu_torch.ops.costs import CostWeights
     from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
-    from tube_mpc_tpu_torch.ops.cuda.lane_sensitivity import sbwd_plain, sfwd_plain
     from tube_mpc_tpu_torch.tube.lane_closed_loop import make_paper_lane_step, paper_lane_init_state
     from tube_mpc_tpu_torch.tube.lane_interface import (
         _build_C, _rows, _with_barrier_row, make_lane_problem, tube_ilqr_solve_lanes)
@@ -577,16 +657,7 @@ def paper_step(torch, dev, dtype, family="dubins", N_=N):
     Ks, kffs = WRAPPERS["sbwd"](pb, REG_SENS, ACTIVE_TOL, *k3)
     k4 = (Ks, kffs, Xa[:-1], Xr[:-1], Ua, Ur, C, Xa[-1], Xr[-1])
     torch.cuda.synchronize()
-
-    def make(q):
-        """{kernel: (its wrapper, its plain version)} on the problem q."""
-        return {
-            **solver_fns(q, s.cfg),
-            "sbwd": (lambda *t: WRAPPERS["sbwd"](q, REG_SENS, ACTIVE_TOL, *t),
-                     lambda *t: sbwd_plain(q, REG_SENS, ACTIVE_TOL, *t)),
-            "sfwd": (lambda *t: WRAPPERS["sfwd"](q, *t), lambda *t: sfwd_plain(q, *t)),
-        }
-
+    make = lambda q: paper_fns(q, s.cfg)
     what = "paper setup" if family == "dubins" else f"{family} paper setup"
     return (pb, s.eps, make, {"ric": k1, "fwd": k2, "sbwd": k3, "sfwd": k4},
             f"{what} at B={B}, N={N_}, {len(s.cfg.alphas)} alphas")
@@ -815,7 +886,6 @@ def coupled_step(torch, dev, dtype, family="dubins", N_=N, solver=False):
     rows, K6 generic); with `solver`, K1's and K2's inputs too (the first iteration of
     the ancillary solve). Returns what paper_step does."""
     from tube_mpc_tpu_torch.ops.cuda import KERNELS as WRAPPERS
-    from tube_mpc_tpu_torch.ops.cuda.lane_sensitivity import sbwd_plain, sbwd_upper_plain, sfwd_plain
     from tube_mpc_tpu_torch.tube.lane_closed_loop import (
         _aux_params, _nom_params, generic_lane_init_state, make_generic_lane_step)
     from tube_mpc_tpu_torch.tube.lane_interface import (
@@ -869,21 +939,7 @@ def coupled_step(torch, dev, dtype, family="dubins", N_=N, solver=False):
     K2, kff2, tVx2, Vxx2, LogS2 = WRAPPERS["sbwd_upper"](pb, REG_SENS, ACTIVE_TOL, *k5u)
     k6g = (K2, kff2, Xn[:-1], Xrn[:-1], Un, Urn, Cn, Xn[-1], Xrn[-1], tVx2, Vxx2, LogS2)
     torch.cuda.synchronize()
-
-    def make(q):
-        """{kernel: (its wrapper, its plain version)} on the problem q."""
-        return {
-            **solver_fns(q, cfg),
-            "sbwd_generic": (lambda *t: WRAPPERS["sbwd_generic"](q, REG_SENS, ACTIVE_TOL, *t),
-                             lambda *t: sbwd_plain(q, REG_SENS, ACTIVE_TOL, *t, generic=True)),
-            "sbwd_upper": (lambda *t: WRAPPERS["sbwd_upper"](q, REG_SENS, ACTIVE_TOL, *t),
-                           lambda *t: sbwd_upper_plain(q, REG_SENS, ACTIVE_TOL, *t)),
-            "sfwd_generic": (lambda *t: WRAPPERS["sfwd_generic"](q, *t),
-                             lambda *t: sfwd_plain(q, *t[:9], value=t[9:])),
-            "sfwd_ref": (lambda *t: WRAPPERS["sfwd_ref"](q, *t),
-                         lambda *t: sfwd_plain(q, *t[:9], value=t[9:], emit_ref_grads=True)),
-        }
-
+    make = lambda q: coupled_fns(q, cfg)
     what = "coupled setup" if family == "dubins" else f"{family} coupled setup"
     inputs.update(sbwd_generic=k5g, sbwd_upper=k5u, sfwd_generic=k6g, sfwd_ref=k6r)
     return pb, s.eps, make, inputs, f"{what} at B={B}, N={N_}, {len(cfg.alphas)} alphas"
@@ -1706,25 +1762,322 @@ def cli_profile_phase(torch, dev, t_start):
     log(f"[cli_profile] done at {time.perf_counter() - t_start:.0f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 3 and the kernels_* phases: each kernel against its plain version on one step's
+# inputs (a check group), timed in the process that drives the card and held in CHECKERS
+# processes on the same card.
+# ---------------------------------------------------------------------------
+RAGGED_AT = f"B={RAGGED_B}, N={RAGGED_N}"
+# Where a kernel's inputs hold the states: [N, n̂, B] or [n̂, B]; and the const rows C.
+STATE_ARGS = {"ric": (0,), "fwd": (0, 1), "sbwd": (1, 4), "sbwd_generic": (1, 4),
+              "sbwd_upper": (4,), "sfwd": (2, 7), "sfwd_generic": (2, 7), "sfwd_ref": (2, 7)}
+C_ARG = {"ric": 4, "fwd": 8, "sbwd": 3, "sbwd_generic": 3, "sbwd_upper": 5, "sfwd": 6,
+         "sfwd_generic": 6, "sfwd_ref": 6}
+# Processes that hold the kernels against their plain versions, beside the one that drives
+# the card: a plain version queues one small PyTorch kernel per operation, so a check is
+# bound by its process's host (~10^4-10^5 operations a call), and the checks of different
+# groups run at once on the card. Kernel times are taken before they start.
+CHECKERS = 4
+
+
+def at_bound(torch, pb, U_rows):
+    lo = torch.as_tensor(pb.u_min, dtype=U_rows.dtype, device=U_rows.device)[:, None]
+    hi = torch.as_tensor(pb.u_max, dtype=U_rows.dtype, device=U_rows.device)[:, None]
+    return int(((U_rows <= lo + ACTIVE_TOL) | (U_rows >= hi - ACTIVE_TOL)).sum())
+
+
+def ragged(t):
+    """The first RAGGED_N steps and RAGGED_B lanes of a [N, rows, B] or [rows, B] input."""
+    return (t[:RAGGED_N, :, :RAGGED_B] if t.ndim == 3 else t[:, :RAGGED_B]).contiguous()
+
+
+def held(make, pb, eps, inputs, more_shapes):
+    """The checks of the kernels of `inputs` ({kernel: its inputs}) on one step's inputs:
+    (calls {kernel: (wrapper, plain version, inputs)} at the step's shape, extra [(label,
+    kernel, wrapper, plain version, inputs, timed)]). With `more_shapes`: every kernel
+    is built for each obstacle count (the paper has 5), so the extra checks also take
+    the first and the last instantiation, with the system's first obstacle alone and
+    with more up to eight, at the ragged shape; Dubins' last also at the main shape,
+    timed. The cart-pole has no obstacles, so only the ragged shape."""
+    main = make(pb)
+    calls = {k: (*main[k], t) for k, t in inputs.items()}
+    if not more_shapes:
+        return calls, []
+    extra = [(f"{k} at {RAGGED_AT}", k, *main[k], tuple(map(ragged, t)), False)
+             for k, t in inputs.items()]
+    sp = pb.spec
+    if not sp.centers:
+        return calls, extra
+    more = EXTRA_CENTERS[:8 - len(sp.centers)]
+    for centers in (sp.centers[:1], sp.centers + more):
+        pbn = with_obstacles(pb, centers, eps)
+        n, fns = f"{len(centers)} obstacles", make(pbn)
+        shapes = [(f" at {RAGGED_AT}", ragged, False)]
+        if len(centers) == 8 and sp.family == "dubins":
+            shapes.append((" at the main shape", lambda t: t, True))
+        for where, cut, timed in shapes:
+            extra += [(f"{k}, {n}{where}", k, *fns[k], tuple(map(cut, t)), timed)
+                      for k, t in inputs.items()]
+    return calls, extra
+
+
+def branch_checks(torch, make, pb, eps, inputs, what, failed):
+    """The branch checks of the exact min and the log barrier, at the ragged shape: the
+    circle systems with the two obstacles TIE_CENTERS, and the first 250 lanes of every
+    state moved onto their bisector (px = 5, where the min chain ties), the first 125
+    of those to (5, 5), where h = 0; the cart-pole's first 125 lanes to its track
+    limit, h = 0; and those lanes' gamma to 0.5, since f̂ weighs the tangent of h at
+    the current state by gamma. Counts the (state, step, lane) triples on which the
+    chain ties and on which h - tight < eps, and records a failure where the library's
+    aggregation (min) or barrier (log) has a branch that no lane takes. Returns the
+    extra checks."""
+    sp = pb.spec
+    circles = bool(sp.centers)
+    q = with_obstacles(pb, TIE_CENTERS, eps) if circles else pb
+    fns = make(q)
+    extra, ties, below = [], 0, 0
+    for k, t in inputs.items():
+        ins = [ragged(a) for a in t]
+        C = ins[C_ARG[k]].clone()
+        C[2 * pb.n_hat + pb.m + 1, :250] = 0.5
+        ins[C_ARG[k]] = C
+        tight = C[2 * pb.n_hat + pb.m + 2]
+        for i in STATE_ARGS[k]:
+            x = ins[i].clone()
+            if circles:
+                x[..., 0, :250] = 5.0
+                x[..., 1, :125] = 5.0
+                hs = [(x[..., 0, :] - cx) * (x[..., 0, :] - cx)
+                      + (x[..., 1, :] - cy) * (x[..., 1, :] - cy) - 1.0
+                      for cx, cy in TIE_CENTERS]
+                ties += int((hs[0] == hs[1]).sum())
+                h = torch.minimum(hs[0], hs[1])
+            else:
+                x[..., 0, :125] = sp.x_lim
+                h = sp.x_lim * sp.x_lim - x[..., 0, :] * x[..., 0, :]
+            below += int((h - tight < eps).sum())
+            ins[i] = x
+        extra.append((f"{k}, the branch lanes at {RAGGED_AT}", k, *fns[k], tuple(ins), False))
+    log(f"[checks] {what}, branch lanes: the min chain ties on {ties} (state, step, lane) "
+        f"triples of the inputs, h - tight < eps on {below}")
+    if circles and sp.aggregation == "min" and ties == 0:
+        failed.append(f"{what}: no lane on the min chain's tie")
+    if pb.barrier_type == "log" and below == 0:
+        failed.append(f"{what}: no lane below the log barrier's eps")
+    return extra
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """One check group: the kernels on the inputs of one closed-loop step, `kind` "paper"
+    (paper_step) or "coupled" (coupled_step), of `family` at N_ in `dname`; with `record`
+    also at held's extra shapes and obstacle counts, and the f32 results go to the
+    kernels line as <kernel><suffix>; with `branches`, branch_checks too."""
+    phase: str
+    kind: str
+    dname: str
+    family: str = "dubins"
+    N_: int = N
+    solver: bool = False
+    suffix: str = ""
+    record: bool = True
+    branches: bool = False
+
+
+def kernel_groups():
+    """Every check group, in the order of the phases: kernels (Dubins' paper and coupled
+    steps in f64 and f32); for each family kernels_<family> (its paper step),
+    kernels_<family>_generic (its coupled step), kernels_<family>_cli (K1, K2 and K5/K6 on a
+    coupled step at the N of the family's config, which the cli phase runs, in f32 as the
+    CLI does); for each MINLOG configuration kernels_<variant> (K1-K4 on a paper step and
+    K5/K6 on a coupled step at its own N, with the branch lanes)."""
+    from tube_mpc_tpu_torch.utils.config import load_config
+
+    both = ("float64", "float32")
+    groups = [Group("kernels", kind, d) for d in both for kind in ("paper", "coupled")]
+    for family in FAMILIES:
+        Nc = load_config(f"configs/{family}.yaml").system.horizon_N
+        sfx = f"_{family}"
+        groups += [Group(f"kernels_{family}", "paper", d, family, suffix=sfx) for d in both]
+        groups += [Group(f"kernels_{family}_generic", "coupled", d, family, suffix=sfx)
+                   for d in both]
+        groups.append(Group(f"kernels_{family}_cli", "coupled", "float32", family, Nc, True,
+                            sfx, record=False))
+    for variant in MINLOG:
+        Nc = minlog_config(variant).system.horizon_N
+        groups += [Group(f"kernels_{variant}", kind, d, variant, Nc, suffix=f"_{variant}",
+                         branches=True) for d in both for kind in ("paper", "coupled")]
+    return groups
+
+
+def group_checks(torch, dev, g, failed):
+    """(calls, extra, controls at a bound, what, the problem) of group g's inputs; K2 also
+    at the rollout's nα=1. Where no control of a backward sweep's (K3, K5) inputs lies at
+    a bound (a family's step may have none), that sweep is also held on the same inputs
+    with the controls clamped to their quartiles, which become the problem's bounds, so
+    that the active set runs; the count returned is the least over the sweeps, and a
+    failure is recorded where it is 0. With g.record, held's extra shapes and obstacle
+    counts, and the clamped sweep at the ragged shape; without, at the step's own. With
+    g.branches, branch_checks too."""
+    dtype = getattr(torch, g.dname)
+    more_shapes = g.record
+    step = paper_step if g.kind == "paper" else coupled_step
+    kw = dict(family=g.family, N_=g.N_, **({"solver": True} if g.solver else {}))
+    pb, eps, make, inputs, what = step(torch, dev, dtype, **kw)
+    calls, extra = held(make, pb, eps, inputs, more_shapes)
+    if g.branches:
+        extra += branch_checks(torch, make, pb, eps, inputs, what, failed)
+    cut, cut_at = (ragged, f" at {RAGGED_AT}") if more_shapes else ((lambda t: t), "")
+    if "fwd" in inputs:
+        fwd1 = make(pb)["fwd nα=1"]
+        head = [("fwd nα=1", "fwd", *fwd1, inputs["fwd"], True)]
+        if more_shapes:
+            head.append((f"fwd nα=1 at {RAGGED_AT}", "fwd", *fwd1,
+                         tuple(map(ragged, inputs["fwd"])), False))
+        extra = head + extra
+    counts = []
+    for name in ("sbwd", "sbwd_generic", "sbwd_upper"):
+        if name not in inputs:
+            continue
+        at_u = 3 if name == "sbwd_upper" else 0   # where U lies among the sweep's inputs
+        U = inputs[name][at_u]
+        n_bound = at_bound(torch, pb, U)
+        if n_bound == 0:
+            rows = U.transpose(0, 1).reshape(pb.m, -1).float()
+            lo = tuple(float(torch.quantile(r, 0.25)) for r in rows)
+            hi = tuple(float(torch.quantile(r, 0.75)) for r in rows)
+            pbc = dataclasses.replace(pb, u_min=lo, u_max=hi)
+            U_c = torch.minimum(torch.as_tensor(hi, dtype=dtype, device=dev)[:, None],
+                                torch.maximum(torch.as_tensor(lo, dtype=dtype,
+                                                              device=dev)[:, None], U))
+            ins = list(inputs[name])
+            ins[at_u] = U_c
+            n_bound = at_bound(torch, pbc, U_c)
+            log(f"[checks] {what}: no control of {name}'s inputs at a bound; {name} also "
+                f"with the controls clamped to their quartiles {lo}..{hi}, {n_bound} of "
+                f"them at a bound")
+            extra.append((f"{name}, controls clamped to their quartiles{cut_at}",
+                          name, *make(pbc)[name], tuple(map(cut, ins)), False))
+        counts.append(n_bound)
+    log(f"[{g.phase}] {g.dname}: inputs from a closed-loop step of the {what}; at least "
+        f"{min(counts)} controls at a bound in every backward sweep's inputs")
+    if min(counts) == 0:
+        failed.append(f"{g.dname} {what}: no control at a bound, active set unchecked")
+    return calls, extra, pb
+
+
+def time_group(torch, dev, g, pool, results):
+    """Group g's kernels timed on the card (its step's own shape, and the extras marked
+    timed), in the process that drives the card while nothing else runs there; with
+    g.record in f32, the kernel's ms, the bytes it must move and its plain version's
+    operations (counted by a CPU worker, cpu_count_ops, read at the end) go to
+    results[<kernel><suffix>]. Returns the failures found (the active set, the branches)."""
+    failed = []
+    calls, extra, pb = group_checks(torch, dev, g, failed)
+    nc = 2 * pb.n_hat + pb.m + 3
+    step_ms = {}   # kernel: ms per launch on the step's inputs
+    for name, (kernel, plain, inputs) in calls.items():
+        got = kernel(*inputs)
+        ms = step_ms[name] = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
+        if not g.record or g.dname != "float32":
+            log(f"[{g.phase}] {g.dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back)")
+            continue
+        small = [t[..., :OPS_LANES].contiguous().cpu().numpy() for t in inputs]
+        results[name + g.suffix] = dict(
+            ms=ms, bytes=io_bytes(name, inputs, got, nc), dname=g.dname,
+            ops=pool.apply_async(cpu_count_ops, (g.kind, g.family, g.N_, name, small)))
+        log(f"[{g.phase}] {g.dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back); "
+            f"{results[name + g.suffix]['bytes']} bytes")
+    for label, name, kernel, plain, inputs, timed in extra:
+        if timed:
+            ms = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
+            log(f"[{g.phase}] {g.dname} {label}: {ms:.4f} ms (mean of {RUNS} back to back), "
+                f"beside {step_ms[name]:.4f} ms for {name} on the step's inputs")
+    del calls, extra
+    torch.cuda.empty_cache()
+    return failed
+
+
+def check_one(torch, g, label, name, kernel, plain, inputs, failed):
+    """Hold a kernel against its plain version at TOL[dname][name]; log, record a failure,
+    and return the largest difference and the plain version's wall in ms."""
+    got = kernel(*inputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():   # no autograd bookkeeping on its ~10^4-10^5 operations
+        ref = plain(*inputs)
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) * 1e3
+    rtol, atol_frac = TOL[g.dname][name]
+    err, ok = max_err(torch, got, ref, rtol, atol_frac)
+    nonfinite = sum(int((~torch.isfinite(r)).sum()) for r in ref)
+    log(f"[{g.phase}] {g.dname} {label}: max |kernel - plain| = {err!r} "
+        f"(rtol {rtol}, atol {atol_frac} of the row's max|plain|) -> "
+        f"{'ok' if ok else 'FAIL'}; {nonfinite} non-finite values in the plain output")
+    if not ok:
+        failed.append(f"{g.dname} {label}")
+    return err, plain_wall
+
+
+def checker_init() -> None:
+    """A checker process's initializer: the settings of the process that drives the card."""
+    import torch
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def hold_group(g):
+    """Group g's checks, in a checker process on the card: every kernel of the group
+    against its plain version at the step's shape and at the extra shapes. Returns (its log
+    lines, its failures, {kernel: (max |kernel - plain|, the plain version's ms by its
+    check's one call)} of the step's shape, its seconds)."""
+    global _CAPTURED
+    import torch
+
+    _CAPTURED, t0 = [], time.perf_counter()
+    try:
+        dev = torch.device("cuda", 0)
+        failed, errs = [], {}
+        calls, extra, _ = group_checks(torch, dev, g, failed)
+        for name, (kernel, plain, inputs) in calls.items():
+            errs[name] = check_one(torch, g, name, name, kernel, plain, inputs, failed)
+        for label, name, kernel, plain, inputs, _ in extra:
+            check_one(torch, g, label, name, kernel, plain, inputs, failed)
+        del calls, extra
+        torch.cuda.empty_cache()
+        return _CAPTURED, failed, errs, time.perf_counter() - t0
+    finally:
+        _CAPTURED = None
+
+
+def lower_priority() -> None:
+    """A worker process's initializer: it yields the CPU to the process that drives the
+    card, whose host-bound phases (the plain versions' checks) set the script's wall."""
+    os.nice(10)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    # the CPU's f64 loops (loop64*) run in worker processes beside the card's phases; every
-    # worker is stopped on the way out, whatever the phases did
+    # the CPU's f64 loops (loop64*) and the bounds' operation counts run in worker processes
+    # beside the card's phases, at a lower priority; every worker is stopped on the way out,
+    # whatever the phases did
     workers = max(1, min(len(LOOP64_CASES) + 2 * len(CHAOTIC) + len(XLA_CASES) + 1,
                          (os.cpu_count() or 2) - 1))
-    pool = multiprocessing.get_context("spawn").Pool(workers)
-    try:
-        return run_phases(torch, pool)
-    finally:
-        pool.terminate()
-        pool.join()
+    with contextlib.ExitStack() as stack:
+        pool = multiprocessing.get_context("spawn").Pool(workers, initializer=lower_priority)
+        stack.callback(pool.join)
+        stack.callback(pool.terminate)
+        return run_phases(torch, pool, stack)
 
 
-def run_phases(torch, pool) -> int:
+def run_phases(torch, pool, stack) -> int:
+    """The phases; the worker pools they start are stopped by `stack`'s exit."""
     from tube_mpc_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
     from tube_mpc_tpu_torch.presets import dubins_paper_setup, family_paper_setup
 
@@ -1738,6 +2091,9 @@ def run_phases(torch, pool) -> int:
     log(f"[device] {card}")
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    siblings = "/sys/devices/system/cpu/cpu0/topology/thread_siblings_list"
+    log(f"[device] host: {len(os.sched_getaffinity(0))} CPUs usable, cpu0's hardware threads "
+        f"{open(siblings).read().strip() if os.path.exists(siblings) else 'unknown'}")
 
     # ---- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1748,13 +2104,21 @@ def run_phases(torch, pool) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {name}: {kernel_label(line.strip())}")
-    cpu_runs = {case: pool.apply_async(cpu_loop64, case) for case in LOOP64_CASES}
-    cpu_xla = {kind: pool.apply_async(cpu_xla64, (kind,)) for kind in XLA_CASES}
-    cpu_pop64 = pool.apply_async(cpu_population64)
+    def done(what):
+        """A worker job's callback: log when it ended."""
+        return lambda r: log(f"[workers] {what} done at {time.perf_counter() - t_start:.0f} s "
+                             f"({r[1]:.1f} s in its worker)")
+
+    cpu_runs = {case: pool.apply_async(cpu_loop64, case, callback=done(f"loop64 {case}"))
+                for case in LOOP64_CASES}
+    cpu_xla = {kind: pool.apply_async(cpu_xla64, (kind,), callback=done(f"xla64 {kind}"))
+               for kind in XLA_CASES}
+    cpu_pop64 = pool.apply_async(cpu_population64, callback=done("population64"))
     # a chaotic loop's CPU side also with its start and disturbances times 1 + 1e-15
-    cpu_perturbed = {(kind, family): pool.apply_async(cpu_loop64, (kind, family, LOOP64_H,
-                                                                    1.0 + 1e-15))
-                     for kind, family in LOOP64_CASES if family in CHAOTIC}
+    cpu_perturbed = {(kind, family): pool.apply_async(
+        cpu_loop64, (kind, family, LOOP64_H, 1.0 + 1e-15),
+        callback=done(f"loop64 {(kind, family)} x (1 + 1e-15)"))
+        for kind, family in LOOP64_CASES if family in CHAOTIC}
 
     def loop64_logs(phase, kind, family):
         """({"cpu": the CPU's f64 loop of loop64_case, from its worker, dev: the card's},
@@ -1768,259 +2132,26 @@ def run_phases(torch, pool) -> int:
             f"worker process), {time.perf_counter() - t0:.1f} s on {dev}")
         return {"cpu": tree_map(torch.as_tensor, out), dev: card_out}, st, run, w
 
-    # ---- 3. kernels against their plain versions --------------------------------
-    RAGGED_AT = f"B={RAGGED_B}, N={RAGGED_N}"
-
-    def at_bound(pb, U_rows):
-        lo = torch.as_tensor(pb.u_min, dtype=U_rows.dtype, device=U_rows.device)[:, None]
-        hi = torch.as_tensor(pb.u_max, dtype=U_rows.dtype, device=U_rows.device)[:, None]
-        return int(((U_rows <= lo + ACTIVE_TOL) | (U_rows >= hi - ACTIVE_TOL)).sum())
-
-    def ragged(t):
-        """The first RAGGED_N steps and RAGGED_B lanes of a [N, rows, B] or [rows, B] input."""
-        return (t[:RAGGED_N, :, :RAGGED_B] if t.ndim == 3 else t[:, :RAGGED_B]).contiguous()
-
-    def held(make, pb, eps, inputs, more_shapes):
-        """The checks of the kernels of `inputs` ({kernel: its inputs}) on one step's inputs:
-        (calls {kernel: (wrapper, plain version, inputs)} at the step's shape, extra [(label,
-        kernel, wrapper, plain version, inputs, timed)]). With `more_shapes`: every kernel
-        is built for each obstacle count (the paper has 5), so the extra checks also take
-        the first and the last instantiation, with the system's first obstacle alone and
-        with more up to eight, at the ragged shape; Dubins' last also at the main shape,
-        timed. The cart-pole has no obstacles, so only the ragged shape."""
-        main = make(pb)
-        calls = {k: (*main[k], t) for k, t in inputs.items()}
-        if not more_shapes:
-            return calls, []
-        extra = [(f"{k} at {RAGGED_AT}", k, *main[k], tuple(map(ragged, t)), False)
-                 for k, t in inputs.items()]
-        sp = pb.spec
-        if not sp.centers:
-            return calls, extra
-        more = EXTRA_CENTERS[:8 - len(sp.centers)]
-        for centers in (sp.centers[:1], sp.centers + more):
-            pbn = with_obstacles(pb, centers, eps)
-            n, fns = f"{len(centers)} obstacles", make(pbn)
-            shapes = [(f" at {RAGGED_AT}", ragged, False)]
-            if len(centers) == 8 and sp.family == "dubins":
-                shapes.append((" at the main shape", lambda t: t, True))
-            for where, cut, timed in shapes:
-                extra += [(f"{k}, {n}{where}", k, *fns[k], tuple(map(cut, t)), timed)
-                          for k, t in inputs.items()]
-        return calls, extra
-
-    # Where a kernel's inputs hold the states: [N, n̂, B] or [n̂, B]; and the const rows C.
-    STATE_ARGS = {"ric": (0,), "fwd": (0, 1), "sbwd": (1, 4), "sbwd_generic": (1, 4),
-                  "sbwd_upper": (4,), "sfwd": (2, 7), "sfwd_generic": (2, 7), "sfwd_ref": (2, 7)}
-    C_ARG = {"ric": 4, "fwd": 8, "sbwd": 3, "sbwd_generic": 3, "sbwd_upper": 5, "sfwd": 6,
-             "sfwd_generic": 6, "sfwd_ref": 6}
-
-    def branch_checks(make, pb, eps, inputs, what):
-        """The branch checks of the exact min and the log barrier, at the ragged shape: the
-        circle systems with the two obstacles TIE_CENTERS, and the first 250 lanes of every
-        state moved onto their bisector (px = 5, where the min chain ties), the first 125
-        of those to (5, 5), where h = 0; the cart-pole's first 125 lanes to its track
-        limit, h = 0; and those lanes' gamma to 0.5, since f̂ weighs the tangent of h at
-        the current state by gamma. Counts the (state, step, lane) triples on which the
-        chain ties and on which h - tight < eps, and records a failure where the library's
-        aggregation (min) or barrier (log) has a branch that no lane takes. Returns the
-        extra checks."""
-        sp = pb.spec
-        circles = bool(sp.centers)
-        q = with_obstacles(pb, TIE_CENTERS, eps) if circles else pb
-        fns = make(q)
-        extra, ties, below = [], 0, 0
-        for k, t in inputs.items():
-            ins = [ragged(a) for a in t]
-            C = ins[C_ARG[k]].clone()
-            C[2 * pb.n_hat + pb.m + 1, :250] = 0.5
-            ins[C_ARG[k]] = C
-            tight = C[2 * pb.n_hat + pb.m + 2]
-            for i in STATE_ARGS[k]:
-                x = ins[i].clone()
-                if circles:
-                    x[..., 0, :250] = 5.0
-                    x[..., 1, :125] = 5.0
-                    hs = [(x[..., 0, :] - cx) * (x[..., 0, :] - cx)
-                          + (x[..., 1, :] - cy) * (x[..., 1, :] - cy) - 1.0
-                          for cx, cy in TIE_CENTERS]
-                    ties += int((hs[0] == hs[1]).sum())
-                    h = torch.minimum(hs[0], hs[1])
-                else:
-                    x[..., 0, :125] = sp.x_lim
-                    h = sp.x_lim * sp.x_lim - x[..., 0, :] * x[..., 0, :]
-                below += int((h - tight < eps).sum())
-                ins[i] = x
-            extra.append((f"{k}, the branch lanes at {RAGGED_AT}", k, *fns[k], tuple(ins), False))
-        log(f"[checks] {what}, branch lanes: the min chain ties on {ties} (state, step, lane) "
-            f"triples of the inputs, h - tight < eps on {below}")
-        if circles and sp.aggregation == "min" and ties == 0:
-            failed.append(f"{what}: no lane on the min chain's tie")
-        if pb.barrier_type == "log" and below == 0:
-            failed.append(f"{what}: no lane below the log barrier's eps")
-        return extra
-
-    def checks(step_of, dtype, more_shapes, branches=False):
-        """(calls, extra, controls at a bound, what, the problem) of one step's inputs
-        (paper_step or coupled_step); K2 also at the rollout's nα=1. Where no control of a
-        backward sweep's (K3, K5) inputs lies at a bound (a family's step may have none),
-        that sweep is also held on the same inputs with the controls clamped to their
-        quartiles, which become the problem's bounds, so that the active set runs; the
-        count returned is the least over the sweeps. With `more_shapes`, held's extra
-        shapes and obstacle counts, and the clamped sweep at the ragged shape; without, at
-        the step's own. With `branches`, branch_checks too."""
-        pb, eps, make, inputs, what = step_of(torch, dev, dtype)
-        calls, extra = held(make, pb, eps, inputs, more_shapes)
-        if branches:
-            extra += branch_checks(make, pb, eps, inputs, what)
-        cut, cut_at = (ragged, f" at {RAGGED_AT}") if more_shapes else ((lambda t: t), "")
-        if "fwd" in inputs:
-            fwd1 = make(pb)["fwd nα=1"]
-            head = [("fwd nα=1", "fwd", *fwd1, inputs["fwd"], True)]
-            if more_shapes:
-                head.append((f"fwd nα=1 at {RAGGED_AT}", "fwd", *fwd1,
-                             tuple(map(ragged, inputs["fwd"])), False))
-            extra = head + extra
-        counts = []
-        for name in ("sbwd", "sbwd_generic", "sbwd_upper"):
-            if name not in inputs:
-                continue
-            at_u = 3 if name == "sbwd_upper" else 0   # where U lies among the sweep's inputs
-            U = inputs[name][at_u]
-            n_bound = at_bound(pb, U)
-            if n_bound == 0:
-                rows = U.transpose(0, 1).reshape(pb.m, -1).float()
-                lo = tuple(float(torch.quantile(r, 0.25)) for r in rows)
-                hi = tuple(float(torch.quantile(r, 0.75)) for r in rows)
-                pbc = dataclasses.replace(pb, u_min=lo, u_max=hi)
-                U_c = torch.minimum(torch.as_tensor(hi, dtype=dtype, device=dev)[:, None],
-                                    torch.maximum(torch.as_tensor(lo, dtype=dtype,
-                                                                  device=dev)[:, None], U))
-                ins = list(inputs[name])
-                ins[at_u] = U_c
-                n_bound = at_bound(pbc, U_c)
-                log(f"[checks] {what}: no control of {name}'s inputs at a bound; {name} also "
-                    f"with the controls clamped to their quartiles {lo}..{hi}, {n_bound} of "
-                    f"them at a bound")
-                extra.append((f"{name}, controls clamped to their quartiles{cut_at}",
-                              name, *make(pbc)[name], tuple(map(cut, ins)), False))
-            counts.append(n_bound)
-        return calls, extra, min(counts), what, pb
-
-    results = {}
-    failed = []
-
-    def check(phase, dname, label, name, kernel, plain, inputs):
-        """Hold a kernel against its plain version at TOL[dname][name]; log, record a
-        failure, and return the kernel's outputs, the largest difference and the plain
-        version's wall in ms."""
-        got = kernel(*inputs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = plain(*inputs)
-        torch.cuda.synchronize()
-        plain_wall = (time.perf_counter() - t0) * 1e3
-        rtol, atol_frac = TOL[dname][name]
-        err, ok = max_err(torch, got, ref, rtol, atol_frac)
-        nonfinite = sum(int((~torch.isfinite(r)).sum()) for r in ref)
-        log(f"[{phase}] {dname} {label}: max |kernel - plain| = {err!r} "
-            f"(rtol {rtol}, atol {atol_frac} of the row's max|plain|) -> "
-            f"{'ok' if ok else 'FAIL'}; {nonfinite} non-finite values in the plain output")
-        if not ok:
-            failed.append(f"{dname} {label}")
-        return got, err, plain_wall
-
-    def check_step(phase, step_of, dtype, suffix="", record=True, plain_runs=PLAIN_RUNS,
-                   branches=False):
-        """Phase 3's checks and times of the kernels of one step's inputs in `dtype`; with
-        `record`, also at the extra shapes and obstacle counts (held), and the f32 results,
-        with the plain versions' times and the bounds, go to results[<kernel><suffix>];
-        without, the kernels are held and timed at the step's own shape only. The plain
-        version is timed over `plain_runs` calls, or with 0 by the wall of its check's one
-        call. With `branches`, branch_checks too."""
-        dname = str(dtype).replace("torch.", "")
-        calls, extra, n_bound, what, pb = checks(step_of, dtype, record, branches)
-        log(f"[{phase}] {dname}: inputs from a closed-loop step of the {what}; at least "
-            f"{n_bound} controls at a bound in every backward sweep's inputs")
-        if n_bound == 0:
-            failed.append(f"{dname} {what}: no control at a bound, active set unchecked")
-        nc = 2 * pb.n_hat + pb.m + 3
-        step_ms = {}   # kernel: ms per launch on the step's inputs
-        for name, (kernel, plain, inputs) in calls.items():
-            got, err, plain_wall = check(phase, dname, name, name, kernel, plain, inputs)
-            ms = step_ms[name] = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
-            if not record or dtype != torch.float32:
-                log(f"[{phase}] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back)")
-                continue
-            # the check's call just before is the plain version's warm-up
-            plain_ms = (device_time_ms(torch, lambda: plain(*inputs), plain_runs, warmup=0)
-                        if plain_runs else plain_wall)
-            nbytes, ops, t_bytes, t_ops = work_bound(torch, name, plain, inputs, got, nc)
-            results[name + suffix] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, ops=ops)
-            log(f"[{phase}] {dname} {name}: {ms:.4f} ms (mean of {RUNS} back to back), plain "
-                f"{plain_ms:.2f} ms ({f'mean of {plain_runs}' if plain_runs else 'its check'}"
-                f", while the CPU's loop64 workers run); "
-                f"{nbytes} bytes "
-                f"-> {t_bytes:.4f} ms, {ops} ops -> {t_ops:.4f} ms at peak "
-                f"({2 * t_ops:.4f} ms without fused multiply-adds)")
-        for label, name, kernel, plain, inputs, timed in extra:
-            check(phase, dname, label, name, kernel, plain, inputs)
-            if timed:
-                ms = device_time_ms(torch, lambda: kernel(*inputs), RUNS)
-                log(f"[{phase}] {dname} {label}: {ms:.4f} ms (mean of {RUNS} back to back), "
-                    f"beside {step_ms[name]:.4f} ms for {name} on the step's inputs")
-        del calls, extra
-        torch.cuda.empty_cache()
-
-    for dtype in (torch.float64, torch.float32):
-        for step_of in (paper_step, coupled_step):
-            check_step("kernels", step_of, dtype)
+    # ---- 3 and the kernels_* phases: every kernel against its plain version ------------
+    results, failed = {}, []
+    # First every group's kernels are timed here, with nothing else on the card; then the
+    # checker processes hold them against their plain versions (hold_group), the longest
+    # groups first, while this process runs the loop64 and xla64 phases; their results are
+    # read after those (a check that fails fails the run there).
+    t0 = time.perf_counter()
+    groups = kernel_groups()
+    for g in groups:
+        failed += time_group(torch, dev, g, pool, results)
     if failed:
-        raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
-    log(f"[kernels] done at {time.perf_counter() - t_start:.0f} s")
-
-    # ---- the families' kernels against their plain versions: K1-K4 on a paper step,
-    # K5/K6 on a coupled step; and K1, K2, K5/K6 on a coupled step at the N of the
-    # family's config, which the cli phase runs (30, 200, 40), in f32 as the CLI does ----
-    from tube_mpc_tpu_torch.utils.config import load_config
-
-    both = (torch.float64, torch.float32)
-    for family in FAMILIES:
-        Nc = load_config(f"configs/{family}.yaml").system.horizon_N
-        for phase, step_of, dtypes, kw in (
-                (f"kernels_{family}", paper_step, both, {}),
-                (f"kernels_{family}_generic", coupled_step, both, {}),
-                (f"kernels_{family}_cli", coupled_step, (torch.float32,),
-                 dict(N_=Nc, solver=True))):
-            t0 = time.perf_counter()
-            for dtype in dtypes:
-                check_step(phase, lambda *a: step_of(*a, family=family, **kw), dtype,
-                           suffix=f"_{family}", record=not kw)
-            if failed:
-                raise SystemExit(f"chip_smoke: {family}'s kernels disagree with their plain "
-                                 f"versions: {failed}")
-            log(f"[{phase}] done in {time.perf_counter() - t0:.0f} s, at "
-                f"{time.perf_counter() - t_start:.0f} s")
-
-    # ---- the lane engine's other branches: each MINLOG configuration's library, K1-K4 on
-    # a paper step and K5/K6 on a coupled step of the configuration at its own N, with the
-    # branch lanes; the plain versions timed by their checks' one call ----
-    for variant in MINLOG:
-        Nc = minlog_config(variant).system.horizon_N
-        phase, t0 = f"kernels_{variant}", time.perf_counter()
-        for dtype in both:
-            for step_of in (paper_step, coupled_step):
-                check_step(phase, lambda *a: step_of(*a, family=variant, N_=Nc), dtype,
-                           suffix=f"_{variant}", plain_runs=0, branches=True)
-        if failed:
-            raise SystemExit(f"chip_smoke: {variant}'s kernels disagree with their plain "
-                             f"versions, or a branch ran on no lane: {failed}")
-        log(f"[{phase}] done in {time.perf_counter() - t0:.0f} s, at "
-            f"{time.perf_counter() - t_start:.0f} s")
+        raise SystemExit(f"chip_smoke: the kernels' inputs fail their checks: {failed}")
+    log(f"[kernels] {len(groups)} groups' kernels timed in {time.perf_counter() - t0:.0f} s, "
+        f"at {time.perf_counter() - t_start:.0f} s; held by {CHECKERS} checker processes")
+    checker = multiprocessing.get_context("spawn").Pool(CHECKERS, initializer=checker_init)
+    stack.callback(checker.join)
+    stack.callback(checker.terminate)
+    cost = {"quadrotor2d_min_log": 0, "quadrotor2d": 1, "dubins_min_log": 2, "dubins": 3}
+    order = sorted(range(len(groups)), key=lambda i: cost.get(groups[i].family, 4))
+    holding = {i: checker.apply_async(hold_group, (groups[i],)) for i in order}
 
     # ---- 4, 5 and the families' short f64 loops, paper and coupled: kernels on the card vs
     # plain versions on the CPU --------------------------------------------------------
@@ -2105,6 +2236,27 @@ def run_phases(torch, pool) -> int:
             raise SystemExit(f"chip_smoke: {phase}: the XLA engine's f64 loop disagrees: {bad}")
         del card, lanes
     log(f"[xla64] done at {time.perf_counter() - t_start:.0f} s")
+
+    # ---- the kernels' checks from the checker processes, in the order of the phases ------
+    t0 = time.perf_counter()
+    spent = {}
+    for i, g in enumerate(groups):
+        lines, bad, errs, seconds = holding[i].get()
+        for line in lines:
+            log(line)
+        failed += bad
+        spent[g.phase] = spent.get(g.phase, 0.0) + seconds
+        if g.record and g.dname == "float32":
+            for name, (err, plain_ms) in errs.items():
+                results[name + g.suffix].update(max_abs_err=err, plain_ms=plain_ms)
+    checker.close()
+    log(f"[kernels] held in {sum(spent.values()):.0f} s of the checker processes' "
+        f"({', '.join(f'{k} {v:.0f} s' for k, v in spent.items())}); read after a wait of "
+        f"{time.perf_counter() - t0:.0f} s, at {time.perf_counter() - t_start:.0f} s")
+    if failed:
+        raise SystemExit(f"chip_smoke: kernels disagree with their plain versions, or a "
+                         f"branch ran on no lane: {failed}")
+
 
     # ---- 6. the full-width paper path ---------------------------------------------
     s = dubins_paper_setup(N=N, H=H, device=dev, dtype=torch.float32)
@@ -2303,6 +2455,19 @@ def run_phases(torch, pool) -> int:
 
     profile_phase("coupled", coupled_steps)
     log(f"[profile] done at {time.perf_counter() - t_start:.0f} s")
+
+    # the bounds: each kernel's bytes, and its plain version's operations from the workers
+    t0 = time.perf_counter()
+    for key, r in results.items():
+        r["ops"] = r["ops"].get()
+        t_bytes, t_ops = bound_ms(r["bytes"], r["ops"], r["dname"])
+        r["bound_ms"], r["bound_by"] = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                                              else "operations")
+        log(f"[bounds] {r['dname']} {key}: {r['bytes']} bytes -> {t_bytes:.4f} ms, {r['ops']} ops "
+            f"-> {t_ops:.4f} ms at peak ({2 * t_ops:.4f} ms without fused multiply-adds); "
+            f"kernel {r['ms']:.4f} ms")
+    log(f"[bounds] {len(results)} kernels' operations read from the workers in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     line = []
     for name, (source, replaces, _, _) in KERNELS.items():

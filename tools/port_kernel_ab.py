@@ -2,16 +2,17 @@
 """Compare the port's kernels of this tree with those of another checkout, on one NVIDIA
 card, in one process.
 
-    python3 tools/port_kernel_ab.py BASE_DIR [--variants dubins quadrotor2d ...]
+    python3 tools/port_kernel_ab.py BASE_DIR [--variants dubins quadrotor2d ...] [--sass all]
                                              # from the repository root
 
 BASE_DIR holds another commit's tree (e.g. `git archive <commit>` unpacked into a
 gitignored directory). Every `tube_mpc_tpu_torch/csrc/*.cu` of both trees (the two may
 split the kernels over different sources) is built for each library variant of
 `--variants` (default VARIANTS: Dubins, the double integrator, the quadrotor, the
-cart-pole and the quadrotor with the exact min and the log barrier) with this tree's nvcc
-flags for that variant (`_build.flags`: `-DLANE_SYSTEM`, `-DLANE_AGG`, `-DLANE_BARRIER`),
-all at once. The script prints each build's ptxas registers, shared memory and spills,
+cart-pole and the quadrotor with the exact min and the log barrier; with `--sass all`
+also every other variant of `_build.VARIANTS`, for the SASS comparison alone) with this
+tree's nvcc flags for that variant (`_build.flags`: `-DLANE_SYSTEM`, `-DLANE_AGG`,
+`-DLANE_BARRIER`), all at once. The script prints each build's ptxas registers, shared memory and spills,
 where `cuobjdump` is found each kernel's SASS instruction count, and, for every kernel
 that both trees build, whether its SASS is the same instruction for instruction (a kernel
 whose source did not change compiles to what it was). Then it times the f32 kernels of
@@ -49,7 +50,8 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 RUNS = 50
-VARIANTS = ("dubins", "double_integrator", "quadrotor2d", "cartpole", "cartpole_log",
+VARIANTS = ("dubins", "double_integrator", "double_integrator_min", "double_integrator_log",
+            "double_integrator_min_log", "quadrotor2d", "cartpole", "cartpole_log",
             "quadrotor2d_min_log")
 FWD = ("fwd", "fwd nα=1")
 # variant: [(label suffix, chip_smoke's step function by name, its keyword arguments (with
@@ -57,8 +59,29 @@ FWD = ("fwd", "fwd nα=1")
 #            None for all)]
 CASES = {
     "dubins": [("", "paper_step", {}, None), ("", "coupled_step", {}, None)],
-    "double_integrator": [(" double_integrator", "paper_step",
-                           {"family": "double_integrator"}, ("ric", "sbwd"))],
+    "double_integrator": [
+        (" double_integrator", "paper_step", {"family": "double_integrator"},
+         ("ric", "sbwd", *FWD)),
+        (" double_integrator f64", "paper_step",
+         {"family": "double_integrator", "dtype": "float64"}, ("ric", "sbwd")),
+        (" double_integrator N=30", "coupled_step",
+         {"family": "double_integrator", "N_": 30, "solver": True},
+         ("ric", "sbwd_generic", "sbwd_upper"))],
+    "double_integrator_min": [
+        (" double_integrator_min N=30", "paper_step",
+         {"family": "double_integrator_min", "N_": 30}, ("ric", "sbwd")),
+        (" double_integrator_min N=30", "coupled_step",
+         {"family": "double_integrator_min", "N_": 30, "solver": True},
+         ("sbwd_generic", "sbwd_upper"))],
+    # the double integrator's log-barrier libraries, which no configuration of chip_smoke.py
+    # runs: its kernels on the inputs of its paper and coupled steps, with the problem of
+    # those policies (with_policies)
+    **{v: [(f" {v}", "paper_step", {"family": "double_integrator", "policies": (agg, "log")},
+            ("ric", "sbwd", *FWD)),
+           (f" {v}", "coupled_step", {"family": "double_integrator", "policies": (agg, "log")},
+            ("sbwd_generic", "sbwd_upper"))]
+       for v, agg in (("double_integrator_log", "smoothmin"),
+                      ("double_integrator_min_log", "min"))},
     "cartpole": [(" cartpole", "paper_step", {"family": "cartpole"}, ("ric", "sbwd")),
                  (" cartpole f64", "paper_step", {"family": "cartpole", "dtype": "float64"},
                   ("ric",))],
@@ -134,18 +157,33 @@ def on_build(libs, fn):
     return run
 
 
+def with_policies(pb, aggregation, barrier):
+    """The double integrator's lane problem pb with another obstacle aggregation and
+    barrier (the same obstacles, bounds and eps)."""
+    from tube_mpc_tpu_torch.ops import lanes
+    from tube_mpc_tpu_torch.tube.lane_interface import make_lane_problem
+
+    sp = pb.spec
+    sys_c = lanes.double_integrator_components(dt=sp.dt, a_max=pb.u_max[0], centers=sp.centers,
+                                               radii=sp.radii, aggregation=aggregation,
+                                               beta=sp.beta)
+    return make_lane_problem(sys_c, barrier_type=barrier, eps=pb.eps)
+
+
 def step_cases(torch, dev, cases=CASES["dubins"]):
     """{label: (call of a kernel's wrapper, its plain version, its inputs, the kernel's
     name, the problem's count of const rows)} of `cases` (CASES' entries): by default the
-    paper step's K1-K4 and the coupled step's K5/K6 variants at B, N of chip_smoke, in f32."""
+    paper step's K1-K4 and the coupled step's K5/K6 variants at B, N of chip_smoke, in f32.
+    A case with "policies" (aggregation, barrier) runs the step's kernels with those."""
     import chip_smoke
 
     out = {}
     for suffix, step, kwargs, kernels in cases:
         kwargs = dict(kwargs)
         dtype = getattr(torch, kwargs.pop("dtype", "float32"))
+        policies = kwargs.pop("policies", None)
         pb, _, make, inputs, _ = getattr(chip_smoke, step)(torch, dev, dtype, **kwargs)
-        fns = make(pb)
+        fns = make(pb if policies is None else with_policies(pb, *policies))
         if "fwd" in inputs:
             inputs = {**inputs, "fwd nα=1": inputs["fwd"]}
         for name, ins in inputs.items():
@@ -178,6 +216,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("base", type=Path)
     ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=sorted(CASES))
+    ap.add_argument("--sass", choices=("timed", "all"), default="timed",
+                    help="the library variants whose SASS is compared: those of --variants, "
+                         "or every variant of _build.VARIANTS")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("port_kernel_ab: no CUDA device is available", file=sys.stderr)
@@ -191,8 +232,11 @@ def main() -> int:
     print(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     out_dir = _build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
+    built = list(args.variants)
+    if args.sass == "all":
+        built += [v for v in _build.VARIANTS if v not in built]
     srcs = {(tree, variant, src.stem): src
-            for variant in args.variants for tree, root in (("base", base), ("this", REPO))
+            for variant in built for tree, root in (("base", base), ("this", REPO))
             for src in sorted((root / "tube_mpc_tpu_torch/csrc").glob("*.cu"))}
     sos = {key: out_dir / f"lib{key[0]}_{key[2]}_{key[1]}.so" for key in srcs}
     jobs = [(_build.flags(_build.library_name("lane_solver", k[1])), srcs[k], sos[k])
@@ -211,11 +255,12 @@ def main() -> int:
             sass[tree][variant, sym] = (n, digest)
             print(f"[sass] {tree} {variant}: {chip_smoke.kernel_label(sym)}: {n} instructions",
                   flush=True)
-        libs.setdefault(tree, {}).setdefault(variant, []).append(
-            ctypes.CDLL(str(sos[tree, variant, name])))
+        if variant in args.variants:
+            libs.setdefault(tree, {}).setdefault(variant, []).append(
+                ctypes.CDLL(str(sos[tree, variant, name])))
     both, changed = changed_kernels(sass["base"], sass["this"])
-    print(f"[sass] kernels built by both trees: {both}, the same SASS: {both - len(changed)}; "
-          f"changed: {json.dumps(changed)}", flush=True)
+    print(f"[sass] kernels built by both trees in {len(built)} library variants: {both}, the "
+          f"same SASS: {both - len(changed)}; changed: {json.dumps(changed)}", flush=True)
     builds = {tree: {v: TreeLib(found) for v, found in by.items()} for tree, by in libs.items()}
 
     dev = torch.device("cuda", 0)

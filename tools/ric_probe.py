@@ -7,6 +7,7 @@ K2 (`fwd_kernel`, `fwd_staged_kernel`), on one NVIDIA card, in one process.
     python3 tools/ric_probe.py --family quadrotor2d      # the quadrotor's n̂ = 7 kernels
     python3 tools/ric_probe.py --family cartpole         # the cart-pole's K1 and K3/K5
     python3 tools/ric_probe.py --family cartpole_log     # its K1 with the log barrier
+    python3 tools/ric_probe.py --family double_integrator   # its K1 and K3/K5
     python3 tools/ric_probe.py --family quadrotor2d --tree chip_tree/base   # another tree's
     python3 tools/ric_probe.py --family quadrotor2d --variants "A only" parts2   # some (and kept)
 
@@ -47,6 +48,16 @@ K2 (`fwd_kernel`, `fwd_staged_kernel`), on one NVIDIA card, in one process.
    unroll1", "fwd unroll4" (the rollout's step loop not unrolled, or four times) and "fwd
    lanes32" (32-lane blocks at any nα).
    The cart-pole with the log barrier (`--family cartpole_log`): kept and "no lean".
+   The double integrator (`--family double_integrator`; K1 and K3 on its paper step at
+   N=50, K1 and the two K5 on the coupled step of configs/double_integrator.yaml at its
+   N=30): kept, A only, B only, kc2/4/6, cap3, cap2 as Dubins', and
+   - w3:     three warps a block, two in phase A with a step each a chunk;
+   - split:  K3/K5 on the split sweep at n̂ = 5 (two threads a lane in phase B), which
+             reads every row of f̂'s Jacobians, so with them all stored (as no lit);
+   - no lit: every row of f̂'s Jacobians stored and loaded (LinearStep false);
+   - no lean: K1 and K3/K5 without the LEAN phase B (RIC_LEAN, SBWD_LEAN);
+   - no sel: phase A's balanced-equality factors by division (SelectFactors false);
+   - parent: all three, the design before the double integrator's own.
    The edits are to the shared sweeps (K2's to its own kernels), so each variant changes
    every kernel on them alike; an edit of a `.cu` file alone rebuilds that source alone.
 2. Times every f32 kernel of the family's cases (Dubins: tools/port_kernel_ab.py's paper
@@ -55,7 +66,8 @@ K2 (`fwd_kernel`, `fwd_staged_kernel`), on one NVIDIA card, in one process.
    its N=40, with the log barrier K1 on that step of chip_smoke.MINLOG's cartpole_log; the
    quadrotor: tools/port_kernel_ab.py's cases, K1, K2 at the config's nα and
    at nα=1 and K3 on its paper step at N=50, K1, K2 and the two K5 on the coupled step of
-   configs/quadrotor2d.yaml at its N=200) through its wrapper on every variant's build, in
+   configs/quadrotor2d.yaml at its N=200; the double integrator: its f32 cases there)
+   through its wrapper on every variant's build, in
    turns (every variant, then every variant in reverse order), each the device time per
    launch of RUNS launches back to back, and says whether each variant's outputs are
    bitwise those of `kept`.
@@ -68,7 +80,8 @@ K2 (`fwd_kernel`, `fwd_staged_kernel`), on one NVIDIA card, in one process.
    lines instead. The stack frame of the math library's out-of-line paths, which every
    f64 instantiation has, shows at the kernel's last line. For the instantiations of
    PROBED it also counts the SASS instructions, all of them and those of one step of
-   K1's phase A (lin_step) and of its phase B (ric_step): those with a frame in the
+   K1's phase A (lin_step) and of its phase B (ric_step), and of K3/K5's (sbwd_lin,
+   sbwd_step): those with a frame in the
    function's lines (one step's code, unless the compiler unrolled a step loop). The
    disassembly stays in `_build/probe/<family>/<source>_lineinfo.sass`.
 
@@ -141,9 +154,27 @@ FWD_STAGED = {
     "fwd lanes32": [(SOLVER, r"const int lanes = na >= 4 \? 32 : 32 \* \(4 / na\);",
                      "const int lanes = 32;", 1)],
 }
+SBWD = "lane_sbwd.cu"
+LEAN_K1 = r"constexpr bool RIC_LEAN = SYS == CARTPOLE \|\| SYS == DOUBLE_INTEGRATOR;"
 # The cart-pole's K1 without ric_step's LEAN phase B (RIC_LEAN), the parent's K1.
-NO_LEAN = [(SOLVER, r"constexpr bool RIC_LEAN = SYS == CARTPOLE;",
-            "constexpr bool RIC_LEAN = false;", 1)]
+NO_LEAN = [(SOLVER, LEAN_K1, "constexpr bool RIC_LEAN = SYS == DOUBLE_INTEGRATOR;", 1)]
+# The double integrator's K1 and K3/K5 without the LEAN phase B (RIC_LEAN, SBWD_LEAN).
+DI_NO_LEAN = [(SOLVER, LEAN_K1, "constexpr bool RIC_LEAN = SYS == CARTPOLE;", 1),
+              (SBWD, r"constexpr bool SBWD_LEAN = SYS == DOUBLE_INTEGRATOR;",
+               "constexpr bool SBWD_LEAN = false;", 1)]
+# The double integrator's Jacobian rows all stored by phase A and loaded by phase B, as
+# for the other systems, not its rows 0..n-1 taken as literals (LINEAR).
+NO_LIT = [(SWEEP, r"constexpr bool LinearStep<DoubleIntegratorStep<T>> = true;",
+           "constexpr bool LinearStep<DoubleIntegratorStep<T>> = false;", 1)]
+# Its phase A's balanced-equality factors by IEEE division, not by select (SelectFactors).
+NO_SEL = [(SWEEP, r"constexpr bool SelectFactors<DoubleIntegratorStep<T>> = true;",
+           "constexpr bool SelectFactors<DoubleIntegratorStep<T>> = false;", 1)]
+# K3/K5 on the split sweep (sweep_split: two threads a lane in phase B) from n̂ = 5, not
+# only above it.
+SPLIT5 = [(SBWD, r"NH > 5", "NH > 4", 4)]
+# Three warps a block, two of them phase A with a step each a chunk.
+W3 = [(SWEEP, r"constexpr int SWEEP_WARPS = 4;", "constexpr int SWEEP_WARPS = 3;", 1),
+      (SWEEP, r"constexpr int SWEEP_KC = 3;", "constexpr int SWEEP_KC = 2;", 1)]
 VARIANTS = {  # family: {name: [(file, regex, replacement, matches, None for at least one)]}
     "dubins": {
         "kept": [],
@@ -170,6 +201,19 @@ VARIANTS = {  # family: {name: [(file, regex, replacement, matches, None for at 
         "kept": [],
         "no lean": NO_LEAN,
     },
+    "double_integrator": {
+        "kept": [],
+        "A only": [A_ONLY],
+        "B only": [B_ONLY],
+        **KC,
+        **CAP,
+        "w3": W3,
+        "split": [*SPLIT5, *NO_LIT],
+        "no lit": NO_LIT,
+        "no lean": DI_NO_LEAN,
+        "no sel": NO_SEL,
+        "parent": [*NO_LIT, *DI_NO_LEAN, *NO_SEL],
+    },
     "quadrotor2d": {
         "kept": [],
         "A only": [A_ONLY],
@@ -191,6 +235,12 @@ PROBED = {  # the instantiations whose ptxas lines are printed
     "cartpole": tuple(f"{k}<{t}{flags}, cartpole, 0>" for t in ("float", "double")
                       for k, flags in (("ric_kernel", ""), ("sbwd_kernel", ", false, false"))),
     "cartpole_log": tuple(f"ric_kernel<{t}, cartpole, 0>" for t in ("float", "double")),
+    "double_integrator": tuple(f"{k}<{t}{flags}, double_integrator, 2>"
+                               for t in ("float", "double")
+                               for k, flags in (("ric_kernel", ""),
+                                                ("sbwd_kernel", ", false, false"),
+                                                ("sbwd_kernel", ", true, false"),
+                                                ("sbwd_kernel", ", true, true"))),
     "quadrotor2d": tuple(f"{k}<{t}{flags}, quadrotor2d, 4>" for t in ("float", "double")
                          for k, flags in (("ric_kernel", ""), ("sbwd_kernel", ", false, false"),
                                           ("sbwd_kernel", ", true, false"),
@@ -203,10 +253,12 @@ CASES = {"dubins": ab.CASES["dubins"],
                        {"family": "cartpole", "N_": 40, "solver": True},
                        ("ric", "sbwd_generic", "sbwd_upper"))],
          "cartpole_log": ab.CASES["cartpole_log"],
+         "double_integrator": [c for c in ab.CASES["double_integrator"] if "dtype" not in c[2]],
          "quadrotor2d": ab.CASES["quadrotor2d"]}
 # The device functions of one step of each phase of K1 (lane_solver.cu), whose SASS
 # instructions are counted by their line info.
-PHASES = {"phase A (lin_step)": (SOLVER, "lin_step"), "phase B (ric_step)": (SOLVER, "ric_step")}
+PHASES = {"phase A (lin_step)": (SOLVER, "lin_step"), "phase B (ric_step)": (SOLVER, "ric_step"),
+          "phase A (sbwd_lin)": (SBWD, "sbwd_lin"), "phase B (sbwd_step)": (SBWD, "sbwd_step")}
 
 
 def variant_sources(csrc: Path, edits, out: Path):

@@ -8,6 +8,11 @@
 // K3-K6 share (sweep), the split sweep that K3/K5 take above n̂ = 5 (sweep_split), and
 // with_system, which launches a kernel for the problem's obstacle count.
 //
+// A system whose step is linear (LINEAR: the double integrator) has f̂'s Jacobian rows
+// 0..NX-1 as constants, which its K1 and K3/K5 take as literals (JAC_ROWS,
+// load_jac_linear), and its K1 and K3/K5 form the balanced-equality factors by select
+// (SELECT, fhat_lin_select). Neither changes any other system's code.
+//
 // Every kernel is a template on its system, System<T, SYS, NOBS> (SYS one of the ids
 // below, NOBS the obstacle count); a library is built for one system, LANE_SYSTEM, one
 // obstacle aggregation, LANE_AGG, and one barrier, LANE_BARRIER (ops/cuda/_build.py),
@@ -185,6 +190,28 @@ __device__ __forceinline__ T min_chain_tan(const Consts& p, T px, T py, const T 
   return dz;
 }
 
+// min_chain's factors wz, wv by select from the chain over hs: (won ? 1 : 0) / (tie ? 2 :
+// 1) picked from its exact values 0, 1 and 1/2, so the same bits without the division
+// (fhat_lin_select).
+template <typename T, int NOBS>
+__device__ __forceinline__ void select_chain(const T hs[NOBS], T wz[NOBS], T wv[NOBS]) {
+  T z = hs[0];
+#pragma unroll
+  for (int i = 1; i < NOBS; ++i) {
+    const T v = hs[i];
+    const T zn = jmin(z, v);
+    wz[i] = z == zn ? (v == zn ? T(0.5) : T(1)) : T(0);
+    wv[i] = v == zn ? (z == zn ? T(0.5) : T(1)) : T(0);
+    z = zn;
+  }
+}
+
+// A barrier's balanced-equality factor of max(zeta, eps) by select, as select_chain's.
+template <typename T>
+__device__ __forceinline__ T select_beq(const Consts& p, T zeta, T m) {
+  return zeta == m ? (T(p.eps) == m ? T(0.5) : T(1)) : T(0);
+}
+
 // The smooth-min.
 template <typename T, int NOBS> struct HLin {
   T px, py;
@@ -227,8 +254,9 @@ __device__ __forceinline__ T h_tan(const Consts& p, const HLin<T, NOBS>& L, T dp
 
 // The h policies: Lin holds h's value and what its tangent needs; rows(L, f) calls f
 // on each field of Lin that the tangent reads, in a fixed order (K4/K6 store and load
-// them, lane_sfwd.cu), ROWS of them. CircleH is the smooth-min, MinCircleH the exact
-// min, TrackH the cart-pole's track limit.
+// them, lane_sfwd.cu), ROWS of them; select(p, x, L) forms lin's factors again by select
+// (fhat_lin_select). CircleH is the smooth-min, MinCircleH the exact min, TrackH the
+// cart-pole's track limit.
 template <typename T, int NOBS> struct CircleH {
   using Lin = HLin<T, NOBS>;
   static constexpr int ROWS = 3 + NOBS + 2 * (NOBS - 1);
@@ -237,6 +265,9 @@ template <typename T, int NOBS> struct CircleH {
   }
   static __device__ __forceinline__ T tan(const Consts& p, const Lin& L, const T* dx) {
     return h_tan(p, L, dx[0], dx[1]);
+  }
+  static __device__ __forceinline__ void select(const Consts&, const T*, Lin& L) {
+    select_chain<T, NOBS>(L.hs, L.wz, L.wv);
   }
   template <typename F> static __device__ __forceinline__ void rows(Lin& L, F&& f) {
     f(L.px);
@@ -269,6 +300,16 @@ template <typename T, int NOBS> struct MinCircleH {
     T dh[NOBS];
     return min_chain_tan<T, NOBS>(p, L.px, L.py, L.wz, L.wv, dx[0], dx[1], dh);
   }
+  static __device__ __forceinline__ void select(const Consts& p, const T* x, Lin& L) {
+    T hs[NOBS];
+#pragma unroll
+    for (int i = 0; i < NOBS; ++i) {   // min_chain's h_i, the same operations
+      const T dx = x[0] - T(p.cx[i]);
+      const T dy = x[1] - T(p.cy[i]);
+      hs[i] = (dx * dx + dy * dy) - T(p.r2[i]);
+    }
+    select_chain<T, NOBS>(hs, L.wz, L.wv);
+  }
   template <typename F> static __device__ __forceinline__ void rows(Lin& L, F&& f) {
     f(L.px);
     f(L.py);
@@ -294,6 +335,7 @@ template <typename T> struct TrackH {
   static __device__ __forceinline__ T tan(const Consts&, const Lin& L, const T* dx) {
     return -(dx[0] * L.pos + L.pos * dx[0]);
   }
+  static __device__ __forceinline__ void select(const Consts&, const T*, Lin&) {}
   template <typename F> static __device__ __forceinline__ void rows(Lin& L, F&& f) { f(L.pos); }
 };
 
@@ -355,9 +397,10 @@ __device__ __forceinline__ T barrier_dalpha(const Consts& p, const BLin<T>& L, T
 }
 
 // The barrier policies: lin(p, zeta, alpha, L) forms B(zeta) into L.value and what the
-// tangent needs; tan(L, dzeta) is dB; dalpha(p, Ln, Lc, alpha, gamma) is the barrier
-// row of d f̂/d alpha, dB(zeta_n)/d alpha - gamma dB(zeta_c)/d alpha; rows(L, f) as the
-// h policies', ROWS of them (a bool field goes as 0 or 1).
+// tangent needs (select(p, zeta, L): its factor again by select, fhat_lin_select);
+// tan(L, dzeta) is dB; dalpha(p, Ln, Lc, alpha, gamma) is the barrier row of d f̂/d alpha,
+// dB(zeta_n)/d alpha - gamma dB(zeta_c)/d alpha; rows(L, f) as the h policies', ROWS of
+// them (a bool field goes as 0 or 1).
 template <typename T> struct InverseBarrier {
   using Lin = BLin<T>;
   static constexpr int ROWS = 6;
@@ -365,6 +408,9 @@ template <typename T> struct InverseBarrier {
     barrier_lin(p, zeta, alpha, L);
   }
   static __device__ __forceinline__ T tan(const Lin& L, T dzeta) { return barrier_tan(L, dzeta); }
+  static __device__ __forceinline__ void select(const Consts& p, T zeta, Lin& L) {
+    L.beq = select_beq(p, zeta, L.m);
+  }
   static __device__ __forceinline__ T dalpha(const Consts& p, const Lin& Ln, const Lin& Lc,
                                              T alpha, T gamma) {
     return barrier_dalpha(p, Ln, alpha) - gamma * barrier_dalpha(p, Lc, alpha);
@@ -397,6 +443,9 @@ template <typename T> struct LogBarrier {
   }
   static __device__ __forceinline__ T tan(const Lin& L, T dzeta) {
     return -((dzeta * L.beq) / L.m);
+  }
+  static __device__ __forceinline__ void select(const Consts& p, T zeta, Lin& L) {
+    L.beq = select_beq(p, zeta, L.m);
   }
   static __device__ __forceinline__ T dalpha(const Consts&, const Lin&, const Lin&, T, T) {
     return T(0);
@@ -446,6 +495,13 @@ template <typename T> struct DubinsStep {   // [px, py, theta], [v, omega]
 template <typename T> struct DoubleIntegratorStep {   // [px, py, vx, vy], [ax, ay]
   static constexpr int NX = 4, NU = 2, ROWS = 0;
   struct Lin {};
+  // The tangent's value at a basis tangent, column c of x̂ (c < NX + 1) or of u (NX + 1 +
+  // a), in row i: 1 on the diagonal, dt from v into p and from a into v, else 0. These are
+  // the values tan gives there, bit for bit, for every finite dt but -0: dx_i + dt * 0 =
+  // dx_i, 0 + dt * 1 = dt and 0 + dt * 0 = +0, whatever the state (linear_dt checks dt).
+  __host__ __device__ static constexpr int tan_kind(int i, int c) {   // 0: 0, 1: 1, 2: dt
+    return c == i ? 1 : (i < 2 && c == i + 2) || (i >= 2 && c == NX + 1 + (i - 2)) ? 2 : 0;
+  }
   static __device__ __forceinline__ void lin(const Consts& p, const T* x, const T* u, Lin&,
                                              T* out) {
     const T dt = T(p.dt);
@@ -576,6 +632,15 @@ template <typename T> struct CartPoleStep {   // [pos, vel, th, om], [force]
 // A system: its step, its h and its barrier, and the sizes that follow: the augmented
 // state n̂ = n + 1, the controls m, and the const rows C (tube/lane_interface.py::_build_C):
 // [0, n̂) stage diag | [n̂, n̂+m) 2R | [n̂+m, 2n̂+m) terminal diag | alpha, gamma, tight.
+// LINEAR: the step's tangent does not depend on the point (the double integrator), so
+// rows 0..NX-1 of f̂'s Jacobians are constants and only the barrier row NX depends on the
+// step's inputs. SELECT: its K1 and K3/K5 form fhat_lin's balanced-equality factors by
+// select (fhat_lin_select), since their phase A sets their pace (PERF.md §6).
+template <typename Step> constexpr bool LinearStep = false;
+template <typename T> constexpr bool LinearStep<DoubleIntegratorStep<T>> = true;
+template <typename Step> constexpr bool SelectFactors = false;
+template <typename T> constexpr bool SelectFactors<DoubleIntegratorStep<T>> = true;
+
 template <typename Step, typename Hp, typename BarP> struct Sys : Step {
   using H = Hp;
   using Bar = BarP;
@@ -584,7 +649,16 @@ template <typename Step, typename Hp, typename BarP> struct Sys : Step {
   static constexpr int M = Step::NU;
   static constexpr int NC = 2 * NH + M + 3;
   static constexpr int ROW_ALPHA = 2 * NH + M;
+  static constexpr bool LINEAR = LinearStep<Step>;
+  static constexpr bool SELECT = SelectFactors<Step>;
 };
+
+// Whether dt, rounded to T, gives a LINEAR system's constant rows: finite (t - t is 0) and
+// not -0 (1 / -0 is -inf).
+template <typename T> inline bool linear_dt(double dt) {
+  const T t = static_cast<T>(dt);
+  return t - t == T(0) && !(t == T(0) && T(1) / t < T(0));
+}
 
 // The library's policies: the circle systems' h by LANE_AGG, every system's barrier by
 // LANE_BARRIER.
@@ -640,6 +714,20 @@ __device__ __forceinline__ T barrier_at(const Consts& p, const T* x, T alpha, T 
   typename S::Bar::Lin b;
   S::Bar::lin(p, h.value - tight, alpha, b);
   return b.value;
+}
+
+// fhat_lin with the policies' balanced-equality factors formed again by select, which
+// leaves fhat_lin's divisions for them unused: the same values (the SELECT systems' K1
+// and K3/K5).
+template <typename S, typename T>
+__device__ __forceinline__ void fhat_lin_select(const Consts& p, const T x[S::NH],
+                                                const T u[S::M], T alpha, T gamma, T tight,
+                                                FLin<T, S>& L) {
+  fhat_lin<S>(p, x, u, alpha, gamma, tight, L);
+  S::H::select(p, L.out, L.hn);
+  S::H::select(p, x, L.hc);
+  S::Bar::select(p, L.hn.value - tight, L.bn);
+  S::Bar::select(p, L.hc.value - tight, L.bc);
 }
 
 // The value of f̂ alone, given the barrier value at the current state,
@@ -998,9 +1086,14 @@ __device__ __forceinline__ void rescale_split(int part, unsigned group,
   logs = logs - m_log(jmax(scale_inv, tiny<T>()));
 }
 
-// Rows of f̂'s Jacobians in a step's phase-A rows (K1, K3/K5): A [0, n̂²), Bm [n̂², n̂² + n̂m).
-template <typename S> constexpr int ROW_BM = S::NH * S::NH;
-template <typename S> constexpr int JAC_ROWS = ROW_BM<S> + S::NH * S::M;
+// Rows of f̂'s Jacobians in a step's phase-A rows (K1, K3/K5): A [0, n̂²), Bm [n̂², n̂² + n̂m);
+// for a LINEAR system only their barrier rows, A's [0, n̂) and Bm's [n̂, n̂ + m): the double
+// integrator's 7 rows where there were 35, and phase B takes the others as the literal 0
+// and 1 and the uniform dt (load_jac_linear), so that a product with 1 folds and none
+// reads shared memory. Every other product stays in its sum, in its order, the ones with a
+// 0 too (0 * inf is NaN, 0 * -1 is -0), so the values are those of the stored rows.
+template <typename S> constexpr int ROW_BM = S::LINEAR ? S::NH : S::NH * S::NH;
+template <typename S> constexpr int JAC_ROWS = ROW_BM<S> + (S::LINEAR ? S::M : S::NH * S::M);
 
 // Rows of the split sweep's exchange area (per lane, 32 apart): V A [0, n̂²), V Bm
 // [n̂², n̂² + n̂m), the tV_x carry (n̂), K (m n̂, row a n̂ + i).
@@ -1012,6 +1105,13 @@ template <typename S> constexpr int XCH_ROWS = XCH_K<S> + S::M * S::NH;
 template <typename S, typename T>
 __device__ __forceinline__ void store_jac(const T A[S::NH][S::NH], const T Bm[S::NH][S::M],
                                           T* row) {
+  if constexpr (S::LINEAR) {
+#pragma unroll
+    for (int j = 0; j < S::NH; ++j) row[j * 32] = A[S::NX][j];
+#pragma unroll
+    for (int a = 0; a < S::M; ++a) row[(ROW_BM<S> + a) * 32] = Bm[S::NX][a];
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < S::NH; ++i) {
 #pragma unroll
@@ -1030,6 +1130,28 @@ __device__ __forceinline__ void load_jac(const T* row, T A[S::NH][S::NH], T Bm[S
 #pragma unroll
     for (int a = 0; a < S::M; ++a) Bm[i][a] = row[(ROW_BM<S> + i * S::M + a) * 32];
   }
+}
+
+// load_jac for a LINEAR system: rows 0..NX-1 the literal 0 or 1 or dt = T(p.dt)
+// (tan_kind), the barrier rows from the step's rows.
+template <typename S, typename T>
+__device__ __forceinline__ void load_jac_linear(const T* row, T dt, T A[S::NH][S::NH],
+                                                T Bm[S::NH][S::M]) {
+  auto entry = [&](int i, int c) {
+    const int kind = S::tan_kind(i, c);
+    return kind == 1 ? T(1) : kind == 2 ? dt : T(0);
+  };
+#pragma unroll
+  for (int i = 0; i < S::NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < S::NH; ++j) A[i][j] = entry(i, j);
+#pragma unroll
+    for (int a = 0; a < S::M; ++a) Bm[i][a] = entry(i, S::NH + a);
+  }
+#pragma unroll
+  for (int j = 0; j < S::NH; ++j) A[S::NX][j] = row[j * 32];
+#pragma unroll
+  for (int a = 0; a < S::M; ++a) Bm[S::NX][a] = row[(ROW_BM<S> + a) * 32];
 }
 
 // Calls f(std::integral_constant<int, NOBS>{}) for NOBS = n_obs, so that the kernel it

@@ -51,6 +51,14 @@
 // V A, V Bm, tV_x and K through shared memory, beside two phase-A warps; with GENERIC
 // each part writes its rows of the carry, lane fastest as before. Registers, spills and
 // times: PERF.md §6.
+// The double integrator's K3/K5 take K1's design for its linear step (lane_solver.cu):
+// phase A stores A's and Bm's barrier rows only (14 rows a step, 16 with UPPER, where
+// there were 42 and 44), phase B takes rows 0..3 as the literals 0, 1 and dt (load_jac),
+// phase A's balanced-equality factors by select, and phase B is LEAN (SBWD_LEAN). Its
+// chain also writes tV_x, V_xx and LogS each step with GENERIC, yet the chain sets its
+// pace, not the bytes: at N=30 phase B alone takes 0.040 ms (A alone 0.040) of K5's 0.075,
+// against a byte bound of 0.033 for the whole kernel (PERF.md §6).
+// The split sweep at n̂ = 5 (three rows a part, one wasted) was 1.3-1.4x slower.
 // The arithmetic and its order are those of the plain version
 // (ops/cuda/lane_sensitivity.py::_sbwd_sweep, whose two phases are these).
 #include "lane_common.cuh"
@@ -76,7 +84,11 @@ __device__ __forceinline__ void sbwd_lin(const Consts& p, const T* __restrict__ 
 #pragma unroll
   for (int a = 0; a < M; ++a) us[a] = U[(static_cast<size_t>(k) * M + a) * Bs + lane];
   FLin<T, S> L;
-  fhat_lin<S>(p, xs, us, c[S::ROW_ALPHA], c[S::ROW_ALPHA + 1], c[S::ROW_ALPHA + 2], L);
+  if constexpr (S::SELECT) {
+    fhat_lin_select<S>(p, xs, us, c[S::ROW_ALPHA], c[S::ROW_ALPHA + 1], c[S::ROW_ALPHA + 2], L);
+  } else {
+    fhat_lin<S>(p, xs, us, c[S::ROW_ALPHA], c[S::ROW_ALPHA + 1], c[S::ROW_ALPHA + 2], L);
+  }
   T A[NH][NH], Bm[NH][M];
   fhat_jac<S>(p, L, A, Bm);
   store_jac<S>(A, Bm, row);
@@ -102,13 +114,15 @@ __device__ __forceinline__ void sbwd_lin(const Consts& p, const T* __restrict__ 
 
 // Phase B for step k of one lane: K and kff from the step's rows (row[r * 32]) and
 // the carry, which it advances to step k; with GENERIC it first writes the carry.
-// Every sum over the controls runs a = 0..m-1 left to right, as the reference's.
-template <typename S, bool GENERIC, bool UPPER, typename T>
-__device__ __forceinline__ void sbwd_step(const T* row, const T c[S::NC], T reg0, T tv[S::NH],
-                                          T vxx[S::NH][S::NH], T& logs, T* __restrict__ Kout,
-                                          T* __restrict__ kffout, T* __restrict__ tVx_out,
-                                          T* __restrict__ Vxx_out, T* __restrict__ LogS_out,
-                                          int k, size_t Bs, int lane) {
+// Every sum over the controls runs a = 0..m-1 left to right, as the reference's. LEAN:
+// K1's (lane_solver.cu::ric_step): rescale_carry's, and exp(-LogS) = 1 not computed where
+// LogS is 0 on every lane of the warp.
+template <typename S, bool GENERIC, bool UPPER, bool LEAN, typename T>
+__device__ __forceinline__ void sbwd_step(const T* row, const T c[S::NC], T reg0, T dt,
+                                          T tv[S::NH], T vxx[S::NH][S::NH], T& logs,
+                                          T* __restrict__ Kout, T* __restrict__ kffout,
+                                          T* __restrict__ tVx_out, T* __restrict__ Vxx_out,
+                                          T* __restrict__ LogS_out, int k, size_t Bs, int lane) {
   constexpr int NH = S::NH, M = S::M;
   if constexpr (GENERIC) {
 #pragma unroll
@@ -120,9 +134,13 @@ __device__ __forceinline__ void sbwd_step(const T* row, const T c[S::NC], T reg0
     }
     LogS_out[static_cast<size_t>(k) * Bs + lane] = logs;
   }
-  const T inv_s = m_exp(-logs);
+  const T inv_s = (LEAN && !__any_sync(__activemask(), logs != T(0))) ? T(1) : m_exp(-logs);
   T A[NH][NH], Bm[NH][M], gx[NH];
-  load_jac<S>(row, A, Bm);
+  if constexpr (S::LINEAR) {
+    load_jac_linear<S>(row, dt, A, Bm);
+  } else {
+    load_jac<S>(row, A, Bm);
+  }
 #pragma unroll
   for (int i = 0; i < NH; ++i) gx[i] = row[(ROW_G<S> + i) * 32] * inv_s;
 
@@ -255,8 +273,11 @@ __device__ __forceinline__ void sbwd_step(const T* row, const T c[S::NC], T reg0
       vxx_new[i][j] = Qxx[i][j] + t;
     }
   }
-  rescale_carry<NH>(tv_new, vxx_new, tv, vxx, logs);
+  rescale_carry<NH, LEAN>(tv_new, vxx_new, tv, vxx, logs);
 }
+
+// The systems whose K3/K5 take sbwd_step's LEAN phase B.
+template <int SYS> constexpr bool SBWD_LEAN = SYS == DOUBLE_INTEGRATOR;
 
 // sbwd_step on the split sweep (lane_common.cuh, sweep_split) for the part `part` of a
 // lane: its rows i = part + SPLIT_PARTS r of the carry (tv, vxx) and of the step's
@@ -531,13 +552,14 @@ sbwd_kernel(const T* __restrict__ gX, const T* __restrict__ gU, const T* __restr
 #pragma unroll
       for (int j = 0; j < NH; ++j) vxx[i][j] = (i == j) ? c[NH + M + i] : T(0);
     }
-    const T reg0 = T(p.reg);
+    const T reg0 = T(p.reg), dt = T(p.dt);
     sweep<true, SBWD_ROWS<S, UPPER>>(
         N, live, reinterpret_cast<T*>(smem),
         [&](int k, T* row) { sbwd_lin<S, UPPER>(p, gX, gU, U, X, Xr, c, k, Bs, lane, row); },
         [&](int k, const T* row) {
-          sbwd_step<S, GENERIC, UPPER>(row, c, reg0, tv, vxx, logs, Kout, kffout, tVx_out,
-                                       Vxx_out, LogS_out, k, Bs, lane);
+          sbwd_step<S, GENERIC, UPPER, SBWD_LEAN<SYS>>(row, c, reg0, dt, tv, vxx, logs, Kout,
+                                                       kffout, tVx_out, Vxx_out, LogS_out, k,
+                                                       Bs, lane);
         });
   }
 }
@@ -553,6 +575,9 @@ int launch_sbwd(const void* gX, const void* gU, const void* gXN, const void* U, 
   return with_system(*p, [&](auto nobs) {
     constexpr int NOBS = decltype(nobs)::value;
     using S = System<T, LANE_SYSTEM, NOBS>;
+    if constexpr (S::LINEAR) {
+      if (!linear_dt<T>(p->dt)) return static_cast<int>(cudaErrorInvalidValue);
+    }
     constexpr int smem = S::NH > 5 ? split_smem<T, SBWD_ROWS<S, UPPER>, XCH_ROWS<S>>()
                                    : sweep_smem<T, SBWD_ROWS<S, UPPER>>();
     const dim3 grid((B + 31) / 32);

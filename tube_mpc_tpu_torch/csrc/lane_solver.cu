@@ -24,9 +24,10 @@
 // K1: linearise in parallel, recurse in one warp, the two overlapped: the chunked
 // sweep of lane_common.cuh (sweep), backwards from k = N-1.
 // - Phase A linearises a chunk: for each (step, lane) it writes A (n̂² rows), Bm
-//   (n̂m), lx (n̂) and lu (m): 30 rows for Dubins, 42 for the double integrator, 72 for
-//   the quadrotor, 36 for the cart-pole. These rows depend on the step's X, U, Xr, Ur and C alone, so
-//   the serial chain loses the linearisation, nearly all of the operations.
+//   (n̂m), lx (n̂) and lu (m): 30 rows for Dubins, 72 for the quadrotor, 36 for the
+//   cart-pole, 14 for the double integrator (only A's and Bm's barrier rows: LINEAR,
+//   below). These rows depend on the step's X, U, Xr, Ur and C alone, so the serial
+//   chain loses the linearisation, nearly all of the operations.
 // - Phase B, in warp 0, runs the recursion over a chunk with its carry (V_x, V_xx,
 //   LogS) in registers, and writes K and kff.
 // - Without the overlap (phase A in every warp, then phase B) the blocks, which all
@@ -58,6 +59,14 @@
 // phase B is LEAN (ric_step): rescale_carry's maximum by max.NaN as a tree, its multiplies
 // by 1 and log(1) skipped by a warp where no lane rescales, and exp(-LogS) by one where
 // LogS is 0 on every lane, each with the same values.
+// The double integrator's K1 (n̂ = 5, m = 2; tools/ric_probe.py --family double_integrator,
+// PERF.md §6): its step is linear, so rows 0..3 of A and Bm are the constants 0, 1 and dt
+// at every point (lane_common.cuh, LINEAR). Phase A stores only the barrier rows, lx and
+// lu, 14 rows a step where there were 42, and phase B takes the others as literals: 28
+// shared-memory loads and the products with 1 go, every other product stays in its sum
+// in its order, so the values are those of the stored rows. Phase B alone fell from
+// 0.069 to 0.048 ms at N=50 and phase A (0.063 alone) sets the pace, so phase A forms its
+// balanced-equality factors by select (SelectFactors), and phase B is LEAN.
 // The arithmetic and its order are those of the plain version
 // (ops/cuda/lane_solver.py::ric_plain, whose two phases are these); only where each
 // value is computed differs.
@@ -103,7 +112,11 @@ __device__ __forceinline__ void lin_step(const Consts& p, const T* __restrict__ 
     ur[a] = Ur[(static_cast<size_t>(k) * M + a) * Bs + lane];
   }
   FLin<T, S> L;
-  fhat_lin<S>(p, xs, us, c[S::ROW_ALPHA], c[S::ROW_ALPHA + 1], c[S::ROW_ALPHA + 2], L);
+  if constexpr (S::SELECT) {
+    fhat_lin_select<S>(p, xs, us, c[S::ROW_ALPHA], c[S::ROW_ALPHA + 1], c[S::ROW_ALPHA + 2], L);
+  } else {
+    fhat_lin<S>(p, xs, us, c[S::ROW_ALPHA], c[S::ROW_ALPHA + 1], c[S::ROW_ALPHA + 2], L);
+  }
   T A[NH][NH], Bm[NH][M];
   fhat_jac<S>(p, L, A, Bm);
   store_jac<S>(A, Bm, row);
@@ -118,12 +131,17 @@ __device__ __forceinline__ void lin_step(const Consts& p, const T* __restrict__ 
 // left to right, as the reference's. LEAN: rescale_carry's, and exp(-LogS) = 1 not
 // computed where LogS is 0 on every lane of the warp (LogS only grows from 0).
 template <typename S, bool LEAN, typename T>
-__device__ __forceinline__ void ric_step(const T* row, const T c[S::NC], T reg0, T vx[S::NH],
-                                         T vxx[S::NH][S::NH], T& logs, T* __restrict__ Kout,
-                                         T* __restrict__ kffout, int k, size_t Bs, int lane) {
+__device__ __forceinline__ void ric_step(const T* row, const T c[S::NC], T reg0, T dt,
+                                         T vx[S::NH], T vxx[S::NH][S::NH], T& logs,
+                                         T* __restrict__ Kout, T* __restrict__ kffout, int k,
+                                         size_t Bs, int lane) {
   constexpr int NH = S::NH, M = S::M;
   T A[NH][NH], Bm[NH][M], lx[NH], lu[M];
-  load_jac<S>(row, A, Bm);
+  if constexpr (S::LINEAR) {
+    load_jac_linear<S>(row, dt, A, Bm);
+  } else {
+    load_jac<S>(row, A, Bm);
+  }
 #pragma unroll
   for (int i = 0; i < NH; ++i) lx[i] = row[(ROW_LX<S> + i) * 32];
 #pragma unroll
@@ -257,8 +275,8 @@ __device__ __forceinline__ void ric_step(const T* row, const T c[S::NC], T reg0,
   rescale_carry<NH, LEAN>(vx_new, vxx_new, vx, vxx, logs);
 }
 
-// The cart-pole's K1 takes ric_step's LEAN phase B (PERF.md §6).
-template <int SYS> constexpr bool RIC_LEAN = SYS == CARTPOLE;
+// The cart-pole's and the double integrator's K1 take ric_step's LEAN phase B (PERF.md §6).
+template <int SYS> constexpr bool RIC_LEAN = SYS == CARTPOLE || SYS == DOUBLE_INTEGRATOR;
 
 template <typename T, int SYS, int NOBS>
 __global__ void __launch_bounds__(SWEEP_THREADS,
@@ -284,12 +302,12 @@ ric_kernel(const T* __restrict__ X, const T* __restrict__ U, const T* __restrict
 #pragma unroll
     for (int j = 0; j < NH; ++j) vxx[i][j] = (i == j) ? c[NH + M + i] : T(0);
   }
-  const T reg0 = T(p.reg);
+  const T reg0 = T(p.reg), dt = T(p.dt);
   sweep<true, LIN_ROWS<S>>(
       N, live, reinterpret_cast<T*>(smem),
       [&](int k, T* row) { lin_step<S>(p, X, U, Xr, Ur, c, k, Bs, lane, row); },
       [&](int k, const T* row) {
-        ric_step<S, RIC_LEAN<SYS>>(row, c, reg0, vx, vxx, logs, Kout, kffout, k, Bs, lane);
+        ric_step<S, RIC_LEAN<SYS>>(row, c, reg0, dt, vx, vxx, logs, Kout, kffout, k, Bs, lane);
       });
 }
 
@@ -591,7 +609,11 @@ int launch_ric(const void* X, const void* U, const void* Xr, const void* Ur, con
   const dim3 grid((B + 31) / 32);
   return with_system(*p, [&](auto nobs) {
     constexpr int NOBS = decltype(nobs)::value;
-    constexpr int smem = sweep_smem<T, LIN_ROWS<System<T, LANE_SYSTEM, NOBS>>>();
+    using S = System<T, LANE_SYSTEM, NOBS>;
+    if constexpr (S::LINEAR) {
+      if (!linear_dt<T>(p->dt)) return static_cast<int>(cudaErrorInvalidValue);
+    }
+    constexpr int smem = sweep_smem<T, LIN_ROWS<S>>();
     const auto kernel = ric_kernel<T, LANE_SYSTEM, NOBS>;
     const int err = allow_smem(kernel, smem);
     if (err != 0) return err;

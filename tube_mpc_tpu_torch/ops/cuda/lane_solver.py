@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -293,6 +294,12 @@ def kernel_consts(pb: LaneProblem, *, reg: float = 0.0, alphas: Sequence[float] 
         raise ValueError(f"the lane kernels take 1 to {MAX_OBS} obstacles, got {n_obs}")
     if len(alphas) > MAX_ALPHAS:
         raise ValueError(f"the lane kernels take at most {MAX_ALPHAS} alphas, got {len(alphas)}")
+    if spec.family == "double_integrator" and not (
+            math.isfinite(spec.dt) and (spec.dt != 0.0 or math.copysign(1.0, spec.dt) > 0.0)):
+        # its kernels take rows 0..n-1 of f̂'s Jacobians as the literals 0, 1 and dt
+        # (csrc/lane_common.cuh, LINEAR), which is what its tangent gives for these dt only
+        raise ValueError(f"the double integrator's kernels take a finite dt other than -0, "
+                         f"got {spec.dt!r}")
     k = LaneConsts()
     k.dt = spec.dt
     for a in range(pb.m):
