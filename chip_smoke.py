@@ -1867,6 +1867,31 @@ def branch_checks(torch, make, pb, eps, inputs, what, failed):
     return extra
 
 
+# Four lanes of one warp (a sweep block's 32 lanes are one phase-A warp) whose ω is not
+# finite in nonfinite_checks.
+NONFINITE_LANES = slice(64, 68)
+
+
+def nonfinite_checks(torch, make, pb, inputs, cut, cut_at):
+    """The cart-pole's K3/K5 (csrc/lane_sbwd.cu, CARTPOLE_COLS) on a step's inputs with ω
+    inf, -inf, NaN and inf on NONFINITE_LANES at every step: phase A of that warp takes
+    fhat_tan's path (its vote on the step's fields fails), every other warp the literals.
+    Returns the extra checks."""
+    extra = []
+    for name in ("sbwd", "sbwd_generic", "sbwd_upper"):
+        if name not in inputs:
+            continue
+        ins = list(inputs[name])
+        at_x = STATE_ARGS[name][0]
+        X = ins[at_x].clone()
+        X[:, 3, NONFINITE_LANES] = torch.tensor([float("inf"), float("-inf"), float("nan"),
+                                                 float("inf")], dtype=X.dtype)
+        ins[at_x] = X
+        extra.append((f"{name}, ω not finite on four lanes of one warp{cut_at}", name,
+                      *make(pb)[name], tuple(map(cut, ins)), False))
+    return extra
+
+
 @dataclasses.dataclass(frozen=True)
 class Group:
     """One check group: the kernels on the inputs of one closed-loop step, `kind` "paper"
@@ -1918,7 +1943,8 @@ def group_checks(torch, dev, g, failed):
     that the active set runs; the count returned is the least over the sweeps, and a
     failure is recorded where it is 0. With g.record, held's extra shapes and obstacle
     counts, and the clamped sweep at the ragged shape; without, at the step's own. With
-    g.branches, branch_checks too."""
+    g.branches, branch_checks too. The cart-pole's backward sweeps (with g.record) are also
+    held with ω not finite on four lanes of one warp (nonfinite_checks)."""
     dtype = getattr(torch, g.dname)
     more_shapes = g.record
     step = paper_step if g.kind == "paper" else coupled_step
@@ -1959,6 +1985,8 @@ def group_checks(torch, dev, g, failed):
             extra.append((f"{name}, controls clamped to their quartiles{cut_at}",
                           name, *make(pbc)[name], tuple(map(cut, ins)), False))
         counts.append(n_bound)
+    if pb.spec.family == "cartpole" and more_shapes:
+        extra += nonfinite_checks(torch, make, pb, inputs, cut, cut_at)
     log(f"[{g.phase}] {g.dname}: inputs from a closed-loop step of the {what}; at least "
         f"{min(counts)} controls at a bound in every backward sweep's inputs")
     if min(counts) == 0:

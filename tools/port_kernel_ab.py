@@ -20,11 +20,14 @@ both builds on the same inputs (CASES): for Dubins K1 `ric`, K2 `fwd` (at nα=7 
 rollout's nα=1), K3 `sbwd` and K4 `sfwd` on one closed-loop step of the paper setup, and
 K5 `sbwd_generic`, `sbwd_upper`, K6 `sfwd_generic`, `sfwd_ref` on one step of the coupled
 setup, at B=16384, N=50 (chip_smoke.paper_step, coupled_step); for another family its K1
-and K3 on its paper step (N=50), for the cart-pole K1 also in f64 and, with the variant
-`cartpole_log`, on the coupled step of chip_smoke.MINLOG's cartpole_log at the file's N=40;
-for the quadrotor also K2 (at the config's nα and at nα=1) on its paper step, and K1, K2
-and the K5 variants on the coupled step of configs/quadrotor2d.yaml and of
-chip_smoke.MINLOG's quadrotor2d_min_log at the file's N=200. Each is called through this
+and K3 on its paper step (N=50); for the cart-pole K1 and K3 also in f64, the two K5 on
+the coupled step of configs/cartpole.yaml at its N=40 and, with the variant `cartpole_log`,
+K1 on the coupled step and K3 on the paper step of chip_smoke.MINLOG's cartpole_log at the
+file's N=40; for the quadrotor also K2 (at the config's nα and at nα=1) and K4 (also in
+f64) on its paper step, and K1, K2, the K5 and the K6 variants on the coupled step of
+configs/quadrotor2d.yaml at its N=200, and K1, K2 and the K5 variants on that step of
+chip_smoke.MINLOG's quadrotor2d_min_log and K4 on its paper step, at the file's N=200. Each
+is called through this
 tree's wrapper with the wrapper's library lookup pointed at one build or the other, in the
 order base, this, this, base, each the device time per launch of RUNS launches back to back
 (chip_smoke.device_time_ms), beside its bound as chip_smoke.py computes it (the larger of
@@ -84,18 +87,27 @@ CASES = {
                       ("double_integrator_min_log", "min"))},
     "cartpole": [(" cartpole", "paper_step", {"family": "cartpole"}, ("ric", "sbwd")),
                  (" cartpole f64", "paper_step", {"family": "cartpole", "dtype": "float64"},
-                  ("ric",))],
+                  ("ric", "sbwd")),
+                 (" cartpole N=40", "coupled_step", {"family": "cartpole", "N_": 40},
+                  ("sbwd_generic", "sbwd_upper"))],
     "cartpole_log": [(" cartpole_log N=40", "coupled_step",
-                      {"family": "cartpole_log", "N_": 40, "solver": True}, ("ric",))],
+                      {"family": "cartpole_log", "N_": 40, "solver": True}, ("ric",)),
+                     (" cartpole_log N=40", "paper_step", {"family": "cartpole_log", "N_": 40},
+                      ("sbwd",))],
     "quadrotor2d": [
-        (" quadrotor2d", "paper_step", {"family": "quadrotor2d"}, ("ric", "sbwd", *FWD)),
+        (" quadrotor2d", "paper_step", {"family": "quadrotor2d"},
+         ("ric", "sbwd", *FWD, "sfwd")),
+        (" quadrotor2d f64", "paper_step", {"family": "quadrotor2d", "dtype": "float64"},
+         ("sfwd",)),
         (" quadrotor2d N=200", "coupled_step",
          {"family": "quadrotor2d", "N_": 200, "solver": True},
-         ("ric", *FWD, "sbwd_generic", "sbwd_upper"))],
+         ("ric", *FWD, "sbwd_generic", "sbwd_upper", "sfwd_generic", "sfwd_ref"))],
     "quadrotor2d_min_log": [
         (" quadrotor2d_min_log N=200", "coupled_step",
          {"family": "quadrotor2d_min_log", "N_": 200, "solver": True},
-         ("ric", *FWD, "sbwd_generic", "sbwd_upper"))],
+         ("ric", *FWD, "sbwd_generic", "sbwd_upper")),
+        (" quadrotor2d_min_log N=200", "paper_step",
+         {"family": "quadrotor2d_min_log", "N_": 200}, ("sfwd",))],
 }
 
 

@@ -35,7 +35,11 @@ K2 (`fwd_kernel`, `fwd_staged_kernel`), on one NVIDIA card, in one process.
    - w6, w6 cap3: six warps a block, five in phase A with a step each a chunk
              (SWEEP_WARPS 6, SWEEP_KC 5), at four or three f32 blocks an SM;
    - A only cap2, B only cap2: a phase alone at the lifted cap;
-   - no lean: K1's phase B without LEAN (RIC_LEAN), the parent's K1.
+   - no lean: K1's and K3/K5's phase B without LEAN (RIC_LEAN, SBWD_LEAN);
+   - lit, cols, sel: K3/K5 with one of the cart-pole's own changes alone, without LEAN
+             (lane_sbwd.cu: rows 0 and 2 of f̂'s Jacobians as literals; columns 0, 1 and 4
+             by a warp's vote; the balanced-equality factors by select);
+   - parent: K3/K5 with none of them, the design before the cart-pole's own.
    The quadrotor (`--family quadrotor2d`; K1, K2 and K3/K5 are timed):
    kept, A only and B only as above, cap2, cap3, cap4: 2, 3 or 4 f32 blocks per SM
    for n̂ > 5 (SweepBlocksPerSM), whatever the tree's value, "parts<P> aw<W>": K3/K5's
@@ -46,7 +50,13 @@ K2 (`fwd_kernel`, `fwd_staged_kernel`), on one NVIDIA card, in one process.
    fwd_kernel at every nα), "fwd staged nα=1" (fwd_staged_kernel for the rollout too),
    "fwd kc1", "fwd kc4", "fwd bufs3" (its steps a chunk and chunks in the ring), "fwd
    unroll1", "fwd unroll4" (the rollout's step loop not unrolled, or four times) and "fwd
-   lanes32" (32-lane blocks at any nα).
+   lanes32" (32-lane blocks at any nα); and K4/K6's (`sfwd_kernel`, timed on the paper step
+   and, K6, on the coupled step at N=200): "sfwd cap2", "sfwd cap3", "sfwd cap4" (2, 3 or 4
+   f32 blocks an SM for K4 and K6 alike, SfwdBlocksPerSM), "sfwd kc2", "sfwd kc4" (SWEEP_KC,
+   which K1 shares), and without one of lane_sfwd.cu's sfwd_wide changes: "sfwd no sel"
+   (phase A's factors by division, SFWD_SELECT), "sfwd eager" (phase B loading every field
+   of the tangent up front, SFWD_LAZY), and "sfwd parent" (sfwd_kernel's own body at two
+   f32 blocks an SM, K4/K6 before sfwd_wide); A only and B only time K4's phases too.
    The cart-pole with the log barrier (`--family cartpole_log`): kept and "no lean".
    The double integrator (`--family double_integrator`; K1 and K3 on its paper step at
    N=50, K1 and the two K5 on the coupled step of configs/double_integrator.yaml at its
@@ -81,7 +91,8 @@ K2 (`fwd_kernel`, `fwd_staged_kernel`), on one NVIDIA card, in one process.
    f64 instantiation has, shows at the kernel's last line. For the instantiations of
    PROBED it also counts the SASS instructions, all of them and those of one step of
    K1's phase A (lin_step) and of its phase B (ric_step), and of K3/K5's (sbwd_lin,
-   sbwd_step): those with a frame in the
+   sbwd_step), and of K4/K6's phase A (sfwd_lin, sfwd_wide_lin above n̂ = 5) and the
+   cart-pole's K3/K5 phase A (cartpole_lin): those with a frame in the
    function's lines (one step's code, unless the compiler unrolled a step loop). The
    disassembly stays in `_build/probe/<family>/<source>_lineinfo.sass`.
 
@@ -155,13 +166,26 @@ FWD_STAGED = {
                      "const int lanes = 32;", 1)],
 }
 SBWD = "lane_sbwd.cu"
+SFWD = "lane_sfwd.cu"
+# K4/K6's f32 blocks an SM above n̂ = 5 (SfwdBlocksPerSM), K4's and K6's alike.
+SFWD_CAP = r"NH <= 5 \? SweepBlocksPerSM<T, NH>::value : \(sizeof\(T\) == 4 \? \d : 1\)"
+# K4/K6 above n̂ = 5 without one of sfwd_wide's changes, or without sfwd_wide.
+SFWD_OFF = {name: (SFWD, rf"constexpr bool SFWD_{name} = true;",
+                   f"constexpr bool SFWD_{name} = false;", 1)
+            for name in ("SELECT", "LAZY")}
 LEAN_K1 = r"constexpr bool RIC_LEAN = SYS == CARTPOLE \|\| SYS == DOUBLE_INTEGRATOR;"
 # The cart-pole's K1 without ric_step's LEAN phase B (RIC_LEAN), the parent's K1.
 NO_LEAN = [(SOLVER, LEAN_K1, "constexpr bool RIC_LEAN = SYS == DOUBLE_INTEGRATOR;", 1)]
+LEAN_K3 = r"constexpr bool SBWD_LEAN = SYS == DOUBLE_INTEGRATOR \|\| SYS == CARTPOLE;"
 # The double integrator's K1 and K3/K5 without the LEAN phase B (RIC_LEAN, SBWD_LEAN).
 DI_NO_LEAN = [(SOLVER, LEAN_K1, "constexpr bool RIC_LEAN = SYS == CARTPOLE;", 1),
-              (SBWD, r"constexpr bool SBWD_LEAN = SYS == DOUBLE_INTEGRATOR;",
-               "constexpr bool SBWD_LEAN = false;", 1)]
+              (SBWD, LEAN_K3, "constexpr bool SBWD_LEAN = SYS == CARTPOLE;", 1)]
+# The cart-pole's K3/K5 without the LEAN phase B (SBWD_LEAN), and without each of its own
+# changes (lane_sbwd.cu: CARTPOLE_LIT, CARTPOLE_COLS, CARTPOLE_SEL).
+CP_NO_LEAN = [(SBWD, LEAN_K3, "constexpr bool SBWD_LEAN = SYS == DOUBLE_INTEGRATOR;", 1)]
+CP_OFF = {name: (SBWD, rf"constexpr bool CARTPOLE_{name} = true;",
+                 f"constexpr bool CARTPOLE_{name} = false;", 1)
+          for name in ("LIT", "COLS", "SEL")}
 # The double integrator's Jacobian rows all stored by phase A and loaded by phase B, as
 # for the other systems, not its rows 0..n-1 taken as literals (LINEAR).
 NO_LIT = [(SWEEP, r"constexpr bool LinearStep<DoubleIntegratorStep<T>> = true;",
@@ -195,7 +219,11 @@ VARIANTS = {  # family: {name: [(file, regex, replacement, matches, None for at 
         "rot B only": [*ROT, B_ONLY],
         "w6": W6,
         "w6 cap3": [*W6, *CAP["cap3"]],
-        "no lean": NO_LEAN,
+        "no lean": [*NO_LEAN, *CP_NO_LEAN],
+        # K3/K5 with one of its changes alone (without the LEAN phase B), or none
+        **{name.lower(): [*CP_NO_LEAN, *(e for n, e in CP_OFF.items() if n != name)]
+           for name in CP_OFF},
+        "parent": [*CP_NO_LEAN, *CP_OFF.values()],
     },
     "cartpole_log": {
         "kept": [],
@@ -226,6 +254,17 @@ VARIANTS = {  # family: {name: [(file, regex, replacement, matches, None for at 
            for name, n, aw in (("parts4 aw2", 4, 2), ("parts4 aw1", 4, 1), ("parts2 aw1", 2, 1))},
         **FWD_CAP,
         **FWD_STAGED,
+        **{f"sfwd cap{n}": [(SFWD, SFWD_CAP, "NH <= 5 ? SweepBlocksPerSM<T, NH>::value : "
+                             f"(sizeof(T) == 4 ? {n} : 1)", 1)] for n in (2, 3, 4)},
+        **{f"sfwd {kc}": edits for kc, edits in KC.items() if kc != "kc6"},
+        # K4/K6 above n̂ = 5 without one of sfwd_wide's changes; without sfwd_wide (its kernel
+        # body, at two f32 blocks an SM)
+        "sfwd no sel": [SFWD_OFF["SELECT"]],
+        "sfwd eager": [SFWD_OFF["LAZY"]],
+        "sfwd parent": [(SFWD, r"constexpr bool SFWD_WIDE = NH > 5;",
+                         "constexpr bool SFWD_WIDE = false;", 1),
+                        (SFWD, SFWD_CAP, "NH <= 5 ? SweepBlocksPerSM<T, NH>::value : "
+                         "(sizeof(T) == 4 ? 2 : 1)", 1)],
     },
 }
 SOURCES = ("lane_solver", "lane_sbwd", "lane_sfwd")   # the steps' inputs run every kernel
@@ -233,7 +272,9 @@ PROBED = {  # the instantiations whose ptxas lines are printed
     "dubins": ("ric_kernel<float, dubins, 5>", "sbwd_kernel<float, false, false, dubins, 5>",
                "sfwd_kernel<float, false, false, dubins, 5>"),   # the paper's
     "cartpole": tuple(f"{k}<{t}{flags}, cartpole, 0>" for t in ("float", "double")
-                      for k, flags in (("ric_kernel", ""), ("sbwd_kernel", ", false, false"))),
+                      for k, flags in (("ric_kernel", ""), ("sbwd_kernel", ", false, false"),
+                                       ("sbwd_kernel", ", true, false"),
+                                       ("sbwd_kernel", ", true, true"))),
     "cartpole_log": tuple(f"ric_kernel<{t}, cartpole, 0>" for t in ("float", "double")),
     "double_integrator": tuple(f"{k}<{t}{flags}, double_integrator, 2>"
                                for t in ("float", "double")
@@ -245,7 +286,10 @@ PROBED = {  # the instantiations whose ptxas lines are printed
                          for k, flags in (("ric_kernel", ""), ("sbwd_kernel", ", false, false"),
                                           ("sbwd_kernel", ", true, false"),
                                           ("sbwd_kernel", ", true, true"), ("fwd_kernel", ""),
-                                          ("fwd_staged_kernel", ""))),
+                                          ("fwd_staged_kernel", ""),
+                                          ("sfwd_kernel", ", false, false"),
+                                          ("sfwd_kernel", ", true, false"),
+                                          ("sfwd_kernel", ", true, true"))),
 }
 CASES = {"dubins": ab.CASES["dubins"],
          "cartpole": [(" cartpole", "paper_step", {"family": "cartpole"}, ("ric", "sbwd")),
@@ -254,11 +298,14 @@ CASES = {"dubins": ab.CASES["dubins"],
                        ("ric", "sbwd_generic", "sbwd_upper"))],
          "cartpole_log": ab.CASES["cartpole_log"],
          "double_integrator": [c for c in ab.CASES["double_integrator"] if "dtype" not in c[2]],
-         "quadrotor2d": ab.CASES["quadrotor2d"]}
+         "quadrotor2d": [c for c in ab.CASES["quadrotor2d"] if "dtype" not in c[2]]}
 # The device functions of one step of each phase of K1 (lane_solver.cu), whose SASS
 # instructions are counted by their line info.
 PHASES = {"phase A (lin_step)": (SOLVER, "lin_step"), "phase B (ric_step)": (SOLVER, "ric_step"),
-          "phase A (sbwd_lin)": (SBWD, "sbwd_lin"), "phase B (sbwd_step)": (SBWD, "sbwd_step")}
+          "phase A (sbwd_lin)": (SBWD, "sbwd_lin"), "phase B (sbwd_step)": (SBWD, "sbwd_step"),
+          "phase A (sfwd_lin)": (SFWD, "sfwd_lin"),
+          "phase A (sfwd_wide_lin)": (SFWD, "sfwd_wide_lin"),
+          "phase A (cartpole_lin)": (SBWD, "cartpole_lin")}
 
 
 def variant_sources(csrc: Path, edits, out: Path):

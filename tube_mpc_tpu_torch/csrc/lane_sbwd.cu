@@ -59,13 +59,47 @@
 // pace, not the bytes: at N=30 phase B alone takes 0.040 ms (A alone 0.040) of K5's 0.075,
 // against a byte bound of 0.033 for the whole kernel (PERF.md §6).
 // The split sweep at n̂ = 5 (three rows a part, one wasted) was 1.3-1.4x slower.
+// The cart-pole's K3/K5 (n̂ = 5, m = 1; sbwd_cartpole) are bound by their instruction count:
+// without the changes below phase A alone took 0.053 ms and phase B alone 0.044 of K3's
+// 0.084 at N=50, and the two added (tools/ric_probe.py --family cartpole; PERF.md §6). So both
+// phases shed instructions, every value bitwise the same. Rows 0 and 2 of f̂'s Jacobians
+// are the literals 1, dt and +0 at any input: phase A stores 18 rows a step where there
+// were 30, and phase B takes the literals and is LEAN. Along pos, vel and b every term of
+// the step's acceleration rows is a product with a literal 0, so where the step's fields
+// are finite on every lane of the warp (a vote) three of the six step tangents, with their
+// twelve IEEE divisions, are literals too, and phase A forms the barriers' factors by
+// select. Loading phase A's state and control a step ahead lost 4% (PERF.md §6).
 // The arithmetic and its order are those of the plain version
 // (ops/cuda/lane_sensitivity.py::_sbwd_sweep, whose two phases are these).
 #include "lane_common.cuh"
 
 namespace lane {
 
-template <typename S> constexpr int ROW_G = JAC_ROWS<S>;          // rows of a step in shared
+// The cart-pole's K3/K5 (n̂ = 5, m = 1, sbwd_cartpole) take changes of their own, each
+// switched here (tools/ric_probe.py builds them apart): CARTPOLE_LIT, rows 0 and 2 of f̂'s
+// Jacobians as literals (phase A stores rows 1, 3 and 4: 18 rows where there were 30);
+// CARTPOLE_COLS, columns 0, 1 and 4 of rows 0..3 as literals behind a warp's vote
+// (cartpole_jac); CARTPOLE_SEL, phase A's balanced-equality factors by select
+// (fhat_lin_select). With none of them it runs sbwd_kernel's own sweep.
+constexpr bool CARTPOLE_LIT = true;
+constexpr bool CARTPOLE_COLS = true;
+constexpr bool CARTPOLE_SEL = true;
+
+template <typename S> struct IsCartPole : std::false_type {};
+template <typename T, typename Hp, typename BarP>
+struct IsCartPole<Sys<CartPoleStep<T>, Hp, BarP>> : std::true_type {};
+template <typename S>
+constexpr bool CARTPOLE_OWN = IsCartPole<S>::value && (CARTPOLE_LIT || CARTPOLE_COLS || CARTPOLE_SEL);
+template <typename S> constexpr bool CARTPOLE_ROWS = IsCartPole<S>::value && CARTPOLE_LIT;
+// Whether the launcher checks the cart-pole's constants (cartpole_consts).
+template <typename S>
+constexpr bool CARTPOLE_LITERALS = IsCartPole<S>::value && (CARTPOLE_LIT || CARTPOLE_COLS);
+
+// Rows of f̂'s Jacobians in a step's rows: JAC_ROWS, or with CARTPOLE_ROWS rows 1, 3 and 4
+// of A (n̂ each), then of Bm (m each).
+template <typename S>
+constexpr int SBWD_JAC_ROWS = CARTPOLE_ROWS<S> ? 3 * (S::NH + S::M) : JAC_ROWS<S>;
+template <typename S> constexpr int ROW_G = SBWD_JAC_ROWS<S>;     // rows of a step in shared
 template <typename S> constexpr int ROW_AM = ROW_G<S> + S::NH;    //   memory: A, Bm, g_x before
 template <typename S> constexpr int ROW_GU = ROW_AM<S> + S::M;    //   the scale, the mask am,
 template <typename S, bool UPPER>                                 //   g_u (UPPER)
@@ -112,6 +146,176 @@ __device__ __forceinline__ void sbwd_lin(const Consts& p, const T* __restrict__ 
   }
 }
 
+// Row i (0 or 2) of the cart-pole's f̂ Jacobians at column c of (x̂, u): pos+ = pos + dt vel
+// and th+ = th + dt om give 1 at c = i, dt at c = i + 1, else +0, bit for bit at any state
+// and control, for every finite dt but -0 (cartpole_consts): dx_i + dt * 0 = dx_i,
+// 0 + dt * 1 = dt and 0 + dt * 0 = +0.
+template <typename T> __device__ __forceinline__ T cartpole_lit(int i, int c, T dt) {
+  return c == i ? T(1) : c == i + 1 ? dt : T(0);
+}
+
+// Whether the cart-pole's constants, rounded to T, give its literals: dt as linear_dt
+// takes it, total_m, mpl, gravity, m_pole and length finite (a product of a literal 0 with
+// each of them is then ±0).
+template <typename T> inline bool cartpole_consts(const Consts& p) {
+  auto finite = [](double v) {
+    const T t = static_cast<T>(v);
+    return t - t == T(0);
+  };
+  return linear_dt<T>(p.dt) && finite(p.total_m) && finite(p.mpl) && finite(p.gravity) &&
+         finite(p.m_pole) && finite(p.length);
+}
+
+// Whether the fields of the cart-pole step's Lin are all finite.
+template <typename L> __device__ __forceinline__ bool cartpole_finite(const L& f) {
+  return isfinite(f.s) && isfinite(f.c) && isfinite(f.om) && isfinite(f.p1) &&
+         isfinite(f.p2) && isfinite(f.temp) && isfinite(f.q1) && isfinite(f.nt) &&
+         isfinite(f.den) && isfinite(f.inv_den2) && isfinite(f.r1);
+}
+
+// Column j of f̂'s Jacobians of the cart-pole into A or Bm (fhat_jac's column j): by
+// fhat_tan, or with `lit` (columns 0, 1 and 4: pos, vel and b) rows 0..3 as the literals
+// the step's tangent gives there and the barrier row by fhat_tan's last lines. Along those
+// columns dx[2] = dx[3] = du = 0, so every term of CartPoleStep::tan's acceleration rows is a
+// product with a literal 0, ±0 where the step's Lin fields and constants are finite; rows 1
+// and 3 are then dx_i + dt (±0): 1 at (1, 1), else +0 (+0 + -0 is +0). TrackH::tan reads
+// row 0 alone.
+template <typename S, typename T>
+__device__ __forceinline__ void cartpole_col(const Consts& p, const FLin<T, S>& L, int j, bool lit,
+                                             T dt, T A[S::NH][S::NH], T Bm[S::NH][S::M]) {
+  constexpr int NH = S::NH, M = S::M, NX = S::NX;
+  T dx[NH], du[M], col[NH];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) dx[i] = (i == j) ? T(1) : T(0);
+#pragma unroll
+  for (int a = 0; a < M; ++a) du[a] = (NH + a == j) ? T(1) : T(0);
+  if (lit) {
+    col[0] = cartpole_lit(0, j, dt);
+    col[1] = j == 1 ? T(1) : T(0);
+    col[2] = cartpole_lit(2, j, dt);
+    col[3] = T(0);
+    const T dBn = S::Bar::tan(L.bn, S::H::tan(p, L.hn, col));
+    const T dBc = S::Bar::tan(L.bc, S::H::tan(p, L.hc, dx));
+    col[NX] = dBn - L.gamma * (dBc - dx[NX]);
+  } else {
+    fhat_tan(p, L, dx, du, col);
+  }
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    if (j < NH) A[i][j] = col[i];
+    else Bm[i][j - NH] = col[i];
+  }
+}
+
+// fhat_jac of the cart-pole with columns 0, 1 and 4 as literals (cartpole_col) where every
+// lane of the warp has the step's Lin fields finite; a warp with a lane that has not takes
+// fhat_tan there too. Each lane's values are fhat_jac's either way.
+template <typename S, typename T>
+__device__ __forceinline__ void cartpole_jac(const Consts& p, const FLin<T, S>& L,
+                                             T A[S::NH][S::NH], T Bm[S::NH][S::M]) {
+  const T dt = T(p.dt);
+  if (__all_sync(__activemask(), cartpole_finite(L.f))) {
+    cartpole_col<S>(p, L, 0, true, dt, A, Bm);
+    cartpole_col<S>(p, L, 1, true, dt, A, Bm);
+    cartpole_col<S>(p, L, S::NX, true, dt, A, Bm);
+  } else {
+    cartpole_col<S>(p, L, 0, false, dt, A, Bm);
+    cartpole_col<S>(p, L, 1, false, dt, A, Bm);
+    cartpole_col<S>(p, L, S::NX, false, dt, A, Bm);
+  }
+  cartpole_col<S>(p, L, 2, false, dt, A, Bm);
+  cartpole_col<S>(p, L, 3, false, dt, A, Bm);
+#pragma unroll
+  for (int a = 0; a < S::M; ++a) cartpole_col<S>(p, L, S::NH + a, false, dt, A, Bm);
+}
+
+// The rows CARTPOLE_ROWS stores: A's and Bm's rows 1, 3 and NX (r = 0, 1, 2).
+__host__ __device__ constexpr int cartpole_row(int r) { return r < 2 ? 2 * r + 1 : 4; }
+
+template <typename S, typename T>
+__device__ __forceinline__ void store_jac_cartpole(const T A[S::NH][S::NH],
+                                                   const T Bm[S::NH][S::M], T* row) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int j = 0; j < S::NH; ++j) row[(r * S::NH + j) * 32] = A[cartpole_row(r)][j];
+#pragma unroll
+    for (int a = 0; a < S::M; ++a) row[(3 * S::NH + r * S::M + a) * 32] = Bm[cartpole_row(r)][a];
+  }
+}
+
+// load_jac for CARTPOLE_ROWS: rows 0 and 2 the literals of cartpole_lit, so that a product
+// with 1 folds and none reads shared memory; every other product stays in its sum, in its
+// order, so the values are those of the stored rows.
+template <typename S, typename T>
+__device__ __forceinline__ void load_jac_cartpole(const T* row, T dt, T A[S::NH][S::NH],
+                                                  T Bm[S::NH][S::M]) {
+#pragma unroll
+  for (int i = 0; i < 4; i += 2) {
+#pragma unroll
+    for (int j = 0; j < S::NH; ++j) A[i][j] = cartpole_lit(i, j, dt);
+#pragma unroll
+    for (int a = 0; a < S::M; ++a) Bm[i][a] = cartpole_lit(i, S::NH + a, dt);
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int j = 0; j < S::NH; ++j) A[cartpole_row(r)][j] = row[(r * S::NH + j) * 32];
+#pragma unroll
+    for (int a = 0; a < S::M; ++a) Bm[cartpole_row(r)][a] = row[(3 * S::NH + r * S::M + a) * 32];
+  }
+}
+
+// The cart-pole's phase A (sbwd_lin) for step k of one lane: the factors by select
+// (CARTPOLE_SEL), columns 0, 1 and 4 by vote (CARTPOLE_COLS), rows 1, 3 and 4 stored
+// (CARTPOLE_LIT).
+template <typename S, bool UPPER, typename T>
+__device__ __forceinline__ void cartpole_lin(const Consts& p, const T* __restrict__ gX,
+                                             const T* __restrict__ gU, const T* __restrict__ U,
+                                             const T* __restrict__ X, const T* __restrict__ Xr,
+                                             const T c[S::NC], int k, size_t Bs, int lane,
+                                             T* row) {
+  constexpr int NH = S::NH, M = S::M;
+  T xs[NH], us[M];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) xs[i] = X[(static_cast<size_t>(k) * NH + i) * Bs + lane];
+#pragma unroll
+  for (int a = 0; a < M; ++a) us[a] = U[(static_cast<size_t>(k) * M + a) * Bs + lane];
+  FLin<T, S> L;
+  if constexpr (CARTPOLE_SEL) {
+    fhat_lin_select<S>(p, xs, us, c[S::ROW_ALPHA], c[S::ROW_ALPHA + 1], c[S::ROW_ALPHA + 2], L);
+  } else {
+    fhat_lin<S>(p, xs, us, c[S::ROW_ALPHA], c[S::ROW_ALPHA + 1], c[S::ROW_ALPHA + 2], L);
+  }
+  T A[NH][NH], Bm[NH][M];
+  if constexpr (CARTPOLE_COLS) {
+    cartpole_jac<S>(p, L, A, Bm);
+  } else {
+    fhat_jac<S>(p, L, A, Bm);
+  }
+  if constexpr (CARTPOLE_LIT) {
+    store_jac_cartpole<S>(A, Bm, row);
+  } else {
+    store_jac<S>(A, Bm, row);
+  }
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    const size_t at = (static_cast<size_t>(k) * NH + i) * Bs + lane;
+    if constexpr (UPPER) {
+      row[(ROW_G<S> + i) * 32] = gX[at];
+    } else {
+      row[(ROW_G<S> + i) * 32] = T(2) * (xs[i] - Xr[at]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < M; ++a) {
+    row[(ROW_AM<S> + a) * 32] =
+        (us[a] <= T(p.act_lo[a]) || us[a] >= T(p.act_hi[a])) ? T(0) : T(1);
+    if constexpr (UPPER)
+      row[(ROW_GU<S> + a) * 32] = gU[(static_cast<size_t>(k) * M + a) * Bs + lane];
+  }
+}
+
 // Phase B for step k of one lane: K and kff from the step's rows (row[r * 32]) and
 // the carry, which it advances to step k; with GENERIC it first writes the carry.
 // Every sum over the controls runs a = 0..m-1 left to right, as the reference's. LEAN:
@@ -138,6 +342,8 @@ __device__ __forceinline__ void sbwd_step(const T* row, const T c[S::NC], T reg0
   T A[NH][NH], Bm[NH][M], gx[NH];
   if constexpr (S::LINEAR) {
     load_jac_linear<S>(row, dt, A, Bm);
+  } else if constexpr (CARTPOLE_ROWS<S>) {
+    load_jac_cartpole<S>(row, dt, A, Bm);
   } else {
     load_jac<S>(row, A, Bm);
   }
@@ -277,7 +483,51 @@ __device__ __forceinline__ void sbwd_step(const T* row, const T c[S::NC], T reg0
 }
 
 // The systems whose K3/K5 take sbwd_step's LEAN phase B.
-template <int SYS> constexpr bool SBWD_LEAN = SYS == DOUBLE_INTEGRATOR;
+template <int SYS> constexpr bool SBWD_LEAN = SYS == DOUBLE_INTEGRATOR || SYS == CARTPOLE;
+
+// sbwd_kernel's sweep for the cart-pole (CARTPOLE_OWN): its own phase A (cartpole_lin) and
+// sbwd_step's LEAN phase B. It and cartpole_lin are functions of their own, as sfwd_wide
+// (lane_sfwd.cu), so that the other systems' K3/K5 compile from the text they had.
+template <typename S, bool GENERIC, bool UPPER, typename T>
+__device__ __forceinline__ void sbwd_cartpole(
+    const Consts& p, const T* __restrict__ gX, const T* __restrict__ gU,
+    const T* __restrict__ gXN, const T* __restrict__ U, const T* __restrict__ X,
+    const T* __restrict__ Xr, const T* __restrict__ C, const T* __restrict__ XN,
+    const T* __restrict__ XrN, T* __restrict__ Kout, T* __restrict__ kffout,
+    T* __restrict__ tVx_out, T* __restrict__ Vxx_out, T* __restrict__ LogS_out, int N, int B,
+    T* smem) {
+  constexpr int NH = S::NH, M = S::M;
+  const int lane = blockIdx.x * 32 + (threadIdx.x & 31);
+  const bool live = lane < B;
+  const size_t Bs = static_cast<size_t>(B);
+
+  T c[S::NC];
+#pragma unroll
+  for (int r = 0; r < S::NC; ++r) c[r] = live ? C[r * Bs + lane] : T(0);
+  T tv[NH], vxx[NH][NH];
+  T logs = T(0);
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    if (!live) {
+      tv[i] = T(0);
+    } else if constexpr (UPPER) {
+      tv[i] = gXN[i * Bs + lane];
+    } else {
+      tv[i] = T(2) * (XN[i * Bs + lane] - XrN[i * Bs + lane]);
+    }
+#pragma unroll
+    for (int j = 0; j < NH; ++j) vxx[i][j] = (i == j) ? c[NH + M + i] : T(0);
+  }
+  const T reg0 = T(p.reg), dt = T(p.dt);
+  sweep<true, SBWD_ROWS<S, UPPER>>(
+      N, live, smem,
+      [&](int k, T* row) { cartpole_lin<S, UPPER>(p, gX, gU, U, X, Xr, c, k, Bs, lane, row); },
+      [&](int k, const T* row) {
+        sbwd_step<S, GENERIC, UPPER, SBWD_LEAN<CARTPOLE>>(row, c, reg0, dt, tv, vxx, logs, Kout,
+                                                          kffout, tVx_out, Vxx_out, LogS_out, k,
+                                                          Bs, lane);
+      });
+}
 
 // sbwd_step on the split sweep (lane_common.cuh, sweep_split) for the part `part` of a
 // lane: its rows i = part + SPLIT_PARTS r of the carry (tv, vxx) and of the step's
@@ -527,6 +777,12 @@ sbwd_kernel(const T* __restrict__ gX, const T* __restrict__ gU, const T* __restr
   using S = System<T, SYS, NOBS>;
   constexpr int NH = S::NH, M = S::M;
   extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (CARTPOLE_OWN<S>) {
+    sbwd_cartpole<S, GENERIC, UPPER>(p, gX, gU, gXN, U, X, Xr, C, XN, XrN, Kout, kffout,
+                                     tVx_out, Vxx_out, LogS_out, N, B,
+                                     reinterpret_cast<T*>(smem));
+    return;
+  }
   if constexpr (NH > 5) {
     sbwd_split<S, GENERIC, UPPER>(p, gX, gU, gXN, U, X, Xr, C, XN, XrN, Kout, kffout, tVx_out,
                                   Vxx_out, LogS_out, N, B, reinterpret_cast<T*>(smem));
@@ -577,6 +833,9 @@ int launch_sbwd(const void* gX, const void* gU, const void* gXN, const void* U, 
     using S = System<T, LANE_SYSTEM, NOBS>;
     if constexpr (S::LINEAR) {
       if (!linear_dt<T>(p->dt)) return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if constexpr (CARTPOLE_LITERALS<S>) {
+      if (!cartpole_consts<T>(*p)) return static_cast<int>(cudaErrorInvalidValue);
     }
     constexpr int smem = S::NH > 5 ? split_smem<T, SBWD_ROWS<S, UPPER>, XCH_ROWS<S>>()
                                    : sweep_smem<T, SBWD_ROWS<S, UPPER>>();

@@ -43,6 +43,13 @@
 // Longer chunks would cost that wave. Where the time goes (tools/ric_probe.py): K4's
 // two phases take about as long each and overlap well; with GENERIC, phase B (the
 // carry rows, dlam and the gdyn sums on top of the tangent) sets the time.
+// Above n̂ = 5 (the quadrotor; sfwd_wide) K4 fit 122 registers, so four blocks an SM held
+// B=16384 in one wave already, and phase A alone took 0.058 ms of its 0.086 at N=50: the
+// linearisation's transcendentals and 16 IEEE divisions a step. With the balanced-equality
+// factors by select phase A alone takes 0.038 and the chain in phase B, one warp a block
+// beside three phase-A warps, sets K4's pace. K6 there took 168-188 registers, two blocks
+// an SM and two waves; loading the tangent's fields where they are used fits it in 128,
+// four blocks an SM (PERF.md §6).
 // The arithmetic and its order are those of the plain version
 // (ops/cuda/lane_sensitivity.py::sfwd_plain); only where each value is computed differs.
 #include "lane_common.cuh"
@@ -136,11 +143,236 @@ __device__ __forceinline__ void load_gains(Gains<T, S>& g, const T* __restrict__
   }
 }
 
-// K4/K6 keep two f32 blocks an SM above n̂ = 5, where K1 and K3/K5 take four
-// (SweepBlocksPerSM): the quadrotor's K4/K6 fit 152-193 registers without spill there.
+// K4/K6 take four f32 blocks an SM above n̂ = 5 too, as K1 and K3/K5 do (SweepBlocksPerSM):
+// the quadrotor's K4 fits 110 registers, its K6 128 with 0-32 bytes of spill (sfwd_wide).
 template <typename T, int NH> struct SfwdBlocksPerSM {
-  static constexpr int value = NH <= 5 ? SweepBlocksPerSM<T, NH>::value : (sizeof(T) == 4 ? 2 : 1);
+  static constexpr int value = NH <= 5 ? SweepBlocksPerSM<T, NH>::value : (sizeof(T) == 4 ? 4 : 1);
 };
+
+// ---------------------------------------------------------------------------
+// K4/K6 above n̂ = 5 (the quadrotor, SFWD_WIDE): the sweep and the arithmetic of
+// sfwd_kernel, with two changes that tools/ric_probe.py switches apart:
+// - SFWD_SELECT: phase A forms its balanced-equality factors by select
+//   (fhat_lin_select), 14 of its 16 IEEE divisions a step at four obstacles;
+// - SFWD_LAZY: phase B loads the tangent's fields where fhat_tan uses them
+//   (fhat_tan_rows), not all of FLin up front (tan_rows<false>), which takes K6 from
+//   168-188 registers to 128 with a few bytes of spill, so four blocks an SM hold it.
+// ---------------------------------------------------------------------------
+template <int NH> constexpr bool SFWD_WIDE = NH > 5;
+constexpr bool SFWD_SELECT = true;
+constexpr bool SFWD_LAZY = true;
+
+// Loads the fields of L, a part of FLin whose policy is P (a step, an h or a barrier), from
+// row[r * 32] for r = first, first + 1, ..., as tan_rows<false> does.
+template <typename P, typename Lin, typename T>
+__device__ __forceinline__ void load_part(Lin& L, const T* row, int first) {
+  int r = first;
+  P::rows(L, [&](auto& v) {
+    if constexpr (std::is_same_v<std::remove_reference_t<decltype(v)>, bool>) {
+      v = row[r * 32] != T(0);
+    } else {
+      v = row[r * 32];
+    }
+    ++r;
+  });
+}
+
+// fhat_tan on the fields that tan_rows stored, each part of FLin loaded where fhat_tan
+// first uses it (the step's, then hn's and bn's, then hc's and bc's): the same operations
+// in the same order.
+template <typename S, typename T>
+__device__ __forceinline__ void fhat_tan_rows(const Consts& p, const T* row, T gamma,
+                                              const T dx[S::NH], const T du[S::M],
+                                              T out[S::NH]) {
+  constexpr int HC = S::ROWS, HN = HC + S::H::ROWS, BC = HN + S::H::ROWS;
+  constexpr int BN = BC + S::Bar::ROWS;
+  typename S::Lin f;
+  load_part<S>(f, row, 0);
+  S::tan(p, f, dx, du, out);
+  typename S::H::Lin hn;
+  typename S::Bar::Lin bn;
+  load_part<typename S::H>(hn, row, HN);
+  load_part<typename S::Bar>(bn, row, BN);
+  const T dBn = S::Bar::tan(bn, S::H::tan(p, hn, out));
+  typename S::H::Lin hc;
+  typename S::Bar::Lin bc;
+  load_part<typename S::H>(hc, row, HC);
+  load_part<typename S::Bar>(bc, row, BC);
+  const T dBc = S::Bar::tan(bc, S::H::tan(p, hc, dx));
+  out[S::NX] = dBn - gamma * (dBc - dx[S::NX]);
+}
+
+// sfwd_lin with SFWD_SELECT's factors.
+template <typename S, bool GENERIC, typename T>
+__device__ __forceinline__ void sfwd_wide_lin(const Consts& p, const T* __restrict__ X,
+                                              const T* __restrict__ Xr,
+                                              const T* __restrict__ U,
+                                              const T* __restrict__ Ur, T alpha, T gamma,
+                                              T tight, int k, size_t Bs, int lane, T* row) {
+  constexpr int NH = S::NH, M = S::M;
+  T xs[NH], us[M];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) xs[i] = X[(static_cast<size_t>(k) * NH + i) * Bs + lane];
+#pragma unroll
+  for (int a = 0; a < M; ++a) us[a] = U[(static_cast<size_t>(k) * M + a) * Bs + lane];
+  FLin<T, S> L;
+  if constexpr (SFWD_SELECT) {
+    fhat_lin_select<S>(p, xs, us, alpha, gamma, tight, L);
+  } else {
+    fhat_lin<S>(p, xs, us, alpha, gamma, tight, L);
+  }
+  tan_rows<true>(L, row);
+#pragma unroll
+  for (int i = 0; i < NH; ++i)
+    row[(ROW_G2X<S> + i) * 32] =
+        T(2) * (xs[i] - Xr[(static_cast<size_t>(k) * NH + i) * Bs + lane]);
+#pragma unroll
+  for (int a = 0; a < M; ++a)
+    row[(ROW_G2U<S> + a) * 32] =
+        T(2) * (us[a] - Ur[(static_cast<size_t>(k) * M + a) * Bs + lane]);
+  if constexpr (GENERIC) {
+    T fp[3][NH];
+    fhat_dparams<S>(p, L, alpha, xs[S::NX], fp[0], fp[1], fp[2]);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) row[(ROW_DP<S> + r) * 32] = fp[r][S::NX];
+  }
+}
+
+// sfwd_kernel's body for SFWD_WIDE: the same values by the same operations in the same
+// order. It is a function of its own so that the other systems' K4/K6 compile from
+// sfwd_kernel's text as it was: edits inside that body moved the cart-pole's SASS.
+template <typename S, bool GENERIC, bool EMIT, typename T>
+__device__ __forceinline__ void sfwd_wide(
+    const T* __restrict__ Kg, const T* __restrict__ kff, const T* __restrict__ X,
+    const T* __restrict__ Xr, const T* __restrict__ U, const T* __restrict__ Ur,
+    const T* __restrict__ C, const T* __restrict__ XN, const T* __restrict__ XrN,
+    const T* __restrict__ tVx, const T* __restrict__ Vxx, const T* __restrict__ LogS,
+    T* __restrict__ gx_out, T* __restrict__ gr_out, T* __restrict__ gxt_out,
+    T* __restrict__ gdyn_out, T* __restrict__ gxr_out, T* __restrict__ gur_out,
+    T* __restrict__ gxrN_out, int N, int B, const Consts& p, T* smem) {
+  constexpr int NH = S::NH, M = S::M;
+  const int lane = blockIdx.x * 32 + (threadIdx.x & 31);
+  const bool live = lane < B;
+  const size_t Bs = static_cast<size_t>(B);
+
+  const T alpha = live ? C[S::ROW_ALPHA * Bs + lane] : T(0);
+  const T gamma = live ? C[(S::ROW_ALPHA + 1) * Bs + lane] : T(0);
+  const T tight = live ? C[(S::ROW_ALPHA + 2) * Bs + lane] : T(0);
+
+  T dx[NH], gx[NH], gr[M];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    dx[i] = T(0);
+    gx[i] = T(0);
+  }
+#pragma unroll
+  for (int a = 0; a < M; ++a) gr[a] = T(0);
+  T gdyn[3] = {T(0), T(0), T(0)};
+  Gains<T, S> next;   // step k+1's gains, loaded while step k runs
+  if (live) load_gains<S>(next, Kg, kff, 0, Bs, lane);
+
+  sweep<false, SFWD_ROWS<S, GENERIC>>(
+      N, live, smem,
+      [&](int k, T* row) {
+        sfwd_wide_lin<S, GENERIC>(p, X, Xr, U, Ur, alpha, gamma, tight, k, Bs, lane, row);
+      },
+      [&](int k, const T* row) {
+        const Gains<T, S> g = next;
+        load_gains<S>(next, Kg, kff, k + 1 < N ? k + 1 : k, Bs, lane);
+        T tv_k[NH], vxx_k[NH][NH], logs_k;   // the carry rows, used after the tangent
+        if constexpr (GENERIC) {
+#pragma unroll
+          for (int i = 0; i < NH; ++i) {
+            tv_k[i] = tVx[(static_cast<size_t>(k) * NH + i) * Bs + lane];
+#pragma unroll
+            for (int j = 0; j < NH; ++j)
+              vxx_k[i][j] = Vxx[(static_cast<size_t>(k) * (NH * NH) + i * NH + j) * Bs + lane];
+          }
+          logs_k = LogS[static_cast<size_t>(k) * Bs + lane];
+        }
+        T dv[M];
+#pragma unroll
+        for (int a = 0; a < M; ++a) {
+          T s = g.K[a][0] * dx[0];
+#pragma unroll
+          for (int i = 1; i < NH; ++i) s = s + g.K[a][i] * dx[i];
+          dv[a] = g.kf[a] + s;
+        }
+#pragma unroll
+        for (int i = 0; i < NH; ++i) gx[i] = gx[i] + row[(ROW_G2X<S> + i) * 32] * dx[i];
+#pragma unroll
+        for (int a = 0; a < M; ++a) gr[a] = gr[a] + row[(ROW_G2U<S> + a) * 32] * dv[a];
+        if constexpr (EMIT) {
+#pragma unroll
+          for (int i = 0; i < NH; ++i)
+            gxr_out[(static_cast<size_t>(k) * NH + i) * Bs + lane] = (-C[i * Bs + lane]) * dx[i];
+#pragma unroll
+          for (int a = 0; a < M; ++a)
+            gur_out[(static_cast<size_t>(k) * M + a) * Bs + lane] =
+                (-C[(NH + a) * Bs + lane]) * dv[a];
+        }
+
+        T dxn[NH];
+        if constexpr (SFWD_LAZY) {
+          fhat_tan_rows<S>(p, row, gamma, dx, dv, dxn);
+        } else {
+          FLin<T, S> L;
+          L.gamma = gamma;
+          tan_rows<false>(L, row);
+          fhat_tan<S>(p, L, dx, dv, dxn);
+        }
+#pragma unroll
+        for (int i = 0; i < NH; ++i) dx[i] = dxn[i];
+        if (k == N - 1) {
+#pragma unroll
+          for (int i = 0; i < NH; ++i) {
+            const T term = (T(2) * (XN[i * Bs + lane] - XrN[i * Bs + lane])) * dxn[i];
+            if constexpr (GENERIC) {
+              gxt_out[i * Bs + lane] = T(0) + term;
+            } else {
+              gx[i] = gx[i] + term;
+            }
+            if constexpr (EMIT) {
+              gxrN_out[i * Bs + lane] = T(0) + (-C[(NH + M + i) * Bs + lane]) * dxn[i];
+            }
+          }
+        }
+
+        if constexpr (GENERIC) {
+          const T s_k1 = m_exp(logs_k);
+          T dlam[NH];
+#pragma unroll
+          for (int i = 0; i < NH; ++i) {
+            T s = vxx_k[i][0] * dxn[0];
+#pragma unroll
+            for (int j = 1; j < NH; ++j) s = s + vxx_k[i][j] * dxn[j];
+            dlam[i] = s_k1 * (tv_k[i] + s);
+          }
+#pragma unroll
+          for (int r = 0; r < 3; ++r) {
+            T fp[NH];
+#pragma unroll
+            for (int i = 0; i < S::NX; ++i) fp[i] = T(0);
+            fp[S::NX] = row[(ROW_DP<S> + r) * 32];
+            T s = dlam[0] * fp[0];
+#pragma unroll
+            for (int i = 1; i < NH; ++i) s = s + dlam[i] * fp[i];
+            gdyn[r] = gdyn[r] + s;
+          }
+        }
+      });
+
+  if (live && threadIdx.x < 32) {   // warp 0 holds the sums
+#pragma unroll
+    for (int i = 0; i < NH; ++i) gx_out[i * Bs + lane] = gx[i];
+#pragma unroll
+    for (int a = 0; a < M; ++a) gr_out[a * Bs + lane] = gr[a];
+    if constexpr (GENERIC) {
+#pragma unroll
+      for (int r = 0; r < 3; ++r) gdyn_out[r * Bs + lane] = gdyn[r];
+    }
+  }
+}
 
 template <typename T, bool GENERIC, bool EMIT, int SYS, int NOBS>
 __global__ void __launch_bounds__(SWEEP_THREADS,
@@ -156,6 +388,12 @@ sfwd_kernel(const T* __restrict__ Kg, const T* __restrict__ kff, const T* __rest
   using S = System<T, SYS, NOBS>;
   constexpr int NH = S::NH, M = S::M;
   extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (SFWD_WIDE<NH>) {
+    sfwd_wide<S, GENERIC, EMIT>(Kg, kff, X, Xr, U, Ur, C, XN, XrN, tVx, Vxx, LogS, gx_out,
+                                gr_out, gxt_out, gdyn_out, gxr_out, gur_out, gxrN_out, N, B,
+                                p, reinterpret_cast<T*>(smem));
+    return;
+  }
   const int lane = blockIdx.x * 32 + (threadIdx.x & 31);
   const bool live = lane < B;
   const size_t Bs = static_cast<size_t>(B);

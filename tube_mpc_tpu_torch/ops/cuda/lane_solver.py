@@ -300,6 +300,19 @@ def kernel_consts(pb: LaneProblem, *, reg: float = 0.0, alphas: Sequence[float] 
         # (csrc/lane_common.cuh, LINEAR), which is what its tangent gives for these dt only
         raise ValueError(f"the double integrator's kernels take a finite dt other than -0, "
                          f"got {spec.dt!r}")
+    if spec.family == "cartpole":
+        # its K3/K5 take rows of f̂'s Jacobians as literals (csrc/lane_sbwd.cu, CARTPOLE_LIT,
+        # CARTPOLE_COLS), which is what its tangent gives for finite constants and dt other
+        # than -0 only
+        consts = {"dt": spec.dt, "m_cart + m_pole": spec.m_cart + spec.m_pole,
+                  "m_pole * length": spec.m_pole * spec.length, "gravity": spec.gravity,
+                  "m_pole": spec.m_pole, "length": spec.length}
+        bad = {k: v for k, v in consts.items() if not math.isfinite(v)}
+        if spec.dt == 0.0 and math.copysign(1.0, spec.dt) < 0.0:
+            bad["dt"] = spec.dt
+        if bad:
+            raise ValueError(f"the cart-pole's kernels take finite constants and a dt other "
+                             f"than -0, got {bad}")
     k = LaneConsts()
     k.dt = spec.dt
     for a in range(pb.m):
