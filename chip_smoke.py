@@ -45,7 +45,11 @@ population Algorithm 2 on the XLA engine, with and without a mesh). Phases, each
    kernels_<family>, for each family: K1-K4 against their plain versions as in phase 3,
              on the inputs of a closed-loop step of the family's setup at B=16384, N=50
              in f64 and f32, each timed; also at B=1000, N=37, there with 1 and 8
-             obstacles for the families that have obstacles;
+             obstacles for the families that have obstacles; the double integrator's and
+             the cart-pole's K4 (SFWD_STAGED, also in their MINLOG configurations) exactly,
+             and also at B=1000 on its first 1, 2 and 4 steps and with K, kff or X not
+             finite on four lanes of one warp (sfwd_edge_inputs), each check's difference
+             in its kernel's max_abs_err;
    kernels_<family>_generic: the same for K5/K6 on a coupled step of the family's
              config with adaptation.adapt_nominal: true (coupled_setup); a backward
              sweep whose inputs have no control at a bound is also held with the
@@ -1892,6 +1896,28 @@ def nonfinite_checks(torch, make, pb, inputs, cut, cut_at):
     return extra
 
 
+# The systems whose K4 runs on sfwd_staged (csrc/lane_sfwd.cu: the chain's gains through
+# shared memory, phase A's inputs by cp.async a chunk ahead), held bitwise, also on
+# sfwd_edge_inputs: fewer steps than the two chunks its ring holds, and lanes not finite.
+SFWD_STAGED = ("double_integrator", "cartpole")
+SFWD_EDGE_N = (1, 2, 4)
+
+
+def sfwd_edge_inputs(torch, ins, lanes=NONFINITE_LANES):
+    """[(what, inputs)] of K4 (sfwd) from one step's inputs `ins` (K, kff, X, Xr, U, Ur, C,
+    XN, XrN): its first n steps for n in SFWD_EDGE_N; and K, kff or X (its row 0, which h
+    reads) with inf, -inf, NaN and inf on `lanes` at every step."""
+    out = [(f"its first {n} steps", tuple(t[:n] if t.ndim == 3 else t for t in ins))
+           for n in SFWD_EDGE_N]
+    bad = [float("inf"), float("-inf"), float("nan"), float("inf")]
+    for at, what, rows in ((0, "K", slice(None)), (1, "kff", slice(None)), (2, "X", 0)):
+        t = ins[at].clone()
+        t[:, rows, lanes] = torch.tensor(bad, dtype=t.dtype, device=t.device)
+        out.append((f"{what} not finite on four lanes of one warp",
+                    tuple(t if i == at else a for i, a in enumerate(ins))))
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class Group:
     """One check group: the kernels on the inputs of one closed-loop step, `kind` "paper"
@@ -1944,7 +1970,8 @@ def group_checks(torch, dev, g, failed):
     failure is recorded where it is 0. With g.record, held's extra shapes and obstacle
     counts, and the clamped sweep at the ragged shape; without, at the step's own. With
     g.branches, branch_checks too. The cart-pole's backward sweeps (with g.record) are also
-    held with ω not finite on four lanes of one warp (nonfinite_checks)."""
+    held with ω not finite on four lanes of one warp (nonfinite_checks), and the K4 of
+    SFWD_STAGED's systems on sfwd_edge_inputs."""
     dtype = getattr(torch, g.dname)
     more_shapes = g.record
     step = paper_step if g.kind == "paper" else coupled_step
@@ -1987,6 +2014,9 @@ def group_checks(torch, dev, g, failed):
         counts.append(n_bound)
     if pb.spec.family == "cartpole" and more_shapes:
         extra += nonfinite_checks(torch, make, pb, inputs, cut, cut_at)
+    if pb.spec.family in SFWD_STAGED and more_shapes and "sfwd" in inputs:
+        extra += [(f"sfwd, {edge}{cut_at}", "sfwd", *make(pb)["sfwd"], tuple(map(cut, ins)),
+                   False) for edge, ins in sfwd_edge_inputs(torch, inputs["sfwd"])]
     log(f"[{g.phase}] {g.dname}: inputs from a closed-loop step of the {what}; at least "
         f"{min(counts)} controls at a bound in every backward sweep's inputs")
     if min(counts) == 0:
@@ -2026,9 +2056,10 @@ def time_group(torch, dev, g, pool, results):
     return failed
 
 
-def check_one(torch, g, label, name, kernel, plain, inputs, failed):
-    """Hold a kernel against its plain version at TOL[dname][name]; log, record a failure,
-    and return the largest difference and the plain version's wall in ms."""
+def check_one(torch, g, label, name, kernel, plain, inputs, failed, exact=False):
+    """Hold a kernel against its plain version at TOL[dname][name], or with `exact` at no
+    difference at all; log, record a failure, and return the largest difference and the plain
+    version's wall in ms."""
     got = kernel(*inputs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2038,9 +2069,10 @@ def check_one(torch, g, label, name, kernel, plain, inputs, failed):
     plain_wall = (time.perf_counter() - t0) * 1e3
     rtol, atol_frac = TOL[g.dname][name]
     err, ok = max_err(torch, got, ref, rtol, atol_frac)
+    ok = ok and not (exact and err != 0.0)
+    how = "exact" if exact else f"rtol {rtol}, atol {atol_frac} of the row's max|plain|"
     nonfinite = sum(int((~torch.isfinite(r)).sum()) for r in ref)
-    log(f"[{g.phase}] {g.dname} {label}: max |kernel - plain| = {err!r} "
-        f"(rtol {rtol}, atol {atol_frac} of the row's max|plain|) -> "
+    log(f"[{g.phase}] {g.dname} {label}: max |kernel - plain| = {err!r} ({how}) -> "
         f"{'ok' if ok else 'FAIL'}; {nonfinite} non-finite values in the plain output")
     if not ok:
         failed.append(f"{g.dname} {label}")
@@ -2058,9 +2090,10 @@ def checker_init() -> None:
 
 def hold_group(g):
     """Group g's checks, in a checker process on the card: every kernel of the group
-    against its plain version at the step's shape and at the extra shapes. Returns (its log
-    lines, its failures, {kernel: (max |kernel - plain|, the plain version's ms by its
-    check's one call)} of the step's shape, its seconds)."""
+    against its plain version at the step's shape and at the extra shapes (SFWD_STAGED's K4
+    exactly). Returns (its log lines, its failures, {kernel: (max |kernel - plain| over its
+    checks, the plain version's ms by its check's one call at the step's shape)}, its
+    seconds)."""
     global _CAPTURED
     import torch
 
@@ -2068,11 +2101,15 @@ def hold_group(g):
     try:
         dev = torch.device("cuda", 0)
         failed, errs = [], {}
-        calls, extra, _ = group_checks(torch, dev, g, failed)
+        calls, extra, pb = group_checks(torch, dev, g, failed)
+        exact = lambda name: name == "sfwd" and pb.spec.family in SFWD_STAGED
         for name, (kernel, plain, inputs) in calls.items():
-            errs[name] = check_one(torch, g, name, name, kernel, plain, inputs, failed)
+            errs[name] = check_one(torch, g, name, name, kernel, plain, inputs, failed,
+                                   exact(name))
         for label, name, kernel, plain, inputs, _ in extra:
-            check_one(torch, g, label, name, kernel, plain, inputs, failed)
+            err, _ = check_one(torch, g, label, name, kernel, plain, inputs, failed, exact(name))
+            if name in errs:
+                errs[name] = (max(errs[name][0], err), errs[name][1])
         del calls, extra
         torch.cuda.empty_cache()
         return _CAPTURED, failed, errs, time.perf_counter() - t0

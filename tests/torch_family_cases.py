@@ -101,8 +101,9 @@ EDGE = {"double_integrator": {1: (4.3, 3.8), 2: (1.0, 1.5)},
 
 def kernel_inputs(name, *, seed, N, B=3):
     """A realistic kernel input of family ``name``: rollouts of random controls (drawn
-    past the bounds and clamped, so some sit at a bound) from three starts, tracking a
-    ramp towards the target, with per-lane weights and barrier parameters."""
+    past the bounds and clamped, so some sit at a bound) from B starts (lanes 1 and 2 at
+    EDGE's), tracking a ramp towards the target, with per-lane weights and barrier
+    parameters (three values each, repeated over the lanes)."""
     pb, _, s = problems(name)
     n, m = pb.n, pb.m
     rng = np.random.default_rng(seed)
@@ -120,7 +121,8 @@ def kernel_inputs(name, *, seed, N, B=3):
     Xr = np.zeros((N + 1, n + 1, B))
     Xr[:, :n] = (x0.mean(0)[None] + ks[:, None] * (target - x0.mean(0))[None])[..., None]
     Ur = np.broadcast_to(((lo + hi) / 2)[None, :, None], (N, m, B)).copy()
-    bp = BarrierParams(*(t64(v) for v in ([0.0, 0.05, 0.1], [0.0, 0.3, -0.2], [0.0, 0.02, 0.0])))
+    bp = BarrierParams(*(t64(np.resize(v, B))
+                         for v in ([0.0, 0.05, 0.1], [0.0, 0.3, -0.2], [0.0, 0.02, 0.0])))
     w = CostWeights(Q=t64(rng.uniform(0.5, 2.0, (B, n))), R=t64(rng.uniform(0.5, 2.0, (B, m))),
                     Qf=t64(rng.uniform(10.0, 100.0, (B, n))), qb=t64(rng.uniform(0.2, 1.0, B)))
     C = _build_C(pb, w, bp, B, torch.float64, "cpu")

@@ -26,8 +26,10 @@ K1 on the coupled step and K3 on the paper step of chip_smoke.MINLOG's cartpole_
 file's N=40; for the quadrotor also K2 (at the config's nα and at nα=1) and K4 (also in
 f64) on its paper step, and K1, K2, the K5 and the K6 variants on the coupled step of
 configs/quadrotor2d.yaml at its N=200, and K1, K2 and the K5 variants on that step of
-chip_smoke.MINLOG's quadrotor2d_min_log and K4 on its paper step, at the file's N=200. Each
-is called through this
+chip_smoke.MINLOG's quadrotor2d_min_log and K4 on its paper step, at the file's N=200; and
+K4 of the double integrator (each of its four libraries) and of the cart-pole (both) on
+their paper steps in f32 and f64, at N=50 and at their config's N (30, 40). Each is called
+through this
 tree's wrapper with the wrapper's library lookup pointed at one build or the other, in the
 order base, this, this, base, each the device time per launch of RUNS launches back to back
 (chip_smoke.device_time_ms), beside its bound as chip_smoke.py computes it (the larger of
@@ -57,6 +59,16 @@ VARIANTS = ("dubins", "double_integrator", "double_integrator_min", "double_inte
             "double_integrator_min_log", "quadrotor2d", "cartpole", "cartpole_log",
             "quadrotor2d_min_log")
 FWD = ("fwd", "fwd nα=1")
+
+
+def sfwd_at(family, n, label=None, **kw):
+    """K4 alone on the paper step of `family` at N=n, in f32 and f64 (the cases at another N
+    than the variant's others)."""
+    label = label or family
+    return [(f" {label} N={n}{sfx}", "paper_step", {"family": family, "N_": n, **kw, **dt},
+             ("sfwd",)) for sfx, dt in (("", {}), (" f64", {"dtype": "float64"}))]
+
+
 # variant: [(label suffix, chip_smoke's step function by name, its keyword arguments (with
 #            "dtype", a torch dtype's name, for another than f32), the kernels timed on it,
 #            None for all)]
@@ -64,15 +76,19 @@ CASES = {
     "dubins": [("", "paper_step", {}, None), ("", "coupled_step", {}, None)],
     "double_integrator": [
         (" double_integrator", "paper_step", {"family": "double_integrator"},
-         ("ric", "sbwd", *FWD)),
+         ("ric", "sbwd", *FWD, "sfwd")),
         (" double_integrator f64", "paper_step",
-         {"family": "double_integrator", "dtype": "float64"}, ("ric", "sbwd")),
+         {"family": "double_integrator", "dtype": "float64"}, ("ric", "sbwd", "sfwd")),
+        *sfwd_at("double_integrator", 30),
         (" double_integrator N=30", "coupled_step",
          {"family": "double_integrator", "N_": 30, "solver": True},
          ("ric", "sbwd_generic", "sbwd_upper"))],
     "double_integrator_min": [
         (" double_integrator_min N=30", "paper_step",
-         {"family": "double_integrator_min", "N_": 30}, ("ric", "sbwd")),
+         {"family": "double_integrator_min", "N_": 30}, ("ric", "sbwd", "sfwd")),
+        (" double_integrator_min N=30 f64", "paper_step",
+         {"family": "double_integrator_min", "N_": 30, "dtype": "float64"}, ("sfwd",)),
+        *sfwd_at("double_integrator_min", 50),
         (" double_integrator_min N=30", "coupled_step",
          {"family": "double_integrator_min", "N_": 30, "solver": True},
          ("sbwd_generic", "sbwd_upper"))],
@@ -80,20 +96,27 @@ CASES = {
     # runs: its kernels on the inputs of its paper and coupled steps, with the problem of
     # those policies (with_policies)
     **{v: [(f" {v}", "paper_step", {"family": "double_integrator", "policies": (agg, "log")},
-            ("ric", "sbwd", *FWD)),
+            ("ric", "sbwd", *FWD, "sfwd")),
+           (f" {v} f64", "paper_step", {"family": "double_integrator", "policies": (agg, "log"),
+                                        "dtype": "float64"}, ("sfwd",)),
+           *sfwd_at("double_integrator", 30, v, policies=(agg, "log")),
            (f" {v}", "coupled_step", {"family": "double_integrator", "policies": (agg, "log")},
             ("sbwd_generic", "sbwd_upper"))]
        for v, agg in (("double_integrator_log", "smoothmin"),
                       ("double_integrator_min_log", "min"))},
-    "cartpole": [(" cartpole", "paper_step", {"family": "cartpole"}, ("ric", "sbwd")),
+    "cartpole": [(" cartpole", "paper_step", {"family": "cartpole"}, ("ric", "sbwd", "sfwd")),
                  (" cartpole f64", "paper_step", {"family": "cartpole", "dtype": "float64"},
-                  ("ric", "sbwd")),
+                  ("ric", "sbwd", "sfwd")),
+                 *sfwd_at("cartpole", 40),
                  (" cartpole N=40", "coupled_step", {"family": "cartpole", "N_": 40},
                   ("sbwd_generic", "sbwd_upper"))],
     "cartpole_log": [(" cartpole_log N=40", "coupled_step",
                       {"family": "cartpole_log", "N_": 40, "solver": True}, ("ric",)),
                      (" cartpole_log N=40", "paper_step", {"family": "cartpole_log", "N_": 40},
-                      ("sbwd",))],
+                      ("sbwd", "sfwd")),
+                     (" cartpole_log N=40 f64", "paper_step",
+                      {"family": "cartpole_log", "N_": 40, "dtype": "float64"}, ("sfwd",)),
+                     *sfwd_at("cartpole_log", 50)],
     "quadrotor2d": [
         (" quadrotor2d", "paper_step", {"family": "quadrotor2d"},
          ("ric", "sbwd", *FWD, "sfwd")),

@@ -7,7 +7,8 @@ K2 (`fwd_kernel`, `fwd_staged_kernel`), on one NVIDIA card, in one process.
     python3 tools/ric_probe.py --family quadrotor2d      # the quadrotor's n̂ = 7 kernels
     python3 tools/ric_probe.py --family cartpole         # the cart-pole's K1 and K3/K5
     python3 tools/ric_probe.py --family cartpole_log     # its K1 with the log barrier
-    python3 tools/ric_probe.py --family double_integrator   # its K1 and K3/K5
+    python3 tools/ric_probe.py --family double_integrator   # its K1, K3/K5 and K4
+    python3 tools/ric_probe.py --family double_integrator_min   # its K4 without the key
     python3 tools/ric_probe.py --family quadrotor2d --tree chip_tree/base   # another tree's
     python3 tools/ric_probe.py --family quadrotor2d --variants "A only" parts2   # some (and kept)
 
@@ -68,6 +69,18 @@ K2 (`fwd_kernel`, `fwd_staged_kernel`), on one NVIDIA card, in one process.
    - no lean: K1 and K3/K5 without the LEAN phase B (RIC_LEAN, SBWD_LEAN);
    - no sel: phase A's balanced-equality factors by division (SelectFactors false);
    - parent: all three, the design before the double integrator's own.
+   K4 of the double integrator and the cart-pole (`--family double_integrator`,
+   `double_integrator_min`, `cartpole`, `cartpole_log`; timed on the paper step at N=50 and
+   at the config's N): on sfwd_kernel's own body (a tree before sfwd_staged, `--tree`),
+   "sfwd A only" (phase A alone), "sfwd B warm" (phase A linearises chunks 0 and 1 alone, and
+   the chain runs every chunk j over the rows of chunk j & 1: its own time over real rows,
+   with its gain loads), "sfwd B warm smem" (the same with the gains taken from the rows: the
+   chain's arithmetic alone), "sfwd gains d2", "sfwd gains d4" (step k+2's or k+4's gains
+   prefetched into L1 while step k runs), "sfwd sel" (phase A's factors by select); on
+   sfwd_staged, "sfwd parent" (sfwd_kernel's own body), "sfwd no sel" (phase A's factors by
+   division), "staged A only" (phase A and every copy, no chain) and "staged B warm" (phase A
+   on chunks 0 and 1 alone, the chain over them, every chunk's gains and inputs copied). The
+   quadrotor's `sfwd B warm` times its chain (sfwd_wide) the same way.
    The edits are to the shared sweeps (K2's to its own kernels), so each variant changes
    every kernel on them alike; an edit of a `.cu` file alone rebuilds that source alone.
 2. Times every f32 kernel of the family's cases (Dubins: tools/port_kernel_ab.py's paper
@@ -76,7 +89,8 @@ K2 (`fwd_kernel`, `fwd_staged_kernel`), on one NVIDIA card, in one process.
    its N=40, with the log barrier K1 on that step of chip_smoke.MINLOG's cartpole_log; the
    quadrotor: tools/port_kernel_ab.py's cases, K1, K2 at the config's nα and
    at nα=1 and K3 on its paper step at N=50, K1, K2 and the two K5 on the coupled step of
-   configs/quadrotor2d.yaml at its N=200; the double integrator: its f32 cases there)
+   configs/quadrotor2d.yaml at its N=200; the double integrator and double_integrator_min:
+   their f32 cases there)
    through its wrapper on every variant's build, in
    turns (every variant, then every variant in reverse order), each the device time per
    launch of RUNS launches back to back, and says whether each variant's outputs are
@@ -91,7 +105,8 @@ K2 (`fwd_kernel`, `fwd_staged_kernel`), on one NVIDIA card, in one process.
    f64 instantiation has, shows at the kernel's last line. For the instantiations of
    PROBED it also counts the SASS instructions, all of them and those of one step of
    K1's phase A (lin_step) and of its phase B (ric_step), and of K3/K5's (sbwd_lin,
-   sbwd_step), and of K4/K6's phase A (sfwd_lin, sfwd_wide_lin above n̂ = 5) and the
+   sbwd_step), and of K4/K6's phase A (sfwd_lin, sfwd_wide_lin above n̂ = 5, sfwd_staged_lin
+   for the double integrator's and the cart-pole's K4) and the
    cart-pole's K3/K5 phase A (cartpole_lin): those with a frame in the
    function's lines (one step's code, unless the compiler unrolled a step loop). The
    disassembly stays in `_build/probe/<family>/<source>_lineinfo.sass`.
@@ -199,6 +214,61 @@ SPLIT5 = [(SBWD, r"NH > 5", "NH > 4", 4)]
 # Three warps a block, two of them phase A with a step each a chunk.
 W3 = [(SWEEP, r"constexpr int SWEEP_WARPS = 4;", "constexpr int SWEEP_WARPS = 3;", 1),
       (SWEEP, r"constexpr int SWEEP_KC = 3;", "constexpr int SWEEP_KC = 2;", 1)]
+# K4's chain on sfwd_kernel's own body (and sfwd_wide's): phase A linearises chunks 0 and 1
+# alone, and phase B runs every chunk j over the rows of chunk j & 1, real rows of other
+# steps (B only runs over whatever shared memory holds); with it, the chain's gains taken from
+# the step's rows, not loaded from device memory.
+B_WARM = (SWEEP, r"if \(j \+ 1 < chunks\) linearise\(j \+ 1, warp - 1, SWEEP_WARPS - 1\);",
+          "if (j + 1 < chunks && j < 1) linearise(j + 1, warp - 1, SWEEP_WARPS - 1);", 1)
+LOAD_GAINS = r"load_gains<S>\(next, Kg, kff, k \+ 1 < N \? k \+ 1 : k, Bs, lane\);"
+GAINS_SMEM = (SFWD, LOAD_GAINS,
+              "{\n#pragma unroll\n          for (int a = 0; a < M; ++a) {\n"
+              "            next.kf[a] = row[a * 32];\n#pragma unroll\n"
+              "            for (int i = 0; i < NH; ++i)\n"
+              "              next.K[a][i] = row[(M + a * NH + i) * 32];\n"
+              "          }\n        }", 2)
+
+
+def gains_ahead(d):
+    """The chain's gains of step k+d prefetched into L1 while step k runs, so that the load
+    of step k+1's (one step ahead, into registers) finds them there. Registers d steps ahead
+    would need the chain's step loop unrolled d times: an instruction that moves a register a
+    load still writes waits for the load."""
+    return (SFWD, LOAD_GAINS,
+            "load_gains<S>(next, Kg, kff, k + 1 < N ? k + 1 : k, Bs, lane);\n        {\n"
+            f"          const size_t kp = k + {d} < N ? k + {d} : N - 1;\n#pragma unroll\n"
+            "          for (int a = 0; a < M; ++a) {\n"
+            "            asm volatile(\"prefetch.global.L1 [%0];\" ::\n"
+            "                         \"l\"(kff + (kp * M + a) * Bs + lane));\n"
+            "#pragma unroll\n            for (int i = 0; i < NH; ++i)\n"
+            "              asm volatile(\"prefetch.global.L1 [%0];\" :: "
+            "\"l\"(Kg + (kp * (M * NH) + a * NH + i) * Bs + lane));\n          }\n        }", 2)
+
+
+# K4 on sfwd_kernel's own body (the double integrator's and the cart-pole's K4 before
+# sfwd_staged): phase A alone; the chain over real rows (B_WARM), with its gains from the
+# rows (its arithmetic alone); the gains prefetched 2 or 4 steps ahead; phase A's
+# balanced-equality factors by select (fhat_lin_select, as sfwd_wide_lin).
+SFWD_PROBES = {
+    "sfwd A only": [A_ONLY],
+    "sfwd B warm": [B_WARM],
+    "sfwd B warm smem": [B_WARM, GAINS_SMEM],
+    "sfwd gains d2": [gains_ahead(2)],
+    "sfwd gains d4": [gains_ahead(4)],
+    "sfwd sel": [(SFWD, r"\n  fhat_lin<S>\(p, xs, us, alpha, gamma, tight, L\);",
+                  "\n  fhat_lin_select<S>(p, xs, us, alpha, gamma, tight, L);", 1)],
+}
+# The double integrator's and the cart-pole's K4 on sfwd_staged: without it (sfwd_kernel's own
+# body), with phase A's factors by division, the chain skipped (phase A and its copies alone),
+# and the chain over the real rows of chunks 0 and 1 (j & 1) with every chunk's gains and
+# inputs still copied.
+STAGED_PROBES = {
+    "sfwd parent": [(SFWD, r"constexpr bool SFWD_STAGED = !GENERIC && \(SYS == DOUBLE_INTEGRATOR "
+                           r"\|\| SYS == CARTPOLE\);", "constexpr bool SFWD_STAGED = false;", 1)],
+    "sfwd no sel": [SFWD_OFF["SELECT"]],
+    "staged A only": [(SFWD, r"chain\(k, buf \+ \(k - lo\) \* STEP\);", "(void)buf;", 1)],
+    "staged B warm": [(SFWD, r"linearise\(j \+ 1\);", "if (j < 1) linearise(j + 1);", 1)],
+}
 VARIANTS = {  # family: {name: [(file, regex, replacement, matches, None for at least one)]}
     "dubins": {
         "kept": [],
@@ -224,10 +294,14 @@ VARIANTS = {  # family: {name: [(file, regex, replacement, matches, None for at 
         **{name.lower(): [*CP_NO_LEAN, *(e for n, e in CP_OFF.items() if n != name)]
            for name in CP_OFF},
         "parent": [*CP_NO_LEAN, *CP_OFF.values()],
+        **SFWD_PROBES,
+        **STAGED_PROBES,
     },
     "cartpole_log": {
         "kept": [],
         "no lean": NO_LEAN,
+        **SFWD_PROBES,
+        **STAGED_PROBES,
     },
     "double_integrator": {
         "kept": [],
@@ -241,7 +315,10 @@ VARIANTS = {  # family: {name: [(file, regex, replacement, matches, None for at 
         "no lean": DI_NO_LEAN,
         "no sel": NO_SEL,
         "parent": [*NO_LIT, *DI_NO_LEAN, *NO_SEL],
+        **SFWD_PROBES,
+        **STAGED_PROBES,
     },
+    "double_integrator_min": {"kept": [], **SFWD_PROBES, **STAGED_PROBES},
     "quadrotor2d": {
         "kept": [],
         "A only": [A_ONLY],
@@ -265,6 +342,7 @@ VARIANTS = {  # family: {name: [(file, regex, replacement, matches, None for at 
                          "constexpr bool SFWD_WIDE = false;", 1),
                         (SFWD, SFWD_CAP, "NH <= 5 ? SweepBlocksPerSM<T, NH>::value : "
                          "(sizeof(T) == 4 ? 2 : 1)", 1)],
+        "sfwd B warm": [B_WARM],
     },
 }
 SOURCES = ("lane_solver", "lane_sbwd", "lane_sfwd")   # the steps' inputs run every kernel
@@ -274,14 +352,19 @@ PROBED = {  # the instantiations whose ptxas lines are printed
     "cartpole": tuple(f"{k}<{t}{flags}, cartpole, 0>" for t in ("float", "double")
                       for k, flags in (("ric_kernel", ""), ("sbwd_kernel", ", false, false"),
                                        ("sbwd_kernel", ", true, false"),
-                                       ("sbwd_kernel", ", true, true"))),
-    "cartpole_log": tuple(f"ric_kernel<{t}, cartpole, 0>" for t in ("float", "double")),
+                                       ("sbwd_kernel", ", true, true"),
+                                       ("sfwd_kernel", ", false, false"))),
+    "cartpole_log": tuple(f"{k}<{t}{flags}, cartpole, 0>" for t in ("float", "double")
+                          for k, flags in (("ric_kernel", ""), ("sfwd_kernel", ", false, false"))),
     "double_integrator": tuple(f"{k}<{t}{flags}, double_integrator, 2>"
                                for t in ("float", "double")
                                for k, flags in (("ric_kernel", ""),
                                                 ("sbwd_kernel", ", false, false"),
                                                 ("sbwd_kernel", ", true, false"),
-                                                ("sbwd_kernel", ", true, true"))),
+                                                ("sbwd_kernel", ", true, true"),
+                                                ("sfwd_kernel", ", false, false"))),
+    "double_integrator_min": tuple(f"sfwd_kernel<{t}, false, false, double_integrator, 2>"
+                                   for t in ("float", "double")),
     "quadrotor2d": tuple(f"{k}<{t}{flags}, quadrotor2d, 4>" for t in ("float", "double")
                          for k, flags in (("ric_kernel", ""), ("sbwd_kernel", ", false, false"),
                                           ("sbwd_kernel", ", true, false"),
@@ -292,12 +375,13 @@ PROBED = {  # the instantiations whose ptxas lines are printed
                                           ("sfwd_kernel", ", true, true"))),
 }
 CASES = {"dubins": ab.CASES["dubins"],
-         "cartpole": [(" cartpole", "paper_step", {"family": "cartpole"}, ("ric", "sbwd")),
+         "cartpole": [(" cartpole", "paper_step", {"family": "cartpole"}, ("ric", "sbwd", "sfwd")),
                       (" cartpole N=40", "coupled_step",
                        {"family": "cartpole", "N_": 40, "solver": True},
                        ("ric", "sbwd_generic", "sbwd_upper"))],
          "cartpole_log": ab.CASES["cartpole_log"],
-         "double_integrator": [c for c in ab.CASES["double_integrator"] if "dtype" not in c[2]],
+         **{f: [c for c in ab.CASES[f] if "dtype" not in c[2]]
+            for f in ("double_integrator", "double_integrator_min")},
          "quadrotor2d": [c for c in ab.CASES["quadrotor2d"] if "dtype" not in c[2]]}
 # The device functions of one step of each phase of K1 (lane_solver.cu), whose SASS
 # instructions are counted by their line info.
@@ -305,6 +389,7 @@ PHASES = {"phase A (lin_step)": (SOLVER, "lin_step"), "phase B (ric_step)": (SOL
           "phase A (sbwd_lin)": (SBWD, "sbwd_lin"), "phase B (sbwd_step)": (SBWD, "sbwd_step"),
           "phase A (sfwd_lin)": (SFWD, "sfwd_lin"),
           "phase A (sfwd_wide_lin)": (SFWD, "sfwd_wide_lin"),
+          "phase A (sfwd_staged_lin)": (SFWD, "sfwd_staged_lin"),
           "phase A (cartpole_lin)": (SBWD, "cartpole_lin")}
 
 
@@ -478,7 +563,8 @@ def main() -> int:
     tool = shutil.which("nvdisasm") or "/usr/local/cuda/bin/nvdisasm"
     sources = [f"{name}.cu" for name in names] + list(_build.HEADERS)
     ranges = {phase: (f, *function_lines((csrc / f).read_text(), fn))
-              for phase, (f, fn) in PHASES.items()}
+              for phase, (f, fn) in PHASES.items()
+              if re.search(rf"\bvoid {fn}\(", (csrc / f).read_text())}   # the tree's own
     probed = set(PROBED[family])
     for name in names:
         sass = subprocess.run([tool, "-gi", "-c", str(out_dir / f"{name}_lineinfo.cubin")],

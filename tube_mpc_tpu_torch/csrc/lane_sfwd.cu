@@ -50,6 +50,9 @@
 // beside three phase-A warps, sets K4's pace. K6 there took 168-188 registers, two blocks
 // an SM and two waves; loading the tangent's fields where they are used fits it in 128,
 // four blocks an SM (PERF.md §6).
+// The double integrator's and the cart-pole's K4 (sfwd_staged) had their chain wait at each
+// step for step k+1's gains from device memory; their gains and phase A's inputs now reach
+// shared memory by cp.async a chunk ahead, so their chain reads no device memory.
 // The arithmetic and its order are those of the plain version
 // (ops/cuda/lane_sensitivity.py::sfwd_plain); only where each value is computed differs.
 #include "lane_common.cuh"
@@ -374,6 +377,241 @@ __device__ __forceinline__ void sfwd_wide(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4 of the double integrator and the cart-pole (SFWD_STAGED): sfwd_kernel's arithmetic on a
+// sweep whose chain reads no device memory. On sfwd_kernel's own body their chain waited at
+// each step for step k+1's gains, loaded from device memory while step k ran: ~1 µs a step
+// at N=50, where the chain's arithmetic alone takes 0.4-0.6 µs (tools/ric_probe.py, PERF.md
+// §6). Here
+// - phase-A warp w owns steps w-1, w-1 + SWEEP_WARPS-1, ... of every chunk: a chunk ahead of
+//   their linearisation it copies their inputs X, Xr, U, Ur into a ring of two stages in
+//   shared memory by cp.async (4 or 8 bytes a lane and value, 32 lanes a row: coalesced;
+//   lanes past B copy nothing), and while it linearises chunk j+1 from its stage, it copies
+//   that chunk's gains K, kff into the chunk's rows beside the fields phase A writes; it
+//   waits for the gains' group before the chunk's barrier, which makes them visible to the
+//   chain, and for the inputs' before their linearisation;
+// - the chain (warp 0) reads its gains, the tangent's fields and 2 (x - x_ref), 2 (u - u_ref)
+//   from the rows, and the terminal 2 (x_N - x_ref,N) from rows warp 1 wrote before the first
+//   barrier: its only device accesses are the final stores;
+// - phase A forms its balanced-equality factors by select (SFWD_SELECT, fhat_lin_select).
+// The values are sfwd_kernel's, by the same operations in the same order; only where each is
+// loaded from differs. What bounds it now is the copies' stream: at N=50 f32 about 60% of the
+// byte bound's rate, the bytes one chunk ahead being all a block has in flight (a third
+// stage, copying the gains two chunks ahead, measured no faster). Shared memory (f32):
+// 44.9 KB a block for the double integrator at 2 obstacles, 37.4 KB for the cart-pole, so
+// four blocks an SM still hold B=16384 in one wave; f64 takes twice that, two or three
+// blocks an SM, which costs the cart-pole's f64 K4 the one wave its own body had.
+// ---------------------------------------------------------------------------
+template <int SYS, bool GENERIC>
+constexpr bool SFWD_STAGED = !GENERIC && (SYS == DOUBLE_INTEGRATOR || SYS == CARTPOLE);
+
+// A staged step's rows: sfwd_kernel's, then its gains K [M NH] and kff [M] in the device
+// arrays' order; its inputs in its stage: X, Xr [NH], U, Ur [M].
+template <typename S> constexpr int ROW_GAINS = SFWD_ROWS<S, false>;
+template <typename S> constexpr int STAGED_ROWS = ROW_GAINS<S> + S::M * S::NH + S::M;
+template <typename S> constexpr int STAGED_IN = 2 * S::NH + 2 * S::M;
+
+// Its dynamic shared memory: the rows [2][SWEEP_KC][STAGED_ROWS][32], the stages
+// [2][SWEEP_KC][STAGED_IN][32] and the terminal rows [NH][32].
+template <typename T, typename S> constexpr int staged_smem() {
+  return (2 * SWEEP_KC * (STAGED_ROWS<S> + STAGED_IN<S>) + S::NH) * 32 *
+         static_cast<int>(sizeof(T));
+}
+
+// One asynchronous copy of a T from device to shared memory; the group of the copies the
+// thread issued since the last; the wait until at most its PENDING latest groups are not
+// complete.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::
+                   "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int PENDING> __device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(PENDING) : "memory");
+}
+
+// sfwd_lin on the inputs in the step's stage, st[r * 32].
+template <typename S, typename T>
+__device__ __forceinline__ void sfwd_staged_lin(const Consts& p, const T* st, T alpha, T gamma,
+                                                T tight, T* row) {
+  constexpr int NH = S::NH, M = S::M;
+  T xs[NH], us[M];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) xs[i] = st[i * 32];
+#pragma unroll
+  for (int a = 0; a < M; ++a) us[a] = st[(2 * NH + a) * 32];
+  FLin<T, S> L;
+  if constexpr (SFWD_SELECT) {
+    fhat_lin_select<S>(p, xs, us, alpha, gamma, tight, L);
+  } else {
+    fhat_lin<S>(p, xs, us, alpha, gamma, tight, L);
+  }
+  tan_rows<true>(L, row);
+#pragma unroll
+  for (int i = 0; i < NH; ++i) row[(ROW_G2X<S> + i) * 32] = T(2) * (xs[i] - st[(NH + i) * 32]);
+#pragma unroll
+  for (int a = 0; a < M; ++a)
+    row[(ROW_G2U<S> + a) * 32] = T(2) * (us[a] - st[(2 * NH + M + a) * 32]);
+}
+
+template <typename S, typename T>
+__device__ __forceinline__ void sfwd_staged(
+    const T* __restrict__ Kg, const T* __restrict__ kff, const T* __restrict__ X,
+    const T* __restrict__ Xr, const T* __restrict__ U, const T* __restrict__ Ur,
+    const T* __restrict__ C, const T* __restrict__ XN, const T* __restrict__ XrN,
+    T* __restrict__ gx_out, T* __restrict__ gr_out, int N, int B, const Consts& p, T* smem) {
+  constexpr int NH = S::NH, M = S::M, G = M * NH;
+  constexpr int STEP = STAGED_ROWS<S> * 32, CHUNK = SWEEP_KC * STEP;
+  constexpr int SSTEP = STAGED_IN<S> * 32, SCHUNK = SWEEP_KC * SSTEP;
+  const int l = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lane = blockIdx.x * 32 + l;
+  const bool live = lane < B;
+  const size_t Bs = static_cast<size_t>(B);
+  T* const rows = smem;
+  T* const stage = rows + 2 * CHUNK;
+  T* const term = stage + 2 * SCHUNK;   // 2 (x_N - x_ref,N), row i at term[i * 32]
+  const int chunks = (N + SWEEP_KC - 1) / SWEEP_KC;
+
+  const T alpha = live ? C[S::ROW_ALPHA * Bs + lane] : T(0);
+  const T gamma = live ? C[(S::ROW_ALPHA + 1) * Bs + lane] : T(0);
+  const T tight = live ? C[(S::ROW_ALPHA + 2) * Bs + lane] : T(0);
+
+  if (warp > 0) {   // phase A: the steps lo + t of each chunk, t = warp - 1, + SWEEP_WARPS - 1, ...
+    auto copy_inputs = [&](int j) {   // into the stage (j & 1)
+      for (int t = warp - 1; t < SWEEP_KC; t += SWEEP_WARPS - 1) {
+        const int k = j * SWEEP_KC + t;
+        if (!live || k >= N) return;
+        T* st = stage + (j & 1) * SCHUNK + t * SSTEP + l;
+#pragma unroll
+        for (int i = 0; i < NH; ++i) {
+          copy_async(st + i * 32, X + (static_cast<size_t>(k) * NH + i) * Bs + lane);
+          copy_async(st + (NH + i) * 32, Xr + (static_cast<size_t>(k) * NH + i) * Bs + lane);
+        }
+#pragma unroll
+        for (int a = 0; a < M; ++a) {
+          copy_async(st + (2 * NH + a) * 32, U + (static_cast<size_t>(k) * M + a) * Bs + lane);
+          copy_async(st + (2 * NH + M + a) * 32,
+                     Ur + (static_cast<size_t>(k) * M + a) * Bs + lane);
+        }
+      }
+    };
+    auto copy_gains = [&](int j) {   // into the rows (j & 1)
+      for (int t = warp - 1; t < SWEEP_KC; t += SWEEP_WARPS - 1) {
+        const int k = j * SWEEP_KC + t;
+        if (!live || k >= N) return;
+        T* row = rows + (j & 1) * CHUNK + t * STEP + l;
+#pragma unroll
+        for (int r = 0; r < G; ++r)
+          copy_async(row + (ROW_GAINS<S> + r) * 32,
+                     Kg + (static_cast<size_t>(k) * G + r) * Bs + lane);
+#pragma unroll
+        for (int a = 0; a < M; ++a)
+          copy_async(row + (ROW_GAINS<S> + G + a) * 32,
+                     kff + (static_cast<size_t>(k) * M + a) * Bs + lane);
+      }
+    };
+    auto linearise = [&](int j) {
+      for (int t = warp - 1; t < SWEEP_KC; t += SWEEP_WARPS - 1) {
+        const int k = j * SWEEP_KC + t;
+        if (!live || k >= N) return;
+        sfwd_staged_lin<S>(p, stage + (j & 1) * SCHUNK + t * SSTEP + l, alpha, gamma, tight,
+                           rows + (j & 1) * CHUNK + t * STEP + l);
+      }
+    };
+    // A group of copies for chunk 0, one for chunk 1's inputs; then in each chunk j one for
+    // chunk j+1's gains, due at the chunk's barrier, and one for chunk j+2's inputs, due at
+    // the next chunk's linearisation.
+    copy_inputs(0);
+    copy_gains(0);
+    copy_commit();
+    copy_inputs(1);
+    copy_commit();
+    if (warp == 1 && live) {
+#pragma unroll
+      for (int i = 0; i < NH; ++i)
+        term[i * 32 + l] = T(2) * (XN[i * Bs + lane] - XrN[i * Bs + lane]);
+    }
+    copy_wait<1>();
+    linearise(0);
+    sweep_sync();
+    for (int j = 0; j < chunks; ++j) {   // chunk j+1's rows while the chain runs chunk j
+      if (j + 1 < chunks) {
+        copy_gains(j + 1);    // its rows were chunk j-1's, which the chain read before the barrier
+        copy_commit();
+        copy_inputs(j + 2);   // its stage was chunk j's, which this thread linearised
+        copy_commit();
+        copy_wait<2>();       // chunk j+1's inputs
+        linearise(j + 1);
+        copy_wait<1>();       // chunk j+1's gains
+      }
+      sweep_sync();
+    }
+    copy_wait<0>();
+    return;
+  }
+
+  T dx[NH], gx[NH], gr[M];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    dx[i] = T(0);
+    gx[i] = T(0);
+  }
+#pragma unroll
+  for (int a = 0; a < M; ++a) gr[a] = T(0);
+  auto chain = [&](int k, const T* row) {
+    Gains<T, S> g;
+#pragma unroll
+    for (int a = 0; a < M; ++a) {
+      g.kf[a] = row[(ROW_GAINS<S> + G + a) * 32];
+#pragma unroll
+      for (int i = 0; i < NH; ++i) g.K[a][i] = row[(ROW_GAINS<S> + a * NH + i) * 32];
+    }
+    T dv[M];
+#pragma unroll
+    for (int a = 0; a < M; ++a) {
+      T s = g.K[a][0] * dx[0];
+#pragma unroll
+      for (int i = 1; i < NH; ++i) s = s + g.K[a][i] * dx[i];
+      dv[a] = g.kf[a] + s;
+    }
+#pragma unroll
+    for (int i = 0; i < NH; ++i) gx[i] = gx[i] + row[(ROW_G2X<S> + i) * 32] * dx[i];
+#pragma unroll
+    for (int a = 0; a < M; ++a) gr[a] = gr[a] + row[(ROW_G2U<S> + a) * 32] * dv[a];
+    FLin<T, S> L;
+    L.gamma = gamma;
+    tan_rows<false>(L, row);
+    T dxn[NH];
+    fhat_tan<S>(p, L, dx, dv, dxn);
+#pragma unroll
+    for (int i = 0; i < NH; ++i) dx[i] = dxn[i];
+    if (k == N - 1) {
+#pragma unroll
+      for (int i = 0; i < NH; ++i) gx[i] = gx[i] + term[i * 32 + l] * dxn[i];
+    }
+  };
+  sweep_sync();
+  for (int j = 0; j < chunks; ++j) {
+    const int lo = j * SWEEP_KC, hi = lo + SWEEP_KC < N ? lo + SWEEP_KC : N;
+    const T* buf = rows + (j & 1) * CHUNK + l;
+    if (live)
+      for (int k = lo; k < hi; ++k) chain(k, buf + (k - lo) * STEP);
+    sweep_sync();
+  }
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < NH; ++i) gx_out[i * Bs + lane] = gx[i];
+#pragma unroll
+    for (int a = 0; a < M; ++a) gr_out[a * Bs + lane] = gr[a];
+  }
+}
+
 template <typename T, bool GENERIC, bool EMIT, int SYS, int NOBS>
 __global__ void __launch_bounds__(SWEEP_THREADS,
                                   SfwdBlocksPerSM<T, System<T, SYS, NOBS>::NH>::value)
@@ -392,6 +630,11 @@ sfwd_kernel(const T* __restrict__ Kg, const T* __restrict__ kff, const T* __rest
     sfwd_wide<S, GENERIC, EMIT>(Kg, kff, X, Xr, U, Ur, C, XN, XrN, tVx, Vxx, LogS, gx_out,
                                 gr_out, gxt_out, gdyn_out, gxr_out, gur_out, gxrN_out, N, B,
                                 p, reinterpret_cast<T*>(smem));
+    return;
+  }
+  if constexpr (SFWD_STAGED<SYS, GENERIC>) {
+    sfwd_staged<S>(Kg, kff, X, Xr, U, Ur, C, XN, XrN, gx_out, gr_out, N, B, p,
+                   reinterpret_cast<T*>(smem));
     return;
   }
   const int lane = blockIdx.x * 32 + (threadIdx.x & 31);
@@ -523,7 +766,9 @@ int launch_sfwd(const void* K, const void* kff, const void* X, const void* Xr, c
   const dim3 grid((B + 31) / 32);
   return with_system(*p, [&](auto nobs) {
     constexpr int NOBS = decltype(nobs)::value;
-    constexpr int smem = sweep_smem<T, SFWD_ROWS<System<T, LANE_SYSTEM, NOBS>, GENERIC>>();
+    using S = System<T, LANE_SYSTEM, NOBS>;
+    constexpr int smem = SFWD_STAGED<LANE_SYSTEM, GENERIC> ? staged_smem<T, S>()
+                                                           : sweep_smem<T, SFWD_ROWS<S, GENERIC>>();
     const auto kernel = sfwd_kernel<T, GENERIC, EMIT, LANE_SYSTEM, NOBS>;
     const int err = allow_smem(kernel, smem);
     if (err != 0) return err;
