@@ -149,6 +149,16 @@ population Algorithm 2 on the XLA engine, with and without a mesh). Phases, each
              adapt_nominal (--batch 64), H cut to XLA_CLI_H; run_nominal (H cut to
              XLA_NOMINAL_H) and gradient_check at its defaults: artifacts, summary keys, the
              f64 run's dtype;
+   pscan:    the XLA engine's horizon-parallel sweep (solvers/pscan.py, ILQRConfig(
+             horizon_parallel=True); batched PyTorch operations, no kernel): (a) its functions
+             in f64 at PSCAN_B lanes on random LQ problems (PSCAN_SHAPES, N up to 1024) against
+             the sequential sweep, the exact-elimination recursion and the loop on the card,
+             and against the same calls on the CPU; (b) the f64 nominal solves of Dubins
+             (against horizon_parallel=False and the CPU) and of the quadrotor at N=200
+             (against the CPU); (c) the Dubins and quadrotor nominal solves at B=16384 in f32,
+             both forms (iterations, ms, peak memory, finite lanes >= 0.99, their difference);
+             (d) both sweeps' wall, event and device times and device kernels a call on
+             benchmarks/bench_pscan.py's points (PSCAN_TIMES), with the card's power limit;
 9. profile:  torch.profiler over five full-width steps of the Dubins paths: the device's
              busy share and the device time of each kernel variant and of PyTorch's
              own kernels.
@@ -280,6 +290,28 @@ XLA_CASES = {"paper": SEED + 90, "coupled": SEED + 91}   # xla64's loops: their 
 XLA_H = 2                      # ~2-3 s a paper step, ~0.8 s a cart-pole coupled step
 XLA_FAMILY = "cartpole"        # the xla phase's coupled loop: m = 1, Jacobians by autodiff
 XLA_CLI_H, XLA_NOMINAL_H = 2, 10
+# The horizon-parallel sweep (phase pscan: solvers/pscan.py, ILQRConfig.horizon_parallel;
+# batched PyTorch operations, no kernel, as the JAX package's reaches no pl.pallas_call).
+# (a) random LQ problems (tests/test_pscan.py:22-39's recipe) at PSCAN_B lanes, f64, at
+# (n̂, nu, N); tolerances of tests/test_pscan.py:47-49, 74-75, 89 and, card against CPU,
+# tests/test_ilqr.py:196-197. The scan's gains are held against the sequential sweep's up
+# to PSCAN_SEQ_N steps: past that the split-update sequential sweep (the JAX package's
+# algorithm) parts from the exact elimination on these problems, so there they are held
+# against the exact-elimination recursion's gains alone (tests/test_torch_pscan.py).
+PSCAN_B = 64
+PSCAN_SHAPES = ((4, 2, 17), (5, 1, 32), (7, 2, 50), (4, 2, 1024))
+PSCAN_SEQ_N = 64
+PSCAN_TOL = {"gains": (1e-7, 1e-8), "values": (1e-7, 1e-9), "rollout": (1e-9, 1e-10),
+             "cpu": (1e-7, 1e-9), "solve": (1e-5, 1e-7)}
+PSCAN_SOLVES = ("dubins", "quadrotor2d")   # (b) the f64 nominal solves, B=PSCAN_B
+PSCAN_DUBINS_N = 40        # (b) tests/test_pscan.py:94-117's Dubins OCP
+# (d) bench_pscan.py's points, f32, n̂ = 4, nu = 2: headline (N = 50) and latency; a point's
+# wall is the median of PSCAN_CALLS calls after a profiled warm-up, the sequential sweep's
+# at N >= PSCAN_LONG_N of PSCAN_CALLS_LONG (0.4-2 s a call: ~90 launches a step), to hold
+# the phase to ~60 s
+PSCAN_TIMES = ((50, 64), (50, 1024), (50, 16384), (64, 1), (64, 64), (256, 1), (256, 64),
+               (1024, 1), (1024, 64))
+PSCAN_CALLS, PSCAN_CALLS_LONG, PSCAN_LONG_N = 5, 3, 256
 
 # Straggler compaction (phase compact): bench.py's default caps of the ancillary solves
 # (bench.py:205-227), the paper loop's without a gradient clip and the coupled loop's; the
@@ -1097,7 +1129,7 @@ def xla_phase(torch, dev, t_start):
     solves, counted at ilqr._linearize), wall, solves/s, peak memory and finite_lane_frac
     (>= 0.99 required); the device's busy share and launches over one profiled paper step
     (device activity only); and one nominal solve from the paper run's last states, its
-    iterations and time."""
+    iterations and time. Returns those states (phase pscan solves from them too)."""
     from torch.profiler import ProfilerActivity, profile
 
     from tube_mpc_tpu_torch.presets import dubins_paper_setup, family_coupled_setup
@@ -1209,6 +1241,7 @@ def xla_phase(torch, dev, t_start):
     if iterations[0] == 0 or not (torch.isfinite(X_sol).all() and torch.isfinite(U_sol).all()):
         raise SystemExit("chip_smoke: xla: the nominal solve ran no iteration or is not finite")
     log(f"[xla] done at {time.perf_counter() - t_start:.0f} s")
+    return x_last
 
 
 def cli_xla_phase(torch, dev, t_start):
@@ -1314,6 +1347,392 @@ def cli_xla_phase(torch, dev, t_start):
     if problems:
         raise SystemExit(f"chip_smoke: the XLA engine's CLI runs failed their checks: {problems}")
     log(f"[cli_xla] done at {time.perf_counter() - t_start:.0f} s")
+
+
+def pscan_lq(torch, seed, lanes, N, n, m, dtype, bench=False):
+    """A random LQ problem on the CPU, from a torch.Generator seeded with `seed`: the recipe
+    of tests/test_pscan.py:22-39, or with bench=True benchmarks/bench_pscan.py's _data.
+    (A, B, lx, lu, lxx, luu, lux, phi_x, phi_xx), lanes first."""
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=gen, dtype=dtype)
+    eye = lambda k: torch.eye(k, dtype=dtype)
+    sA, sB, sux, sw = (0.05, 0.3, 0.05, 0.05) if bench else (0.1, 0.5, 0.1, 0.1)
+
+    def spd(sz):
+        W = r(lanes, N, sz, sz)
+        return sw * (W @ W.transpose(-1, -2)) + eye(sz)
+
+    A = eye(n) + sA * r(lanes, N, n, n)
+    B = sB * r(lanes, N, n, m)
+    lx, lu = r(lanes, N, n), r(lanes, N, m)
+    lxx, luu = spd(n), spd(m)
+    lux = sux * r(lanes, N, m, n)
+    phi_x = r(lanes, n)
+    W = r(lanes, n, n)
+    return A, B, lx, lu, lxx, luu, lux, phi_x, 0.5 * (W @ W.transpose(-1, -2)) + eye(n)
+
+
+def exact_recursion(torch, A, B, lx, lu, lxx, luu, lux, phi_x, phi_xx, reg=0.0):
+    """tests/test_pscan.py:61-73's exact-elimination recursion over the lanes at once (its
+    Q_uu solve regularised by reg): (V_x [B, N+1, n], V_xx [B, N+1, n, n], K, kff)."""
+    mT = lambda M: M.transpose(-1, -2)
+    mv = lambda M, v: (M @ v[..., None])[..., 0]
+    eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
+    V_x, V_xx = phi_x, phi_xx
+    xs, xxs, Ks, ks = [V_x], [V_xx], [], []
+    for k in reversed(range(A.shape[1])):
+        A_k, B_k = A[:, k], B[:, k]
+        Q_x, Q_u = lx[:, k] + mv(mT(A_k), V_x), lu[:, k] + mv(mT(B_k), V_x)
+        Q_xx = lxx[:, k] + mT(A_k) @ V_xx @ A_k
+        Q_ux = lux[:, k] + mT(B_k) @ V_xx @ A_k
+        Q_uu = luu[:, k] + mT(B_k) @ V_xx @ B_k + reg * eye
+        Kk = -torch.linalg.solve_ex(Q_uu, torch.cat([Q_ux, Q_u[..., None]], dim=-1))[0]
+        K, kff = Kk[..., :-1], Kk[..., -1]
+        V_x, V_xx = Q_x + mv(mT(K), Q_u), Q_xx + mT(K) @ Q_ux
+        xs.insert(0, V_x)
+        xxs.insert(0, V_xx)
+        Ks.insert(0, K)
+        ks.insert(0, kff)
+    st = lambda ts: torch.stack(ts, dim=1)
+    return st(xs), st(xxs), st(Ks), st(ks)
+
+
+def held_close(torch, what, got, ref, tol, problems):
+    """Log max |got - ref| and the worst |got - ref| / (atol + rtol |ref|); a miss (or a
+    value not finite) goes to `problems`."""
+    rtol, atol = tol
+    got, ref = got.detach().to("cpu", torch.float64), ref.detach().to("cpu", torch.float64)
+    d = (got - ref).abs()
+    ok = bool(torch.isfinite(got).all() and torch.isfinite(ref).all()
+              and (d <= atol + rtol * ref.abs()).all())
+    log(f"[pscan] {what}: max |diff| = {float(d.max())!r}, worst share of the tolerance "
+        f"{float((d / (atol + rtol * ref.abs())).max())!r} (rtol {rtol}, atol {atol}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        problems.append(what)
+
+
+def pscan_agreement(torch, dev, problems):
+    """Phase pscan (a): every public function of solvers/pscan.py on the card at PSCAN_B
+    lanes in f64, on PSCAN_SHAPES: against the sequential forms on the card, and against
+    the same call on the CPU."""
+    from tube_mpc_tpu_torch.solvers.ilqr import _backward_pass
+    from tube_mpc_tpu_torch.solvers.pscan import (parallel_affine_rollout,
+                                                   parallel_backward_pass, riccati_value_sweep)
+
+    f64 = torch.float64
+    for i, (n, m, Ns) in enumerate(PSCAN_SHAPES):
+        t0 = time.perf_counter()
+        at = f"(n̂, nu, N) = ({n}, {m}, {Ns}), B={PSCAN_B}, f64"
+        cpu = pscan_lq(torch, SEED + 100 + i, PSCAN_B, Ns, n, m, f64)
+        data = [t.to(dev) for t in cpu]
+        K_p, k_p = parallel_backward_pass(*data, 1e-9)
+        K_s, k_s = _backward_pass(*data, 1e-9)
+        _, _, K_e, k_e = exact_recursion(torch, *data, reg=1e-9)
+        for name, got, ref in (("K", K_p, K_s), ("kff", k_p, k_s)):
+            if Ns <= PSCAN_SEQ_N:
+                held_close(torch, f"{at}: parallel_backward_pass {name} - the sequential sweep's",
+                           got, ref, PSCAN_TOL["gains"], problems)
+            else:
+                log(f"[pscan] {at}: parallel_backward_pass {name} - the sequential sweep's, not "
+                    f"held (the split update parts from it): max |diff| = "
+                    f"{float((got - ref).abs().max())!r}")
+            held_close(torch, f"{at}: parallel_backward_pass {name} - the exact recursion's",
+                       got, K_e if name == "K" else k_e, PSCAN_TOL["gains"], problems)
+        V_x, V_xx = riccati_value_sweep(*data, elem_reg=0.0)
+        E_x, E_xx, K0, k0 = exact_recursion(torch, *data)
+        held_close(torch, f"{at}: riccati_value_sweep V_x - the exact recursion's", V_x, E_x,
+                   PSCAN_TOL["values"], problems)
+        held_close(torch, f"{at}: riccati_value_sweep V_xx - the exact recursion's", V_xx, E_xx,
+                   PSCAN_TOL["values"], problems)
+        # the closed-loop δ-rollout of the exact gains: x_{k+1} = (A + B K) x_k + B kff
+        F = data[0] + data[1] @ K0
+        c = (data[1] @ k0[..., None])[..., 0]
+        x0 = torch.randn(PSCAN_B, n, generator=torch.Generator().manual_seed(SEED + 110 + i),
+                         dtype=f64).to(dev)
+        X = parallel_affine_rollout(F, c, x0)
+        x, loop = x0, [x0]
+        for k in range(Ns):
+            x = (F[:, k] @ x[..., None])[..., 0] + c[:, k]
+            loop.append(x)
+        held_close(torch, f"{at}: parallel_affine_rollout - the loop", X,
+                   torch.stack(loop, dim=1), PSCAN_TOL["rollout"], problems)
+        on_cpu = (parallel_backward_pass(*cpu, 1e-9), riccati_value_sweep(*cpu, elem_reg=0.0),
+                  parallel_affine_rollout(F.cpu(), c.cpu(), x0.cpu()))
+        for name, got, ref in (("K", K_p, on_cpu[0][0]), ("kff", k_p, on_cpu[0][1]),
+                               ("V_x", V_x, on_cpu[1][0]), ("V_xx", V_xx, on_cpu[1][1]),
+                               ("rollout X", X, on_cpu[2])):
+            held_close(torch, f"{at}: {name}, card - cpu", got, ref, PSCAN_TOL["cpu"], problems)
+        torch.cuda.synchronize()
+        log(f"[pscan] {at}: held in {time.perf_counter() - t0:.1f} s")
+
+
+def pscan_dubins(torch, where, lanes, dtype):
+    """tests/test_pscan.py:94-117's Dubins nominal OCP at PSCAN_DUBINS_N on `lanes` lanes
+    whose starts differ (lane 0 the test's own start; the others moved from it by a seeded
+    draw): (ocp, theta, x_hat0, U0, its ILQRConfig with horizon_parallel)."""
+    import math
+
+    from tube_mpc_tpu_torch.ops.costs import CostWeights
+    from tube_mpc_tpu_torch.ops.dbas import BarrierParams, make_augmented
+    from tube_mpc_tpu_torch.solvers.ilqr import ILQRConfig
+    from tube_mpc_tpu_torch.systems.dubins import DubinsConfig, make_dubins
+    from tube_mpc_tpu_torch.systems.obstacles import CircleField
+    from tube_mpc_tpu_torch.tube.problem import NominalTheta, expand_lanes, make_nominal_ocp
+
+    t = lambda v: torch.as_tensor(v, dtype=dtype, device=where)
+    system = make_dubins(DubinsConfig(dt=0.01), obstacles=CircleField(
+        centers=t([[4.0, 2.0], [2.0, 4.0]]), radii=t([1.0, 1.0])), aggregation="smoothmin",
+        beta=20.0, device=where, dtype=dtype)
+    aug = make_augmented(system, barrier_type="inverse", eps=1e-4)
+    ocp = make_nominal_ocp(system, aug, t([10.0, 10.0, math.pi / 4]))
+    theta = NominalTheta(
+        w=expand_lanes(CostWeights.create([1.0, 1.0, 0.0], [1.0, 1.0], [1000.0] * 3, 1.0,
+                                          device=where, dtype=dtype), lanes),
+        bp=expand_lanes(BarrierParams.create(0.0, 0.0, 0.0, device=where, dtype=dtype), lanes))
+    move = torch.rand(lanes, 3, generator=torch.Generator().manual_seed(SEED + 120),
+                      dtype=dtype) - 0.5
+    move[0] = 0.0
+    x_hat0 = torch.tensor([0.0, 0.0, math.pi / 4, 0.1], dtype=dtype) + torch.cat(
+        [move * torch.tensor([1.0, 1.0, 0.6], dtype=dtype), torch.zeros(lanes, 1, dtype=dtype)],
+        dim=-1)
+    cfg = ILQRConfig(max_iter=10, tol=1e-3, reg=1e-6, alphas=(1.0, 0.5, 0.25, 0.1, 0.0),
+                     horizon_parallel=True)
+    U0 = torch.zeros((lanes, PSCAN_DUBINS_N, 2), dtype=dtype, device=where)
+    return ocp, theta, x_hat0.to(where), U0, cfg
+
+
+def pscan_quadrotor(torch, where, lanes, dtype, gen):
+    """The quadrotor's nominal OCP (presets.family_paper_setup at its config's N) on `lanes`
+    lanes whose positions are moved by up to ±0.2 from the setup's start by `gen`'s draw:
+    (ocp, theta, x_hat0, U0 (zeros), its nominal ILQRConfig with horizon_parallel, N)."""
+    from tube_mpc_tpu_torch.presets import family_paper_setup
+    from tube_mpc_tpu_torch.tube.problem import NominalTheta, expand_lanes, make_nominal_ocp
+    from tube_mpc_tpu_torch.utils.config import load_config
+
+    Nq = load_config("configs/quadrotor2d.yaml").system.horizon_N
+    ps = family_paper_setup("quadrotor2d", N=Nq, H=1, device=where, dtype=dtype)
+    ocp = make_nominal_ocp(ps.system, ps.aug, ps.target)
+    theta = NominalTheta(expand_lanes(ps.w_nominal, lanes), expand_lanes(ps.bp, lanes))
+    x0 = ps.x0.expand(lanes, -1).clone()
+    x0[:, :2] += 0.4 * (torch.rand(lanes, 2, generator=gen, dtype=dtype,
+                                   device=gen.device).to(where) - 0.5)
+    x_hat0 = torch.cat([x0, ps.aug.init_b0(x0, ps.bp)[:, None]], dim=-1)
+    U0 = torch.zeros((lanes, Nq, ps.system.nu), dtype=dtype, device=where)
+    cfg = dataclasses.replace(ps.cfg.nominal_ilqr(), horizon_parallel=True)
+    return ocp, theta, x_hat0, U0, cfg, Nq
+
+
+def pscan_case64(torch, name, where):
+    """Phase pscan (b)'s OCP `name` at PSCAN_B lanes in f64 on `where`, the same on every
+    device: (ocp, theta, x_hat0, U0, its ILQRConfig with horizon_parallel)."""
+    if name == "dubins":
+        return pscan_dubins(torch, where, PSCAN_B, torch.float64)
+    return pscan_quadrotor(torch, where, PSCAN_B, torch.float64,
+                           torch.Generator().manual_seed(SEED + 121))[:5]
+
+
+def cpu_pscan_solves():
+    """Phase pscan (b)'s CPU side, in a worker process: the horizon-parallel f64 solve of each
+    of PSCAN_SOLVES on the CPU -> ({name: (X, U)} as numpy, seconds)."""
+    import torch
+
+    from tube_mpc_tpu_torch.solvers.ilqr import ilqr_solve
+
+    torch.set_float32_matmul_precision("highest")
+    t0 = time.perf_counter()
+    out = {}
+    for name in PSCAN_SOLVES:
+        ocp, theta, x_hat0, U0, cfg = pscan_case64(torch, name, "cpu")
+        X, U = ilqr_solve(ocp, cfg, theta, x_hat0, U0)
+        out[name] = (X.numpy(), U.numpy())
+    return out, time.perf_counter() - t0
+
+
+def pscan_solves64(torch, dev, problems, cpu_solves):
+    """Phase pscan (b): ilqr_solve with horizon_parallel in f64 at PSCAN_B lanes, against
+    the same solve on the CPU (cpu_solves: cpu_pscan_solves' job) at XLA_LOOP_TOL: Dubins
+    (N=PSCAN_DUBINS_N), also against horizon_parallel=False on the card from
+    tests/test_pscan.py's start at its tolerances, and the quadrotor (its config's N,
+    n̂ = 7). Each lane's difference from the sequential solve is printed."""
+    from tube_mpc_tpu_torch.solvers.ilqr import ilqr_solve
+
+    xtol = XLA_LOOP_TOL["x_real"]
+    on_cpu = None
+    for name in PSCAN_SOLVES:
+        t0 = time.perf_counter()
+        ocp, theta, x_hat0, U0, cfg = pscan_case64(torch, name, dev)
+        Nb = U0.shape[1]
+        X_p, U_p = ilqr_solve(ocp, cfg, theta, x_hat0, U0)
+        X_s, U_s = ilqr_solve(ocp, dataclasses.replace(cfg, horizon_parallel=False), theta,
+                              x_hat0, U0)
+        torch.cuda.synchronize()
+        if on_cpu is None:
+            on_cpu, cpu_s = cpu_solves.get()
+            log(f"[pscan] (b) the CPU's solves took {cpu_s:.1f} s in a worker process")
+        X_c, U_c = (torch.as_tensor(a) for a in on_cpu[name])
+        at = f"{name} nominal solve, B={PSCAN_B}, N={Nb}, f64"
+        held_close(torch, f"{at}: horizon_parallel X, card - cpu", X_p, X_c, xtol, problems)
+        held_close(torch, f"{at}: horizon_parallel U, card - cpu", U_p, U_c, xtol, problems)
+        # tests/test_pscan.py:120-121 holds the two forms' solves from its one start (lane 0
+        # here). From other starts the O(reg) difference of the split and the exact value
+        # updates moves the nonlinear iterates farther, in the JAX package too
+        # (tests/test_torch_pscan_solve.py), so those lanes' difference is printed only.
+        if name == "dubins":
+            held_close(torch, f"{at}: U, horizon_parallel - sequential, lane 0", U_p[:1],
+                       U_s[:1], PSCAN_TOL["solve"], problems)
+            held_close(torch, f"{at}: X, horizon_parallel - sequential, lane 0", X_p[:1],
+                       X_s[:1], PSCAN_TOL["solve"], problems)
+        du = (U_p - U_s).abs().amax(dim=(1, 2))
+        rtol, atol = PSCAN_TOL["solve"]
+        outside = ((U_p - U_s).abs() > atol + rtol * U_s.abs()).any(dim=(1, 2))
+        log(f"[pscan] {at}: horizon_parallel - sequential over the lanes (not held): max |dU| "
+            f"a lane median {float(du.median())!r}, max {float(du.max())!r}; max |dX| "
+            f"{float((X_p - X_s).abs().max())!r}; lanes outside rtol {rtol}, atol {atol}: "
+            f"{int(outside.sum())} of {PSCAN_B}")
+        log(f"[pscan] {at}: {time.perf_counter() - t0:.1f} s")
+
+
+def pscan_full_width(torch, dev, x_last, problems):
+    """Phase pscan (c): the Dubins nominal solve of phase xla (B lanes from the paper run's
+    last states, N, zero controls) and the quadrotor's nominal solve (B lanes, its config's
+    N), in f32, with horizon_parallel True and False: iterations, ms, peak memory, the share
+    of lanes with X and U finite (>= 0.99 required), lanes kept at their start, and (not
+    held) the lanes' max |U_par - U_seq| and the relative difference of their total cost."""
+    from tube_mpc_tpu_torch.presets import dubins_paper_setup
+    from tube_mpc_tpu_torch.solvers import ilqr
+    from tube_mpc_tpu_torch.solvers.ocp import total_cost
+    from tube_mpc_tpu_torch.tube.problem import NominalTheta, expand_lanes, make_nominal_ocp
+
+    f32 = torch.float32
+    ps = dubins_paper_setup(N=N, H=XLA_H, device=dev, dtype=f32)
+    x_hat = torch.cat([x_last, ps.aug.init_b0(x_last, ps.bp)[:, None]], dim=-1)
+    cases = {"dubins": (make_nominal_ocp(ps.system, ps.aug, ps.target),
+                        NominalTheta(expand_lanes(ps.w_nominal, B), expand_lanes(ps.bp, B)),
+                        x_hat, torch.zeros((B, N, ps.system.nu), dtype=f32, device=dev),
+                        dataclasses.replace(ps.cfg.nominal_ilqr(), horizon_parallel=True), N)}
+    cases["quadrotor2d"] = pscan_quadrotor(
+        torch, dev, B, f32, torch.Generator(device=dev).manual_seed(SEED + 122))
+    iterations, linearize = [0], ilqr._linearize
+
+    def counted(*args):
+        iterations[0] += 1
+        return linearize(*args)
+
+    q = torch.tensor([0.5, 0.9, 0.99, 1.0], device=dev)
+    for name, (ocp, theta, x0, U0, cfg, Nc) in cases.items():
+        out = {}
+        for par in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            iterations[0] = 0
+            ilqr._linearize = counted
+            try:
+                t0 = time.perf_counter()
+                X, U = ilqr.ilqr_solve(ocp, dataclasses.replace(cfg, horizon_parallel=par),
+                                       theta, x0, U0)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+            finally:
+                ilqr._linearize = linearize
+            finite = torch.isfinite(X).all(dim=(1, 2)) & torch.isfinite(U).all(dim=(1, 2))
+            kept = (U == ocp.clamp(U0)).all(dim=(1, 2))
+            out[par] = (X, U, total_cost(ocp, theta, X, U))
+            form = "horizon_parallel" if par else "sequential"
+            frac = float(finite.float().mean())
+            log(f"[pscan] {name} nominal solve, B={B}, N={Nc}, f32, {form}: {iterations[0]} "
+                f"iterations (max_iter {cfg.max_iter}), {ms:.1f} ms, "
+                f"{ms / max(iterations[0], 1):.1f} ms an iteration, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, finite lanes {frac!r}, "
+                f"lanes kept at their start {int(kept.sum())}")
+            if frac < 0.99 or iterations[0] == 0:
+                problems.append(f"{name} {form}: finite lanes {frac}, {iterations[0]} iterations")
+        (X_p, U_p, J_p), (X_s, U_s, J_s) = out[True], out[False]
+        du = (U_p - U_s).abs().amax(dim=(1, 2))
+        dj = (J_p - J_s).abs() / J_s.abs()
+        log(f"[pscan] {name}, B={B}, N={Nc}, f32, horizon_parallel - sequential (not held), "
+            f"quantiles 0.5, 0.9, 0.99, 1 over the lanes: max |dU| "
+            f"{[float(v) for v in torch.nanquantile(du, q)]}, |dJ| / |J| "
+            f"{[float(v) for v in torch.nanquantile(dj, q)]}; total cost median "
+            f"{float(J_p.nanmedian())!r} (horizon_parallel), {float(J_s.nanmedian())!r} "
+            f"(sequential)")
+        del out, X_p, U_p, X_s, U_s
+
+
+def pscan_times(torch, dev):
+    """Phase pscan (d): the sequential sweep (solvers/ilqr.py::_backward_pass) and the scan
+    (solvers/pscan.py::parallel_backward_pass) in f32 at n̂ = 4, nu = 2 on
+    benchmarks/bench_pscan.py's points (PSCAN_TIMES, its _data recipe, reg 1e-6): the
+    device's busy time and kernels in one profiled call (the warm-up), then the wall a call
+    (synchronised; median) and the time between CUDA events recorded around each call
+    (median)."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tube_mpc_tpu_torch.solvers.ilqr import _backward_pass
+    from tube_mpc_tpu_torch.solvers.pscan import parallel_backward_pass
+
+    def timed(fn, calls):
+        # the profiled call is the warm-up; its device events are read from the raw trace
+        # (key_averages would take seconds a call over the sequential sweep's 10^5 kernels)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0]
+        walls, events = [], []
+        for _ in range(calls):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            events.append(start.elapsed_time(end))
+        return statistics.median(walls), statistics.median(events), sum(kernels) / 1e6, len(kernels)
+
+    log(f"[pscan] times on {nvidia_smi()}: f32, n̂=4, nu=2, reg 1e-6; wall ms a call "
+        f"(median of {PSCAN_CALLS} after a profiled warm-up; the sequential sweep at N >= "
+        f"{PSCAN_LONG_N} of {PSCAN_CALLS_LONG}), events ms (median), device busy ms and "
+        f"kernels (the profiled call)")
+    rows = []
+    for Nt, Bt in PSCAN_TIMES:
+        t0 = time.perf_counter()
+        data = [t.to(dev) for t in pscan_lq(torch, SEED + 130, Bt, Nt, 4, 2, torch.float32,
+                                            bench=True)]
+        seq = timed(lambda: _backward_pass(*data, 1e-6),
+                    PSCAN_CALLS_LONG if Nt >= PSCAN_LONG_N else PSCAN_CALLS)
+        par = timed(lambda: parallel_backward_pass(*data, 1e-6), PSCAN_CALLS)
+        rows.append((Nt, Bt, seq, par))
+        log(f"[pscan] times N={Nt}, B={Bt}: sequential wall {seq[0]:.2f} ms, events "
+            f"{seq[1]:.2f} ms, busy {seq[2]:.3f} ms over {seq[3]} kernels; scan wall "
+            f"{par[0]:.2f} ms, events {par[1]:.2f} ms, busy {par[2]:.3f} ms over {par[3]} "
+            f"kernels; scan / sequential wall {par[0] / seq[0]:.3f}, busy {par[2] / seq[2]:.3f} "
+            f"(the point {time.perf_counter() - t0:.1f} s)")
+        del data
+    return rows
+
+
+def pscan_phase(torch, dev, t_start, x_last, cpu_solves):
+    """Phase pscan: solvers/pscan.py and ILQRConfig.horizon_parallel on the card, (a)-(d) of
+    the functions above (cpu_solves: the worker job of cpu_pscan_solves); any miss fails
+    the run."""
+    t0 = time.perf_counter()
+    problems = []
+    pscan_agreement(torch, dev, problems)
+    log(f"[pscan] (a) done in {time.perf_counter() - t0:.1f} s")
+    pscan_solves64(torch, dev, problems, cpu_solves)
+    log(f"[pscan] (b) done at {time.perf_counter() - t0:.1f} s of the phase")
+    pscan_full_width(torch, dev, x_last, problems)
+    log(f"[pscan] (c) done at {time.perf_counter() - t0:.1f} s of the phase")
+    pscan_times(torch, dev)
+    if problems:
+        raise SystemExit(f"chip_smoke: the horizon-parallel sweep failed its checks: {problems}")
+    log(f"[pscan] done at {time.perf_counter() - t_start:.0f} s (the phase "
+        f"{time.perf_counter() - t0:.1f} s)")
 
 
 def bitwise(a, b) -> bool:
@@ -2132,7 +2551,7 @@ def main() -> int:
     # the CPU's f64 loops (loop64*) and the bounds' operation counts run in worker processes
     # beside the card's phases, at a lower priority; every worker is stopped on the way out,
     # whatever the phases did
-    workers = max(1, min(len(LOOP64_CASES) + 2 * len(CHAOTIC) + len(XLA_CASES) + 1,
+    workers = max(1, min(len(LOOP64_CASES) + 2 * len(CHAOTIC) + len(XLA_CASES) + 2,
                          (os.cpu_count() or 2) - 1))
     with contextlib.ExitStack() as stack:
         pool = multiprocessing.get_context("spawn").Pool(workers, initializer=lower_priority)
@@ -2179,6 +2598,7 @@ def run_phases(torch, pool, stack) -> int:
     cpu_xla = {kind: pool.apply_async(cpu_xla64, (kind,), callback=done(f"xla64 {kind}"))
                for kind in XLA_CASES}
     cpu_pop64 = pool.apply_async(cpu_population64, callback=done("population64"))
+    cpu_pscan = pool.apply_async(cpu_pscan_solves, callback=done("pscan solves"))
     # a chaotic loop's CPU side also with its start and disturbances times 1 + 1e-15
     cpu_perturbed = {(kind, family): pool.apply_async(
         cpu_loop64, (kind, family, LOOP64_H, 1.0 + 1e-15),
@@ -2459,8 +2879,11 @@ def run_phases(torch, pool, stack) -> int:
     cli_profile_phase(torch, dev, t_start)
 
     # ---- the XLA engine at full width, and its CLIs ------------------------------------
-    xla_phase(torch, dev, t_start)
+    x_last = xla_phase(torch, dev, t_start)
     cli_xla_phase(torch, dev, t_start)
+    # ---- the XLA engine's horizon-parallel sweep (solvers/pscan.py) -----------------------
+    pscan_phase(torch, dev, t_start, x_last, cpu_pscan)
+    del x_last
 
     # ---- 9. where the time goes: torch.profiler over a few full-width steps ---------
     from torch.profiler import ProfilerActivity, profile

@@ -61,7 +61,8 @@ FORBIDDEN = ("jax", "jaxlib", "tube_mpc_tpu")
 
 def _sources():
     return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
-        REPO / "tools" / f"{name}.py" for name in ("port_kernel_ab", "ric_probe", "port_quick_check")]
+        REPO / "tools" / f"{name}.py" for name in ("port_kernel_ab", "ric_probe", "port_quick_check",
+                                                    "riccati_asymmetry_probe")]
 
 
 def _imported_roots(path: Path):
@@ -100,12 +101,12 @@ def test_entry_point_modules_are_held_by_the_no_jax_rule():
 
 
 def test_xla_engine_modules_are_held_by_the_no_jax_rule():
-    """The no-JAX rule above covers the feature-major (XLA) engine's modules and the two
-    CLIs that run on it."""
+    """The no-JAX rule above covers the feature-major (XLA) engine's modules, its
+    horizon-parallel sweep (solvers/pscan.py) and the two CLIs that run on it."""
     held = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
     assert {"ops/linalg.py", "solvers/ocp.py", "solvers/ilqr.py", "solvers/sensitivity.py",
             "solvers/ift.py", "solvers/weight_grads.py", "solvers/diff_ilqr.py",
-            "tube/problem.py", "tube/closed_loop.py", "run_nominal.py",
+            "solvers/pscan.py", "tube/problem.py", "tube/closed_loop.py", "run_nominal.py",
             "gradient_check.py"} <= held
 
 

@@ -12,7 +12,8 @@ batch dim and the loop is Python's: every iteration updates X, U and the cost on
 a lane is still live, so each lane's result is the one it gives alone. A live lane's
 iteration count is the loop index, so it is not carried. The horizon-parallel parts
 (linearisation, stage derivatives, costs) are single batched operations over (B, k);
-the Riccati sweep and the rollouts loop over k.
+the Riccati sweep and the rollouts loop over k, but with ILQRConfig.horizon_parallel the
+sweep is solvers/pscan.py's associative scan.
 """
 from __future__ import annotations
 
@@ -34,10 +35,15 @@ _V_SCALE_THRESH_F64 = 1e250
 
 @dataclasses.dataclass(frozen=True)
 class ILQRConfig:
+    """Solver hyperparameters. horizon_parallel switches the Riccati sweep to the
+    O(log N)-level associative-scan form (solvers/pscan.py), for long horizons or small
+    batches; its value propagation differs from the sequential split update by O(reg)."""
+
     max_iter: int = 30
     tol: float = 1e-6
     reg: float = 1e-6
     alphas: Tuple[float, ...] = (1.0, 0.5, 0.25, 0.1)
+    horizon_parallel: bool = False
 
 
 def check_precision() -> None:
@@ -158,7 +164,11 @@ def _ilqr_solve_impl(ocp, cfg, theta, x0, U_init):
             break
         live = ~done
         lin = _linearize(ocp, theta, X, U)
-        K, kff = _backward_pass(*lin, cfg.reg)
+        if cfg.horizon_parallel:
+            from .pscan import parallel_backward_pass  # here: pscan imports this module
+            K, kff = parallel_backward_pass(*lin, cfg.reg)
+        else:
+            K, kff = _backward_pass(*lin, cfg.reg)
         X_c, U_c, costs = _forward_pass(ocp, theta, x0, X, U, K, kff, alphas)
         # NaN candidates never win (+inf); the first minimum wins a tie.
         costs = torch.where(torch.isnan(costs), torch.full_like(costs, float("inf")), costs)
