@@ -111,6 +111,15 @@ population Algorithm 2 on the XLA engine, with and without a mesh). Phases, each
    main_<family>: the full-width paper path of each family, B=16384, N=50, H=300 in f32
              (the counts set to 0 just before each): K1-K4 launched, K3 and K4 exactly
              H times, at least 99% of the lanes finite;
+   prng:     the JAX package's threefry draws in the port (utils/prng.py; batched PyTorch
+             operations, as JAX computes them with XLA operations, no kernel): (a) bench.py's
+             draw, sample_disturbance(PRNGKey(0), (B, H)) in f32, of each family's setup on
+             the card, bitwise the same draw on the CPU (a worker process) and the JAX
+             package's (PRNG_JAX_SHA256, its SHA-256); (b) the cart-pole's paper loop on its
+             draw at full width: finite_lane_frac (>= 0.99), its lanes not finite and each
+             one's first step not finite; (c) the XLA engine's sequential Riccati sweep in
+             f32 on the quadrotor's first nominal iteration (N=200): its gains within
+             PRNG_K_TOL of the exact recursion (V_xx kept symmetric);
    population: the full-width paper path with population=True (B=16384, N=50, H=300, f32;
              the counts set to 0 just before it): K1-K4 launched from Dubins' libraries, K3
              and K4 exactly H times, at least 99% of the lanes finite, the logged θ the same
@@ -152,8 +161,8 @@ population Algorithm 2 on the XLA engine, with and without a mesh). Phases, each
    pscan:    the XLA engine's horizon-parallel sweep (solvers/pscan.py, ILQRConfig(
              horizon_parallel=True); batched PyTorch operations, no kernel): (a) its functions
              in f64 at PSCAN_B lanes on random LQ problems (PSCAN_SHAPES, N up to 1024) against
-             the sequential sweep, the exact-elimination recursion and the loop on the card,
-             and against the same calls on the CPU; (b) the f64 nominal solves of Dubins
+             the sequential sweep, the exact-elimination recursion (which holds the sequential
+             sweep too) and the loop on the card, and against the same calls on the CPU; (b) the f64 nominal solves of Dubins
              (against horizon_parallel=False and the CPU) and of the quadrotor at N=200
              (against the CPU); (c) the Dubins and quadrotor nominal solves at B=16384 in f32,
              both forms (iterations, ms, peak memory, finite lanes >= 0.99, their difference);
@@ -194,7 +203,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 
-SEED = 0  # every random number here comes from torch.Generator seeded from it
+SEED = 0  # every random number here comes from torch.Generator seeded from it, but the
+          # prng phase's and the CLI runs' (bench.py's and the configs' threefry keys)
 
 B, N, H = 16384, 50, 300  # the main paths: bench.py's paper and coupled workloads, full width and depth
 RAGGED_B, RAGGED_N = 1000, 37  # every kernel also here: B not a multiple of 32, N not of 3
@@ -294,13 +304,12 @@ XLA_CLI_H, XLA_NOMINAL_H = 2, 10
 # batched PyTorch operations, no kernel, as the JAX package's reaches no pl.pallas_call).
 # (a) random LQ problems (tests/test_pscan.py:22-39's recipe) at PSCAN_B lanes, f64, at
 # (n̂, nu, N); tolerances of tests/test_pscan.py:47-49, 74-75, 89 and, card against CPU,
-# tests/test_ilqr.py:196-197. The scan's gains are held against the sequential sweep's up
-# to PSCAN_SEQ_N steps: past that the split-update sequential sweep (the JAX package's
-# algorithm) parts from the exact elimination on these problems, so there they are held
-# against the exact-elimination recursion's gains alone (tests/test_torch_pscan.py).
+# tests/test_ilqr.py:196-197. The scan's gains and the sequential sweep's are each held
+# against the exact-elimination recursion's and against each other at every N (the
+# sequential sweep keeps V_xx symmetric, so at long N it stays with the exact elimination
+# where the JAX package's split update parts from it; tests/test_torch_riccati_symmetry.py).
 PSCAN_B = 64
 PSCAN_SHAPES = ((4, 2, 17), (5, 1, 32), (7, 2, 50), (4, 2, 1024))
-PSCAN_SEQ_N = 64
 PSCAN_TOL = {"gains": (1e-7, 1e-8), "values": (1e-7, 1e-9), "rollout": (1e-9, 1e-10),
              "cpu": (1e-7, 1e-9), "solve": (1e-5, 1e-7)}
 PSCAN_SOLVES = ("dubins", "quadrotor2d")   # (b) the f64 nominal solves, B=PSCAN_B
@@ -316,6 +325,22 @@ PSCAN_CALLS, PSCAN_CALLS_LONG, PSCAN_LONG_N = 5, 3, 256
 # Straggler compaction (phase compact): bench.py's default caps of the ancillary solves
 # (bench.py:205-227), the paper loop's without a gradient clip and the coupled loop's; the
 # widths at which K1 and K2 are timed (the stages' at B, lane_solver.stage_widths).
+PRNG_FAMILIES = ("dubins",) + FAMILIES
+# phase prng (a): bench.py:267's draw, System.sample_disturbance(PRNGKey(0), (B, H), float32),
+# of each family's bench.py setup in the JAX package (presets.dubins_paper_setup; for the
+# others configs/<family>.yaml built in f32): the SHA-256 of its values as little-endian
+# float32 in C order, as JAX 0.9.0 draws it eagerly on the CPU
+PRNG_JAX_SHA256 = {
+    "dubins": "a2f062d99dae988567e367f6cf29307119510f49ff703e2548225ee79c9eae03",
+    "double_integrator": "4e3002fcc727c677b50e09ce33ce77ebfc2bda3959f356a81f4c09f2336ea7cd",
+    "quadrotor2d": "e6353b5768b1bc542ed09a3028ccc90ce29522dbde7fb14ac3c219c88147ff1a",
+    "cartpole": "b8d4f1482f090e286224b60f0bac13745e8a057a6b6a9d22729e638cb6bd143e",
+}
+PRNG_LOOP = "cartpole"     # phase prng (b): the paper loop run on its bench.py draw
+PRNG_LANES_SHOWN = 20      # (b): the non-finite lanes printed, at most
+PRNG_K_LANES = 64          # (c): the lanes of the quadrotor's first iteration swept
+PRNG_K_TOL = 1e-3          # (c): max |K - K_exact| of the f32 sequential sweep on the card
+
 COMPACT_CAPS = {"paper": (2, 5, 8), "coupled": (1, 3, 5)}
 COMPACT_WIDTHS = (8192, 4096, 2048)
 # phase compact runs each loop compacted, then uncompacted again, after the phase's own
@@ -509,6 +534,19 @@ def minlog_config(variant, adapt_nominal=None):
                                                                    adapt_nominal=adapt_nominal))
 
 
+def torch_draw(system, gen, shape, dtype):
+    """Disturbances [*shape, nx], uniform within `system`'s bounds, from the seeded
+    torch.Generator `gen` on its device: every phase's draw but prng's and the CLI's, so
+    that those phases keep the data of the runs recorded in PERF.md, the tie-sensitive
+    loop64 checks above all (the package draws from threefry keys, utils/prng.py)."""
+    import torch
+
+    low, high = system.w_low.to(dtype), system.w_high.to(dtype)
+    u01 = torch.rand(tuple(shape) + (system.nx,), generator=gen, dtype=dtype,
+                     device=gen.device)
+    return low.to(u01.device) + (high - low).to(u01.device) * u01
+
+
 def paper_setup(family, N_, H_, where, dtype):
     """The paper setup of `family` at N_, H_: Dubins' presets.dubins_paper_setup, a family's
     presets.family_paper_setup, a MINLOG configuration's in paper mode."""
@@ -669,7 +707,7 @@ def paper_step(torch, dev, dtype, family="dubins", N_=N):
     state = paper_lane_init_state(s.system, s.aug, s.cfg, aux_init=s.aux_init, bp=s.bp,
                                   x0=s.x0, B=B, dtype=dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    w = s.system.sample_disturbance(gen, (B, 3), dtype=dtype)
+    w = torch_draw(s.system, gen, (B, 3), dtype)
     for t in range(3):
         state, _ = step(state, w[:, t])
     x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
@@ -769,7 +807,7 @@ def loop64_case(torch, kind, family, where, H_=LOOP64_H, scale=1.0):
         st = (dataclasses.replace(st[0], x0=st[0].x0 * scale), *st[1:])
         run, s = (lambda st_, w_, where_: run_coupled(*st_, w_, where_)), st[0]
     gen = torch.Generator().manual_seed(LOOP64_CASES[kind, family])
-    w = s.system.sample_disturbance(gen, (LOOP64_B, H_), dtype=f64).to(where) * scale
+    w = torch_draw(s.system, gen, (LOOP64_B, H_), f64).to(where) * scale
     return st, run, w
 
 
@@ -806,7 +844,7 @@ def xla64_case(torch, kind, where):
     gen = torch.Generator().manual_seed(XLA_CASES[kind])
     if kind == "paper":
         s = paper_setup("dubins", N, LOOP64_H, where, f64)
-        w = s.system.sample_disturbance(gen, (LOOP64_B, LOOP64_H), dtype=f64).to(where)
+        w = torch_draw(s.system, gen, (LOOP64_B, LOOP64_H), f64).to(where)
 
         def run(engine):
             if engine == "lanes":
@@ -817,7 +855,7 @@ def xla64_case(torch, kind, where):
         return run, w
     s, cfg, raw_nom, raw_aux = coupled_setup(torch, LOOP64_H, where, f64)
     cfg = dataclasses.replace(cfg, adapt=dataclasses.replace(cfg.adapt, grad_clip_norm=0.0))
-    w = s.system.sample_disturbance(gen, (LOOP64_B, LOOP64_H), dtype=f64).to(where)
+    w = torch_draw(s.system, gen, (LOOP64_B, LOOP64_H), f64).to(where)
 
     def run(engine):
         if engine == "lanes":
@@ -850,7 +888,7 @@ def population64_case(torch, where):
     f64 = torch.float64
     s = paper_setup("dubins", N, POP64_H, where, f64)
     gen = torch.Generator().manual_seed(SEED + 92)
-    w = s.system.sample_disturbance(gen, (POP64_B, POP64_H), dtype=f64).to(where)
+    w = torch_draw(s.system, gen, (POP64_B, POP64_H), f64).to(where)
     spread = torch.rand((POP64_B, 3), generator=gen, dtype=f64) - 0.5
     x0 = s.x0 + (spread * torch.tensor([1.0, 1.0, 0.0], dtype=f64)).to(where)
     return lambda: run_population_adaptation(
@@ -938,7 +976,7 @@ def coupled_step(torch, dev, dtype, family="dubins", N_=N, solver=False):
     seed = {"dubins": SEED + 4, **{f: SEED + 40 + i for i, f in enumerate(FAMILIES)},
             **{v: SEED + 80 + i for i, v in enumerate(MINLOG)}}[family]
     gen = torch.Generator(device=dev).manual_seed(seed)
-    w = s.system.sample_disturbance(gen, (B, 3), dtype=dtype)
+    w = torch_draw(s.system, gen, (B, 3), dtype)
     for t in range(3):
         state, _ = step(state, w[:, t])
     zero_t = torch.zeros((B,), dtype=dtype, device=dev)
@@ -1165,8 +1203,8 @@ def xla_phase(torch, dev, t_start):
     for name, s, run, Nr, Hc, seed in (
             ("paper", ps, paper, N, H, SEED + 93),
             (f"{XLA_FAMILY}_coupled", fs, coupled, Nc, family_cfg.task_horizon_H, SEED + 94)):
-        w = s.system.sample_disturbance(torch.Generator(device=dev).manual_seed(seed),
-                                        (B, XLA_H), dtype=f32)
+        w = torch_draw(s.system, torch.Generator(device=dev).manual_seed(seed), (B, XLA_H),
+                       f32)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         iterations[0] = 0
@@ -1195,8 +1233,7 @@ def xla_phase(torch, dev, t_start):
         del out
 
     # the device's busy share over one paper step at full width
-    w1 = ps.system.sample_disturbance(torch.Generator(device=dev).manual_seed(SEED + 95),
-                                      (B, 1), dtype=f32)
+    w1 = torch_draw(ps.system, torch.Generator(device=dev).manual_seed(SEED + 95), (B, 1), f32)
     t0 = time.perf_counter()
     paper(w1, 1)
     torch.cuda.synchronize()
@@ -1415,7 +1452,8 @@ def held_close(torch, what, got, ref, tol, problems):
 def pscan_agreement(torch, dev, problems):
     """Phase pscan (a): every public function of solvers/pscan.py on the card at PSCAN_B
     lanes in f64, on PSCAN_SHAPES: against the sequential forms on the card, and against
-    the same call on the CPU."""
+    the same call on the CPU; the sequential sweep's gains also against the exact
+    recursion."""
     from tube_mpc_tpu_torch.solvers.ilqr import _backward_pass
     from tube_mpc_tpu_torch.solvers.pscan import (parallel_affine_rollout,
                                                    parallel_backward_pass, riccati_value_sweep)
@@ -1430,15 +1468,13 @@ def pscan_agreement(torch, dev, problems):
         K_s, k_s = _backward_pass(*data, 1e-9)
         _, _, K_e, k_e = exact_recursion(torch, *data, reg=1e-9)
         for name, got, ref in (("K", K_p, K_s), ("kff", k_p, k_s)):
-            if Ns <= PSCAN_SEQ_N:
-                held_close(torch, f"{at}: parallel_backward_pass {name} - the sequential sweep's",
-                           got, ref, PSCAN_TOL["gains"], problems)
-            else:
-                log(f"[pscan] {at}: parallel_backward_pass {name} - the sequential sweep's, not "
-                    f"held (the split update parts from it): max |diff| = "
-                    f"{float((got - ref).abs().max())!r}")
+            exact = K_e if name == "K" else k_e
+            held_close(torch, f"{at}: parallel_backward_pass {name} - the sequential sweep's",
+                       got, ref, PSCAN_TOL["gains"], problems)
             held_close(torch, f"{at}: parallel_backward_pass {name} - the exact recursion's",
-                       got, K_e if name == "K" else k_e, PSCAN_TOL["gains"], problems)
+                       got, exact, PSCAN_TOL["gains"], problems)
+            held_close(torch, f"{at}: the sequential sweep's {name} - the exact recursion's",
+                       ref, exact, PSCAN_TOL["gains"], problems)
         V_x, V_xx = riccati_value_sweep(*data, elem_reg=0.0)
         E_x, E_xx, K0, k0 = exact_recursion(torch, *data)
         held_close(torch, f"{at}: riccati_value_sweep V_x - the exact recursion's", V_x, E_x,
@@ -1655,7 +1691,7 @@ def pscan_full_width(torch, dev, x_last, problems):
             f"{[float(v) for v in torch.nanquantile(du, q)]}, |dJ| / |J| "
             f"{[float(v) for v in torch.nanquantile(dj, q)]}; total cost median "
             f"{float(J_p.nanmedian())!r} (horizon_parallel), {float(J_s.nanmedian())!r} "
-            f"(sequential)")
+            f"(sequential), their ratio {float(J_s.nanmedian() / J_p.nanmedian())!r}")
         del out, X_p, U_p, X_s, U_s
 
 
@@ -1735,6 +1771,121 @@ def pscan_phase(torch, dev, t_start, x_last, cpu_solves):
         f"{time.perf_counter() - t0:.1f} s)")
 
 
+def bench_setup(family, where):
+    """bench.py's paper setup of `family` in f32 at N and H: presets.dubins_paper_setup, or
+    configs/<family>.yaml (presets.family_paper_setup)."""
+    import torch
+
+    from tube_mpc_tpu_torch.presets import dubins_paper_setup, family_paper_setup
+
+    if family == "dubins":
+        return dubins_paper_setup(N=N, H=H, device=where, dtype=torch.float32)
+    return family_paper_setup(family, N=N, H=H, device=where, dtype=torch.float32)
+
+
+def bench_draw(system, where):
+    """bench.py:267's draw: system.sample_disturbance(PRNGKey(0), (B, H)) in f32 on `where`."""
+    import torch
+
+    from tube_mpc_tpu_torch.utils.prng import PRNGKey
+
+    return system.sample_disturbance(PRNGKey(0, where), (B, H), dtype=torch.float32)
+
+
+def sha256(array) -> str:
+    """The SHA-256 of a float32 array's values, little-endian, in C order."""
+    import hashlib
+
+    return hashlib.sha256(array.astype("<f4").tobytes()).hexdigest()
+
+
+def cpu_bench_draws():
+    """Phase prng (a)'s CPU side, in a worker process: the SHA-256 of each family's
+    bench_draw on the CPU -> ({family: digest}, seconds)."""
+    t0 = time.perf_counter()
+    out = {f: sha256(bench_draw(bench_setup(f, "cpu").system, "cpu").numpy())
+           for f in PRNG_FAMILIES}
+    return out, time.perf_counter() - t0
+
+
+def prng_phase(torch, dev, t_start, cpu_draws):
+    """Phase prng: (a) each family's bench.py draw (bench_draw) on the card, bitwise the
+    CPU's (cpu_draws: cpu_bench_draws' job) and the JAX package's (PRNG_JAX_SHA256); (b)
+    PRNG_LOOP's paper loop on its draw at full width: finite_lane_frac (>= 0.99), the lanes
+    whose last loss is not finite and each one's first step with a logged value not
+    finite; (c) the quadrotor's first nominal iteration (pscan_quadrotor, f32): the
+    sequential sweep's gains on the card against the exact recursion in f64 on the CPU,
+    within PRNG_K_TOL. Any miss fails the run."""
+    from tube_mpc_tpu_torch.solvers import ilqr
+    from tube_mpc_tpu_torch.tube.closed_loop import ClosedLoopLog
+
+    t0 = time.perf_counter()
+    problems = []
+    on_cpu, cpu_s = cpu_draws.get()
+    log(f"[prng] (a) the CPU's draws took {cpu_s:.1f} s in a worker process")
+    for family in PRNG_FAMILIES:
+        s = bench_setup(family, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        w = bench_draw(s.system, dev)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t1)
+        digest = sha256(w.cpu().numpy())
+        same = (digest == on_cpu[family], digest == PRNG_JAX_SHA256[family])
+        log(f"[prng] (a) {family}: sample_disturbance(PRNGKey(0), ({B}, {H})) f32, "
+            f"{tuple(w.shape)}, in {ms:.1f} ms on the card, min {float(w.min())!r}, max "
+            f"{float(w.max())!r}; SHA-256 {digest}: the CPU's {'same' if same[0] else 'DIFFERS'}"
+            f", the JAX package's {'same' if same[1] else 'DIFFERS'} -> "
+            f"{'ok' if all(same) else 'FAIL'}")
+        if not all(same):
+            problems.append(f"(a) {family}'s draw (cpu, jax: {same})")
+        if family == PRNG_LOOP:
+            loop = (s, w)
+        del s, w
+    log(f"[prng] (a) done in {time.perf_counter() - t0:.1f} s")
+
+    s, w = loop
+    t1 = time.perf_counter()
+    out = run_paper_loop(s, w, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    finite = torch.isfinite(out.loss[:, -1])
+    frac = float(finite.float().mean())
+    # a step is finite where every logged value of the lane is
+    ok = torch.stack([torch.isfinite(getattr(out, f)).reshape(B, H, -1).all(dim=-1)
+                      for f in ClosedLoopLog._fields]).all(dim=0)
+    lanes = (~finite).nonzero()[:, 0].tolist()
+    first = (~ok).float().argmax(dim=1)
+    shown = {b: int(first[b]) for b in lanes[:PRNG_LANES_SHOWN]}
+    log(f"[prng] (b) {PRNG_LOOP} paper loop on its bench.py draw, B={B}, N={N}, H={H}, f32: "
+        f"{wall:.3f} s, finite_lane_frac {frac!r}, {len(lanes)} lanes not finite; lane: first "
+        f"step not finite {json.dumps(shown)}")
+    if frac < 0.99:
+        problems.append(f"(b) finite_lane_frac {frac} < 0.99")
+    del out, loop, s, w
+
+    t1 = time.perf_counter()
+    ocp, theta, x0, U0, cfg, Nq = pscan_quadrotor(
+        torch, dev, B, torch.float32, torch.Generator(device=dev).manual_seed(SEED + 122))
+    U = ocp.clamp(U0)
+    lin = [t[:PRNG_K_LANES] for t in ilqr._linearize(ocp, theta, ilqr.rollout(ocp, theta, x0, U),
+                                                     U)]
+    K = ilqr._backward_pass(*lin, cfg.reg)[0].cpu().double()
+    exact = exact_recursion(torch, *(t.cpu().double() for t in lin), reg=cfg.reg)[2]
+    err = float((K - exact).abs().max())
+    ok_k = bool(torch.isfinite(K).all()) and err <= PRNG_K_TOL
+    log(f"[prng] (c) quadrotor2d, first nominal iteration, N={Nq}, {PRNG_K_LANES} lanes, f32 "
+        f"on the card, reg {cfg.reg}: the sequential sweep's max |K - K_exact| = {err!r} "
+        f"(max |K_exact| {float(exact.abs().max())!r}; held <= {PRNG_K_TOL}) -> "
+        f"{'ok' if ok_k else 'FAIL'} ({time.perf_counter() - t1:.1f} s)")
+    if not ok_k:
+        problems.append(f"(c) the sequential gains are {err} off")
+    if problems:
+        raise SystemExit(f"chip_smoke: phase prng failed: {problems}")
+    log(f"[prng] done at {time.perf_counter() - t_start:.0f} s (the phase "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
 def bitwise(a, b) -> bool:
     """Whether two tensors hold the same values, NaN where NaN."""
     return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
@@ -1790,8 +1941,8 @@ def scenario_phases(torch, dev, t_start, cpu_pop64):
 
     # ---- population: the paper lane loop, one θ shared by the lanes ---------------------
     s = dubins_paper_setup(N=N, H=H, device=dev, dtype=f32)
-    w = s.system.sample_disturbance(torch.Generator(device=dev).manual_seed(SEED + 80), (B, H),
-                                    dtype=f32)
+    w = torch_draw(s.system, torch.Generator(device=dev).manual_seed(SEED + 80), (B, H),
+                   f32)
     out, wall, counts = timed(lambda: run_paper_loop(s, w, dev, population=True))
     finite = float(torch.isfinite(out.loss[:, -1]).float().mean())
     moved = float((out.Q_hist[0, -1] - s.aux_init.Q).abs().max())
@@ -2599,6 +2750,7 @@ def run_phases(torch, pool, stack) -> int:
                for kind in XLA_CASES}
     cpu_pop64 = pool.apply_async(cpu_population64, callback=done("population64"))
     cpu_pscan = pool.apply_async(cpu_pscan_solves, callback=done("pscan solves"))
+    cpu_draws = pool.apply_async(cpu_bench_draws, callback=done("prng draws"))
     # a chaotic loop's CPU side also with its start and disturbances times 1 + 1e-15
     cpu_perturbed = {(kind, family): pool.apply_async(
         cpu_loop64, (kind, family, LOOP64_H, 1.0 + 1e-15),
@@ -2746,7 +2898,7 @@ def run_phases(torch, pool, stack) -> int:
     # ---- 6. the full-width paper path ---------------------------------------------
     s = dubins_paper_setup(N=N, H=H, device=dev, dtype=torch.float32)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    w = s.system.sample_disturbance(gen, (B, H), dtype=torch.float32)
+    w = torch_draw(s.system, gen, (B, H), torch.float32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -2778,7 +2930,7 @@ def run_phases(torch, pool, stack) -> int:
     # ---- 7. the full-width coupled path ---------------------------------------------
     s, cfg, raw_nom, raw_aux = coupled_setup(torch, H, dev, torch.float32)
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-    w = s.system.sample_disturbance(gen, (B, H), dtype=torch.float32)
+    w = torch_draw(s.system, gen, (B, H), torch.float32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -2826,7 +2978,7 @@ def run_phases(torch, pool, stack) -> int:
         s = family_paper_setup(family, N=N, H=H, device=dev, dtype=torch.float32)
         nx, nu = s.system.nx, s.system.nu
         gen = torch.Generator(device=dev).manual_seed(SEED + 30 + FAMILIES.index(family))
-        w = s.system.sample_disturbance(gen, (B, H), dtype=torch.float32)
+        w = torch_draw(s.system, gen, (B, H), torch.float32)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -2855,6 +3007,9 @@ def run_phases(torch, pool, stack) -> int:
             raise SystemExit(f"chip_smoke: {family}'s closed-loop log has the wrong shapes")
         del out
     log(f"[main families] done at {time.perf_counter() - t_start:.0f} s")
+
+    # ---- bench.py's threefry draws on the card, a loop on one, the repaired sequential sweep
+    prng_phase(torch, dev, t_start, cpu_draws)
 
     # ---- the scenario layer: population mode, tube verification, population Algorithm 2,
     # and the sharded paths over a one-rank NCCL mesh -------------------------------------
@@ -2925,8 +3080,8 @@ def run_phases(torch, pool, stack) -> int:
             log(f"[profile] {label}   {us / 1e3:10.3f} ms  x{count:<6d} {key[:110]}")
 
     s = dubins_paper_setup(N=N, H=PROFILE_H, device=dev, dtype=torch.float32)
-    w = s.system.sample_disturbance(torch.Generator(device=dev).manual_seed(SEED + 3),
-                                    (B, PROFILE_H), dtype=torch.float32)
+    w = torch_draw(s.system, torch.Generator(device=dev).manual_seed(SEED + 3), (B, PROFILE_H),
+                   torch.float32)
 
     def paper_steps():
         run_paper_loop(s, w, dev)
@@ -2934,8 +3089,8 @@ def run_phases(torch, pool, stack) -> int:
 
     profile_phase("paper", paper_steps)
     sc, cfg, raw_nom, raw_aux = coupled_setup(torch, PROFILE_H, dev, torch.float32)
-    wc = sc.system.sample_disturbance(torch.Generator(device=dev).manual_seed(SEED + 7),
-                                      (B, PROFILE_H), dtype=torch.float32)
+    wc = torch_draw(sc.system, torch.Generator(device=dev).manual_seed(SEED + 7),
+                    (B, PROFILE_H), torch.float32)
 
     def coupled_steps():
         run_coupled(sc, cfg, raw_nom, raw_aux, wc, dev)

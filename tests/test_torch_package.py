@@ -129,6 +129,17 @@ def test_scenario_layer_modules_are_held_by_the_no_jax_rule():
         "vmap_paper_closed_loop", "tube_verification", "TubeStats", "run_population_adaptation"]
 
 
+def test_prng_module_is_held_by_the_no_jax_rule():
+    """The no-JAX rule above covers the threefry draws (utils/prng.py) that every entry
+    point's disturbances come from, and no function of the package draws from a
+    torch.Generator any more: each takes the JAX function's key."""
+    held = {str(p.relative_to(PKG)) for p in _sources() if PKG in p.parents}
+    assert "utils/prng.py" in held
+    for path in _sources():
+        if PKG in path.parents:
+            assert "torch.Generator" not in path.read_text(), path.relative_to(REPO)
+
+
 def test_package_imports_without_nvcc_and_builds_nothing():
     """Every module imports in a process whose PATH holds no nvcc, importing builds no
     kernel, and nothing imports matplotlib (only plot_run does, when called)."""

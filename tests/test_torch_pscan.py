@@ -199,10 +199,10 @@ def test_value_sweep_matches_the_exact_recursion():
 
 @pytest.mark.parametrize("N", [256, 1024])
 def test_parallel_gains_match_the_exact_recursion_at_long_horizons(N):
-    """Past a few hundred steps of these problems the sequential sweep's split value update
-    (which the JAX package's sequential sweep shares) parts from the exact elimination, by
-    far more than O(reg), so the two sweeps' gains are not held against each other there.
-    The scan's gains stay with the exact recursion's, at tests/test_pscan.py's tolerance of
+    """Past a few hundred steps of these problems the JAX package's sequential sweep (the
+    split value update) parts from the exact elimination, by far more than O(reg); the
+    port's keeps V_xx symmetric and does not (tests/test_torch_riccati_symmetry.py). The
+    scan's gains stay with the exact recursion's, at tests/test_pscan.py's tolerance of
     the gains."""
     data = [t64(a) for a in random_lq(3, LANES, N, 4, 2)]
     K_p, _ = P.parallel_backward_pass(*data, 1e-9)

@@ -20,11 +20,11 @@ B = 6   # three lanes a rank on two ranks
 def case():
     """(setup, w [B, H, nx], x0 [B, nx]) at N=5, H=4 in f64 on the CPU."""
     from tube_mpc_tpu_torch.presets import dubins_paper_setup
+    from tube_mpc_tpu_torch.utils.prng import PRNGKey
 
     s = dubins_paper_setup(N=5, H=4, device="cpu", dtype=torch.float64, nominal_max_iter=3,
                            aux_max_iter=3, alphas=(1.0, 0.5, 0.0))
-    w = s.system.sample_disturbance(torch.Generator().manual_seed(11), (B, s.cfg.H),
-                                    dtype=torch.float64)
+    w = s.system.sample_disturbance(PRNGKey(11), (B, s.cfg.H), dtype=torch.float64)
     x0 = s.x0 + 0.05 * torch.arange(B, dtype=torch.float64)[:, None]
     return s, w, x0
 

@@ -1,7 +1,8 @@
 """The setup of tests/test_parallel.py:28-45 (Dubins, two circles, smooth-min at beta 20,
 the inverse barrier at eps 1e-4, N=6, H=4, four iterations per solve, f64) in both
 packages, from the same numbers, and the JAX package's per-key disturbance draws, which
-the port takes as w_seqs (it has no counterpart of jax.random's keys)."""
+the port takes as w_seqs (its own draws from the same keys are bitwise these:
+tests/test_torch_runner_draws.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np

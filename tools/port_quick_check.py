@@ -95,8 +95,8 @@ def main() -> int:
                 run = lambda w: run_generic_closed_loop_lanes(
                     s.system, s.aug, s.sys_c, s.cfg, raw_nom=raw_nom, raw_aux_init=raw_aux,
                     x0=s.x0, target=s.target, w_seqs=w, eps=s.eps, device=dev)[0]
-            w = s.system.sample_disturbance(torch.Generator(device=dev).manual_seed(1),
-                                            (cs.B, 5), dtype=torch.float32)
+            w = cs.torch_draw(s.system, torch.Generator(device=dev).manual_seed(1), (cs.B, 5),
+                              torch.float32)
             reset_launch_counts()
             t1 = time.perf_counter()
             out = run(w)

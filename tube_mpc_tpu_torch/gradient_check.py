@@ -9,8 +9,8 @@ the config, at Q_nominal[0] + eps and - eps under one disturbance draw, and prin
 central difference beside the analytic dL/dQ_nominal[0] of the same final loss, by
 torch.autograd.grad through the differentiable closed loop
 (tube/closed_loop.make_paper_closed_loop_diff; paper mode only). The same flags and
-JSON, with --device in place of --platform. The disturbances come from a torch.Generator
-seeded with the config's seed, not the root CLI's PRNGKey draw.
+JSON, with --device in place of --platform. The disturbances are the root CLI's draw,
+bitwise: [H, nx] from PRNGKey(seed) of the config's seed (utils/prng.py).
 """
 from __future__ import annotations
 
@@ -42,6 +42,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     from .runners import run_experiment
     from .tube.closed_loop import make_paper_closed_loop_diff
     from .utils.config import build_experiment, parse_config, read_yaml
+    from .utils.prng import PRNGKey
 
     torch.set_float32_matmul_precision("highest")
     raw = copy.deepcopy(read_yaml(args.config))
@@ -58,8 +59,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
 
     # one disturbance draw for all three runs
     built = build_experiment(cfg, device=args.device)
-    gen = torch.Generator(device=built.device).manual_seed(cfg.seed)
-    w_seq = built.system.sample_disturbance(gen, (H,), dtype=cfg.dtype)
+    w_seq = built.system.sample_disturbance(PRNGKey(cfg.seed, built.device), (H,),
+                                            dtype=cfg.dtype)
 
     def loss_for(raw_cfg) -> float:
         with tempfile.TemporaryDirectory() as d:

@@ -14,8 +14,8 @@ tube_mpc_tpu/parallel/scenarios.py).
    a mesh (parallel/mesh.py) each rank runs its share of the scenarios and the sums behind
    that mean are all_reduce'd over the ranks every step, so θ stays the same on each.
 
-Disturbances are ``w_seqs`` [B, H, nx], or drawn from a ``generator`` for ``batch``
-scenarios: the JAX package's PRNG keys have no counterpart here.
+Disturbances are ``w_seqs`` [B, H, nx], or drawn from ``keys`` [B, 2], one [H, nx] a key
+(utils/prng.py), bitwise as the JAX package draws them from the same keys.
 """
 from __future__ import annotations
 
@@ -50,15 +50,14 @@ from ..tube.problem import AuxTheta, NominalTheta, expand_lanes, make_aux_ocp, m
 def vmap_paper_closed_loop(system: System, aug: AugmentedDynamics, cfg: TubeMPCConfig, *,
                            w_nominal: CostWeights, aux_init: AuxAdapt, bp: BarrierParams,
                            x0: Tensor, target: Tensor, w_seqs: Optional[Tensor] = None,
-                           generator: Optional[torch.Generator] = None,
-                           batch: Optional[int] = None,
+                           keys: Optional[Tensor] = None,
                            device: DeviceLike = None) -> ClosedLoopLog:
     """B independent adaptive closed loops under the disturbances ``w_seqs`` [B, H, nx]
-    (or drawn from ``generator`` for ``batch`` scenarios); a ClosedLoopLog of [B, H, ...].
+    (or drawn from ``keys`` [B, 2], one [H, nx] a key); a ClosedLoopLog of [B, H, ...].
     Runs on the card unless device='cpu'."""
     return run_paper_closed_loop(system, aug, cfg, w_nominal=w_nominal, aux_init=aux_init,
-                                 bp=bp, x0=x0, target=target, w_seq=w_seqs,
-                                 generator=generator, batch=batch, device=device)
+                                 bp=bp, x0=x0, target=target, w_seq=w_seqs, key=keys,
+                                 device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -84,8 +83,7 @@ def tube_verification(
     x0: Tensor,
     target: Tensor,
     w_seqs: Optional[Tensor] = None,
-    generator: Optional[torch.Generator] = None,
-    batch: Optional[int] = None,
+    keys: Optional[Tensor] = None,
     h_exact=None,
     sys_c=None,
     eps: float = 1e-4,
@@ -96,9 +94,10 @@ def tube_verification(
     safety statistics against each scenario's disturbance-free nominal trajectory, with
     ``h_exact`` (default ``system.h``) as the safety function.
 
-    The loops run on the XLA engine, or with ``sys_c`` (a ComponentSystem, ops/lanes.py)
-    on the lane kernels, from the same disturbances either way. Runs on the card unless
-    device='cpu'."""
+    The disturbances are ``w_seqs`` [B, H, nx] or one [H, nx] drawn from each of ``keys``
+    [B, 2]. The loops run on the XLA engine, or with ``sys_c`` (a ComponentSystem,
+    ops/lanes.py) on the lane kernels, from the same disturbances either way. Runs on the
+    card unless device='cpu'."""
     dev = resolve_device(device)
     if h_exact is None:
         h_exact = system.h
@@ -109,7 +108,7 @@ def tube_verification(
         adapt=AdaptConfig(lr=0.0, momentum=0.0),  # frozen weights
     )
     aux_init = AuxAdapt(Q=w_aux.Q, R=w_aux.R, qb=w_aux.qb)
-    w_seqs = _disturbances(system, cfg.H, w_seqs, generator, batch, x0.dtype)
+    w_seqs = _disturbances(system, cfg.H, w_seqs, keys, x0.dtype)
     kw = dict(w_nominal=w_nominal, aux_init=aux_init, bp=bp, x0=x0, target=target,
               device=dev)
     if sys_c is not None:

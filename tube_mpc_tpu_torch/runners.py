@@ -38,6 +38,7 @@ from .utils.config import (
 )
 from .utils.debug import check_finite_log
 from .utils.io import as_float64, save_closed_loop_log, save_json
+from .utils.prng import PRNGKey, split
 
 
 def raw_thetas(cfg: ExperimentConfig, device: torch.device) -> Tuple[RawNominalTheta, RawAuxTheta]:
@@ -76,11 +77,11 @@ def run_experiment(cfg: ExperimentConfig, run_dir: str, *, w_seq=None,
     engine="lanes" is always float32, as the JAX lane engine: a use_float64 config is
     rebuilt at f32 and the summary's dtype says so. engine="xla" runs in the config's
     dtype. Disturbances are ``w_seq`` ([H, nx] or [B, H, nx]), or else drawn for ``batch``
-    lanes (default 1) from a torch.Generator on the run's device seeded with cfg.seed.
-    That draw is not the JAX runner's jax.random.PRNGKey(cfg.seed) draw, which the port
-    cannot replay: the same config gives other disturbances, and so another run, than the
-    JAX package's unless w_seq is passed. Lane 0 is saved as the single-run artifacts;
-    with more than one lane, every field also as <field>_batch.npy.
+    lanes (default 1) from key = PRNGKey(cfg.seed) on the run's device (utils/prng.py),
+    bitwise as the JAX runner draws them: the lane engine [B, H, nx] from the key, the XLA
+    engine [H, nx] from the key for one lane and one [H, nx] from each of split(key, B)
+    for B > 1. Lane 0 is saved as the single-run artifacts; with more than one lane,
+    every field also as <field>_batch.npy.
 
     checkpoint_every: run the closed loop in resumable segments of this many steps, the
     carry written to <run_dir>/ckpt after each (utils/checkpoint.py); the same call with
@@ -120,7 +121,11 @@ def run_experiment(cfg: ExperimentConfig, run_dir: str, *, w_seq=None,
         B = w_seq.shape[0]
     else:
         B = max(B, 1)
-        draw = dict(generator=torch.Generator(device=dev).manual_seed(cfg.seed), batch=B)
+        key = PRNGKey(cfg.seed, dev)
+        if engine == "lanes":
+            draw = dict(key=key, batch=B)
+        else:
+            draw = dict(key=split(key, B) if B > 1 else key)
     ckpt = dict(ckpt_dir=os.path.join(run_dir, "ckpt"),
                 segment_len=int(checkpoint_every)) if checkpoint_every else {}
     if engine == "xla":

@@ -74,13 +74,29 @@ def _linearize(ocp: OCP, theta, X: Tensor, U: Tensor):
     return A, B, lx, lu, lxx, luu, lux, phi_x, phi_xx
 
 
+def _value_update(Q_x, Q_u, Q_xx, Q_ux, Q_uu, K, kff):
+    """One step's (V_x, V_xx) by the split update, V_xx then made symmetric: the update
+    carries an antisymmetric part of V_xx forward and can grow it, from the products'
+    rounding, until the gains are lost; ½(V_xx + V_xxᵀ) is symmetric to the bit."""
+    Kt, Q_xu = _mT(K), _mT(Q_ux)
+    V_x = Q_x + _mv(Kt @ Q_uu, kff) + _mv(Kt, Q_u) + _mv(Q_xu, kff)
+    V_xx = Q_xx + Kt @ Q_uu @ K + Kt @ Q_ux + Q_xu @ K
+    return V_x, 0.5 * (V_xx + _mT(V_xx))
+
+
 def _backward_pass(A, B, lx, lu, lxx, luu, lux, phi_x, phi_xx, reg: float):
     """The Riccati recursion over k = N-1..0 -> (K [B, N, nu, n̂], kff [B, N, nu]).
 
     The carry holds V scaled: the true V is exp(log_s)·(V_x, V_xx), renormalised
     whenever a lane's largest entry passes the threshold. Gains are scale-invariant;
     below the threshold log_s stays exactly 0.0 and every inv_s multiply is an exact
-    identity, so the recursion is the unscaled one."""
+    identity, so the recursion is the unscaled one.
+
+    V_xx is made symmetric after every step, ½(V_xx + V_xxᵀ), which the JAX package's
+    sweep does not do: without it the split value update grows the antisymmetric part that
+    rounding leaves in V_xx at long horizons, and its gains part from the exact recursion's
+    (at N=1024 in f64 on random LQ problems, and from the first iteration of the quadrotor's
+    N=200 OCP in f32 on the card; tools/riccati_asymmetry_probe.py)."""
     N, nu = B.shape[1], B.shape[-1]
     eye = torch.eye(nu, dtype=B.dtype, device=B.device)
     thresh = _V_SCALE_THRESH if range_guard_default(B.dtype) else _V_SCALE_THRESH_F64
@@ -103,9 +119,7 @@ def _backward_pass(A, B, lx, lu, lxx, luu, lux, phi_x, phi_xx, reg: float):
         Kk = -solve_spd(Q_uu_reg, torch.cat([Q_ux, Q_u[..., None]], dim=-1))
         K, kff = Kk[..., :-1], Kk[..., -1]
 
-        Kt, Q_xu = _mT(K), _mT(Q_ux)
-        V_x_new = Q_x + _mv(Kt @ Q_uu, kff) + _mv(Kt, Q_u) + _mv(Q_xu, kff)
-        V_xx_new = Q_xx + Kt @ Q_uu @ K + Kt @ Q_ux + Q_xu @ K
+        V_x_new, V_xx_new = _value_update(Q_x, Q_u, Q_xx, Q_ux, Q_uu, K, kff)
         m = torch.maximum(torch.amax(torch.abs(V_xx_new), dim=(-2, -1)),
                           torch.amax(torch.abs(V_x_new), dim=-1))
         scale = torch.where(m > thresh, m / thresh, torch.ones_like(m))

@@ -11,6 +11,8 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import Tensor
 
+from ..utils import prng
+
 
 @dataclasses.dataclass(frozen=True)
 class System:
@@ -71,14 +73,14 @@ class System:
         """The control dims at (within tol of) their bounds."""
         return (u <= self.u_min + tol) | (u >= self.u_max - tol)
 
-    def sample_disturbance(self, generator: torch.Generator, shape=(), dtype=None) -> Tensor:
-        """Uniform w ~ U[w_low, w_high] of shape [*shape, nx], drawn from ``generator``
-        on the generator's device."""
+    def sample_disturbance(self, key: Tensor, shape=(), dtype=None) -> Tensor:
+        """Uniform w ~ U[w_low, w_high] of shape [*key.shape[:-1], *shape, nx], drawn from
+        the threefry key ``key`` (utils/prng.py; a batch of keys draws as jax.vmap over
+        them) on the key's device: bitwise the JAX package's draw from the same key."""
         if self.w_low is None or self.w_high is None:
             raise ValueError(f"System {self.name} has no disturbance bounds")
         dtype = dtype or self.w_low.dtype
-        low = self.w_low.to(dtype)
-        high = self.w_high.to(dtype)
-        u01 = torch.rand(tuple(shape) + (self.nx,), generator=generator, dtype=dtype,
-                         device=generator.device)
-        return low.to(u01.device) + (high - low).to(u01.device) * u01
+        u01 = prng.uniform(key, tuple(shape) + (self.nx,), dtype=dtype)
+        low = self.w_low.to(dtype=dtype, device=u01.device)
+        high = self.w_high.to(dtype=dtype, device=u01.device)
+        return low + (high - low) * u01

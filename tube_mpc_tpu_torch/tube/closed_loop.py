@@ -107,12 +107,14 @@ def _lane_update(params, grads, vel, cfg: AdaptConfig, project_fn):
     return momentum_update(params, grads, vel, cfg, project_fn)
 
 
-def _disturbances(system: System, H: int, w_seq, generator, batch, dtype) -> Tensor:
-    """w_seq as [B, H, nx] ([H, nx] is one lane), or else drawn for ``batch`` lanes."""
+def _disturbances(system: System, H: int, w_seq, key, dtype) -> Tensor:
+    """w_seq as [B, H, nx] ([H, nx] is one lane), or else drawn from ``key``: one key [2]
+    draws one lane's [H, nx], a batch of keys [B, 2] one [H, nx] each, as the JAX package's
+    loop under jax.vmap over its keys."""
     if w_seq is None:
-        if generator is None or batch is None:
-            raise ValueError("provide w_seq or (generator, batch)")
-        return system.sample_disturbance(generator, (batch, H), dtype=dtype)
+        if key is None:
+            raise ValueError("provide either w_seq or key")
+        w_seq = system.sample_disturbance(key, (H,), dtype=dtype)
     return w_seq[None] if w_seq.ndim == 2 else w_seq
 
 
@@ -242,8 +244,7 @@ def run_paper_closed_loop(
     x0: Tensor,
     target: Tensor,
     w_seq: Optional[Tensor] = None,
-    generator: Optional[torch.Generator] = None,
-    batch: Optional[int] = None,
+    key: Optional[Tensor] = None,
     debug_checks: bool = False,
     device: DeviceLike = None,
     ckpt_dir: Optional[str] = None,
@@ -251,12 +252,12 @@ def run_paper_closed_loop(
 ) -> ClosedLoopLog:
     """H steps of the paper path on B lanes; returns a ClosedLoopLog of [B, H, ...].
 
-    Disturbances are w_seq ([B, H, nx], or [H, nx] for one lane), or drawn from
-    ``generator`` for ``batch`` lanes. With ``ckpt_dir`` the loop runs in resumable
-    segments of ``segment_len`` steps (utils/checkpoint.py), bitwise the same. Runs on the
-    card unless device='cpu'."""
+    Disturbances are w_seq ([B, H, nx], or [H, nx] for one lane), or drawn from ``key``:
+    [H, nx] from one key [2] (one lane), one [H, nx] from each of a batch of keys [B, 2].
+    With ``ckpt_dir`` the loop runs in resumable segments of ``segment_len`` steps
+    (utils/checkpoint.py), bitwise the same. Runs on the card unless device='cpu'."""
     dev = resolve_device(device)
-    w_seq = _disturbances(system, cfg.H, w_seq, generator, batch, target.dtype)
+    w_seq = _disturbances(system, cfg.H, w_seq, key, target.dtype)
     check_on(dev, (x0, target, w_seq, *w_nominal, *aux_init, *bp), "run_paper_closed_loop")
     step = make_paper_step(system, aug, cfg, w_nominal=w_nominal, bp=bp, target=target,
                            debug_checks=debug_checks)
@@ -391,8 +392,7 @@ def run_generic_closed_loop(
     x0: Tensor,
     target: Tensor,
     w_seq: Optional[Tensor] = None,
-    generator: Optional[torch.Generator] = None,
-    batch: Optional[int] = None,
+    key: Optional[Tensor] = None,
     debug_checks: bool = False,
     device: DeviceLike = None,
 ) -> Tuple[ClosedLoopLog, Tuple[RawNominalTheta, RawAuxTheta]]:
@@ -410,7 +410,7 @@ def run_generic_closed_loop(
     if cfg.coupling not in ("reference", "full"):
         raise ValueError(f"coupling must be 'reference' or 'full', not {cfg.coupling!r}")
     dev = resolve_device(device)
-    w_seq = _disturbances(system, cfg.H, w_seq, generator, batch, target.dtype)
+    w_seq = _disturbances(system, cfg.H, w_seq, key, target.dtype)
     check_on(dev, (x0, target, w_seq, *raw_nom_init, *raw_aux_init), "run_generic_closed_loop")
     lanes = w_seq.shape[0]
 

@@ -224,7 +224,7 @@ def run_paper_closed_loop_lanes(
     x0: Tensor,                                   # [nx] shared or [B, nx]
     target: Tensor,
     w_seqs: Optional[Tensor] = None,              # [B, H, nx]
-    generator: Optional[torch.Generator] = None,
+    key: Optional[Tensor] = None,
     batch: Optional[int] = None,
     eps: float = 1e-4,
     barrier_type: str = "inverse",
@@ -237,16 +237,16 @@ def run_paper_closed_loop_lanes(
 ) -> ClosedLoopLog:
     """Run H steps of B closed loops; returns a ClosedLoopLog of [B, H, ...].
 
-    Disturbances are ``w_seqs``, or drawn from ``generator`` for ``batch`` lanes.
+    Disturbances are ``w_seqs``, or [batch, H, nx] drawn from one ``key``.
     population: one θ shared by the lanes (make_paper_lane_step); the log holds it for
     every lane. The caps are the solves' straggler compaction (make_paper_lane_step). With
     ``ckpt_dir`` the loop runs in resumable segments of ``segment_len`` steps
     (utils/checkpoint.py), bitwise the same. Runs on the card unless device='cpu'."""
     dev = resolve_device(device)
     if w_seqs is None:
-        if generator is None or batch is None:
-            raise ValueError("provide w_seqs or (generator, batch)")
-        w_seqs = system.sample_disturbance(generator, (batch, cfg.H), dtype=target.dtype)
+        if key is None or batch is None:
+            raise ValueError("provide w_seqs or (key, batch)")
+        w_seqs = system.sample_disturbance(key, (batch, cfg.H), dtype=target.dtype)
     return _paper_lanes(system, aug, sys_c, cfg, w_nominal=w_nominal, aux_init=aux_init, bp=bp,
                         x0=x0, target=target, w_seqs=w_seqs, eps=eps, barrier_type=barrier_type,
                         population=population, dev=dev, shards=None,
@@ -538,7 +538,7 @@ def run_generic_closed_loop_lanes(
     x0: Tensor,                      # [nx] shared or [B, nx]
     target: Tensor,
     w_seqs: Optional[Tensor] = None,  # [B, H, nx]
-    generator: Optional[torch.Generator] = None,
+    key: Optional[Tensor] = None,
     batch: Optional[int] = None,
     eps: float = 1e-6,
     barrier_type: str = "inverse",
@@ -559,7 +559,7 @@ def run_generic_closed_loop_lanes(
     raw sets update by projected momentum. cfg.coupling="full" adds the explicit
     ∂L/∂x̄ term. cfg.adapt.steps > 1 runs the inner fixed-trajectory loop.
 
-    Disturbances are ``w_seqs``, or drawn from ``generator`` for ``batch`` lanes. The
+    Disturbances are ``w_seqs``, or [batch, H, nx] drawn from one ``key``. The
     caps and ``ckpt_dir`` as in run_paper_closed_loop_lanes. Runs on the card unless
     device='cpu'."""
     if cfg.adapt.steps < 1:
@@ -572,9 +572,9 @@ def run_generic_closed_loop_lanes(
     dev = resolve_device(device)
     H = cfg.H
     if w_seqs is None:
-        if generator is None or batch is None:
-            raise ValueError("provide w_seqs or (generator, batch)")
-        w_seqs = system.sample_disturbance(generator, (batch, H), dtype=target.dtype)
+        if key is None or batch is None:
+            raise ValueError("provide w_seqs or (key, batch)")
+        w_seqs = system.sample_disturbance(key, (batch, H), dtype=target.dtype)
     check_on(dev, (x0, target, w_seqs, *raw_nom, *raw_aux_init), "run_generic_closed_loop_lanes")
     B = w_seqs.shape[0]
     dtype = w_seqs.dtype
