@@ -7,7 +7,8 @@ from (the system, with ``_min`` and ``_log`` for the exact-min aggregation and t
 barrier: "dubins", "quadrotor2d_min_log"), and its ``by_width`` for each lane count it
 launched at (straggler compaction runs K1 and K2 on fewer lanes). K1 ``ric``, K2 ``fwd``; K3 ``sbwd`` and K4 ``sfwd`` (paper); K5
 ``sbwd_generic`` and ``sbwd_upper``, K6 ``sfwd_generic`` and ``sfwd_ref``
-(generic and coupled).
+(generic and coupled). ``solve_counts`` returns the lane solver's counts of its host
+reads and of the lanes that entered its iterations unconverged.
 """
 from __future__ import annotations
 
@@ -34,8 +35,17 @@ def launch_counts(by_system: bool = False, by_width: bool = False) -> Dict:
     return {name: w.launches for name, w in KERNELS.items()}
 
 
+def solve_counts() -> Dict[str, int]:
+    """{"host_reads": the lane solver's reads of the device by the host, "live_lane_iters":
+    the lanes that entered its iterations unconverged, summed over the iterations}; on
+    the CPU as on the card (lane_solver.lane_ilqr_solve)."""
+    return dict(lane_ilqr_solve.counts)
+
+
 def reset_launch_counts() -> None:
-    """Set every launch count to 0, and the lane solver's counts of compaction stages."""
+    """Set every launch count to 0, and the lane solver's counts of compaction stages,
+    host reads and unconverged lane-iterations."""
     for w in KERNELS.values():
         w.launches, w.by_system, w.by_width = 0, {}, {}
     lane_ilqr_solve.stages = {"compacted": 0, "full": 0}
+    lane_ilqr_solve.counts = {"host_reads": 0, "live_lane_iters": 0}

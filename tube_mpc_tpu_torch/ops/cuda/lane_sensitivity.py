@@ -16,7 +16,8 @@ Variants, by the JAX kernels' static flags:
 One wrapper per variant: ``sbwd`` (K3), ``sbwd_generic``, ``sbwd_upper`` (K5),
 ``sfwd`` (K4), ``sfwd_generic``, ``sfwd_ref`` (K6). Each runs its plain version for
 CPU tensors and its CUDA kernel (csrc/lane_sbwd.cu, csrc/lane_sfwd.cu) for CUDA
-tensors, and counts its kernel launches in ``<wrapper>.launches``;
+tensors, counts its kernel launches in ``<wrapper>.launches`` and runs under the span
+``kernel.<name>`` (lane_solver.spanned);
 ``lane_sensitivity_grads`` picks the variants by the JAX function's flags. The
 backward sweep's plain version has the kernel's two phases (sbwd_lin_plain, then
 the recursion).
@@ -39,6 +40,7 @@ from .lane_solver import (
     kernel_consts,
     launch,
     on_cpu,
+    spanned,
 )
 
 Value = Tuple[Tensor, Tensor, Tensor]   # tVx [N, n̂, B], Vxx [N, n̂², B], LogS [N, 1, B]
@@ -242,6 +244,7 @@ def _sbwd_outs(pb: LaneProblem, N: int, B: int, generic: bool):
     return outs + [(N, nh, B), (N, nh * nh, B), (N, 1, B)] if generic else outs
 
 
+@spanned
 def sbwd(pb: LaneProblem, reg: float, active_tol: float, U: Tensor, X: Tensor, Xr: Tensor,
          C: Tensor, XN: Tensor, XrN: Tensor) -> Tuple[Tensor, Tensor]:
     """K3, the paper sweep: (K, kff); see sbwd_plain. CPU tensors run the plain
@@ -253,6 +256,7 @@ def sbwd(pb: LaneProblem, reg: float, active_tol: float, U: Tensor, X: Tensor, X
                    _sbwd_ins(pb, U, X, Xr, C, XN, XrN), _sbwd_outs(pb, N, B, False), N, B)
 
 
+@spanned
 def sbwd_generic(pb: LaneProblem, reg: float, active_tol: float, U: Tensor, X: Tensor,
                  Xr: Tensor, C: Tensor, XN: Tensor, XrN: Tensor) -> Tuple[Tensor, ...]:
     """K5, generic: (K, kff, tVx, Vxx, LogS); see sbwd_plain with generic=True."""
@@ -264,6 +268,7 @@ def sbwd_generic(pb: LaneProblem, reg: float, active_tol: float, U: Tensor, X: T
                    _sbwd_ins(pb, U, X, Xr, C, XN, XrN), _sbwd_outs(pb, N, B, True), N, B)
 
 
+@spanned
 def sbwd_upper(pb: LaneProblem, reg: float, active_tol: float, gX: Tensor, gU: Tensor,
                gXN: Tensor, U: Tensor, X: Tensor, C: Tensor) -> Tuple[Tensor, ...]:
     """K5, generic with upper-gradient rows gX [N, n̂, B], gU [N, m, B], gXN [n̂, B]:
@@ -292,6 +297,7 @@ def _sfwd_ins(pb: LaneProblem, K: Tensor, kff: Tensor, X: Tensor, Xr: Tensor, U:
     return ins
 
 
+@spanned
 def sfwd(pb: LaneProblem, K: Tensor, kff: Tensor, X: Tensor, Xr: Tensor, U: Tensor,
          Ur: Tensor, C: Tensor, XN: Tensor, XrN: Tensor) -> Tuple[Tensor, Tensor]:
     """K4, the paper rollout: (gx, gr); see sfwd_plain. CPU tensors run the plain
@@ -304,6 +310,7 @@ def sfwd(pb: LaneProblem, K: Tensor, kff: Tensor, X: Tensor, Xr: Tensor, U: Tens
                    _sfwd_ins(pb, K, kff, X, Xr, U, Ur, C, XN, XrN), [(nh, B), (m, B)], N, B)
 
 
+@spanned
 def sfwd_generic(pb: LaneProblem, K: Tensor, kff: Tensor, X: Tensor, Xr: Tensor, U: Tensor,
                  Ur: Tensor, C: Tensor, XN: Tensor, XrN: Tensor, tVx: Tensor, Vxx: Tensor,
                  LogS: Tensor) -> Tuple[Tensor, ...]:
@@ -318,6 +325,7 @@ def sfwd_generic(pb: LaneProblem, K: Tensor, kff: Tensor, X: Tensor, Xr: Tensor,
                    [(nh, B), (m, B), (nh, B), (3, B)], N, B)
 
 
+@spanned
 def sfwd_ref(pb: LaneProblem, K: Tensor, kff: Tensor, X: Tensor, Xr: Tensor, U: Tensor,
              Ur: Tensor, C: Tensor, XN: Tensor, XrN: Tensor, tVx: Tensor, Vxx: Tensor,
              LogS: Tensor) -> Tuple[Tensor, ...]:

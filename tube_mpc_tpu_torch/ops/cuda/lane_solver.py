@@ -12,17 +12,25 @@ the CUDA kernel (csrc/lane_solver.cu) for CUDA tensors, and counts its kernel
 launches in ``<wrapper>.launches`` (and by lane count in ``<wrapper>.by_width``). The plain versions repeat the kernels'
 arithmetic in the JAX kernels' order; they are what the CPU tests hold against the
 JAX package and what the card's check holds the kernels against.
+
+Spans (utils/profiling.py::annotate): each wrapper runs under ``kernel.<name>``; the
+solver loop names its host reads ``lane.host_read``, each iteration's winner selection
+and freeze ``lane.epilogue``, and a compacted stage's gathers ``lane.compact`` and
+scatter ``lane.scatter``. ``lane_ilqr_solve.counts`` counts the host reads and the
+lanes that entered each iteration unconverged.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import Tensor
 
+from ...utils.profiling import annotate
 from ..dbas import BarrierParams
 from ..lanes import FAMILIES, LaneSpec, jac_rows
 from . import _build
@@ -408,10 +416,25 @@ def counted(wrapper, consts: LaneConsts, B: int) -> None:
     wrapper.by_width[B] = wrapper.by_width.get(B, 0) + 1
 
 
+def spanned(wrapper):
+    """The kernel wrapper ``wrapper`` run under the span ``kernel.<its name>``: its plain
+    version, or its constants, input checks, output allocations, library lookup and
+    launch."""
+    name = f"kernel.{wrapper.__name__}"
+
+    @functools.wraps(wrapper)
+    def run(*args, **kwargs):
+        with annotate(name):
+            return wrapper(*args, **kwargs)
+
+    return run
+
+
 # ---------------------------------------------------------------------------
 # Wrappers.
 # ---------------------------------------------------------------------------
 
+@spanned
 def ric(pb: LaneProblem, reg: float, X: Tensor, U: Tensor, Xr: Tensor, Ur: Tensor,
         C: Tensor, phix: Tensor) -> Tuple[Tensor, Tensor]:
     """K1: see ric_plain. CPU tensors run the plain version; CUDA tensors the kernel."""
@@ -434,6 +457,7 @@ def ric(pb: LaneProblem, reg: float, X: Tensor, U: Tensor, Xr: Tensor, Ur: Tenso
 ric.launches, ric.by_system, ric.by_width = 0, {}, {}
 
 
+@spanned
 def fwd(pb: LaneProblem, alphas: Sequence[float], x0: Tensor, Xo: Tensor, Uo: Tensor,
         K: Tensor, kff: Tensor, Xr: Tensor, XrN: Tensor, Ur: Tensor,
         C: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
@@ -488,7 +512,7 @@ class _Carry(NamedTuple):
     X: Tensor                  # [N+1, n̂, B]
     U: Tensor                  # [N, m, B]
     prev_cost: Tensor          # [B]
-    done: Tensor               # [B] bool: frozen
+    done: Tensor               # [B] int64: 1 where frozen (its sum needs no cast on the card)
     lane_it: Optional[Tensor]  # [B] int32 iterations entered unconverged, or None
 
 
@@ -498,35 +522,46 @@ def _improve(pb: LaneProblem, x_hat0: Tensor, X_ref: Tensor, U_ref: Tensor, C: T
     """Iterate until ``cap`` iterations in all or every lane frozen, at the lane count of
     the given inputs. Per lane: the best candidate of the alpha ladder (NaN costs never
     win, the first minimum wins ties), and |prev_cost - best_cost| < tol freezes the
-    lane. The host reads all(done) once per iteration, as the reference's while_loop
-    condition does."""
+    lane. The host reads the count of frozen lanes once per iteration (one reduction and
+    one read, as the reference's while_loop condition all(done) is), and the loop ends when
+    it is B."""
     nh, m = pb.n_hat, pb.m
     N, B = s.U.shape[0], s.U.shape[-1]
     na = len(alphas)
     term_rows = C[nh + m: 2 * nh + m]
+    counts = lane_ilqr_solve.counts
     it, X, U, prev_cost, done, lane_it = s
-    while it < cap and not bool(done.all()):
-        phix = term_rows * (X[-1] - X_ref[-1])
-        K, kff = ric(pb, reg, X[:-1], U, X_ref[:-1], U_ref, C, phix)
+    while it < cap:
+        with annotate("lane.host_read"):
+            unconverged = B - int(done.sum())
+        counts["host_reads"] += 1
+        if unconverged == 0:
+            break
+        counts["live_lane_iters"] += unconverged
+        with annotate("kernel.ric"):   # K1's terminal input, then K1 under one span
+            phix = term_rows * (X[-1] - X_ref[-1])
+            K, kff = ric.__wrapped__(pb, reg, X[:-1], U, X_ref[:-1], U_ref, C, phix)
         Xn, Un, costs = fwd(pb, alphas, x_hat0, X[:-1], U, K, kff, X_ref[:-1], X_ref[-1], U_ref, C)
 
-        costs = torch.where(torch.isnan(costs.float()), torch.full_like(costs, float("inf")), costs)
-        best_cost, best = torch.min(costs, dim=0)   # first minimum on ties
-        # Gather the winner by index, never by a one-hot product: a losing
-        # candidate with NaN states would poison the winner through NaN * 0.
-        sel_x = best.view(1, 1, 1, B).expand(N, 1, nh, B)
-        sel_u = best.view(1, 1, 1, B).expand(N, 1, m, B)
-        X_tail = torch.gather(Xn.view(N, na, nh, B), 1, sel_x)[:, 0]
-        U_new = torch.gather(Un.view(N, na, m, B), 1, sel_u)[:, 0]
-        X_new = torch.cat([x_hat0[None], X_tail], dim=0)
+        with annotate("lane.epilogue"):
+            costs = torch.where(torch.isnan(costs.float()), torch.full_like(costs, float("inf")),
+                                costs)
+            best_cost, best = torch.min(costs, dim=0)   # first minimum on ties
+            # Gather the winner by index, never by a one-hot product: a losing
+            # candidate with NaN states would poison the winner through NaN * 0.
+            sel_x = best.view(1, 1, 1, B).expand(N, 1, nh, B)
+            sel_u = best.view(1, 1, 1, B).expand(N, 1, m, B)
+            X_tail = torch.gather(Xn.view(N, na, nh, B), 1, sel_x)[:, 0]
+            U_new = torch.gather(Un.view(N, na, m, B), 1, sel_u)[:, 0]
+            X_new = torch.cat([x_hat0[None], X_tail], dim=0)
 
-        live = ~done
-        X = torch.where(live, X_new, X)
-        U = torch.where(live, U_new, U)
-        done = done | ((prev_cost - best_cost).abs() < tol)
-        prev_cost = torch.where(live, best_cost, prev_cost)
-        if lane_it is not None:
-            lane_it = lane_it + live.to(torch.int32)
+            live = done == 0
+            X = torch.where(live, X_new, X)
+            U = torch.where(live, U_new, U)
+            done = done | ((prev_cost - best_cost).abs() < tol)
+            prev_cost = torch.where(live, best_cost, prev_cost)
+            if lane_it is not None:
+                lane_it = lane_it + live.to(torch.int32)
         it += 1
     return _Carry(it, X, U, prev_cost, done, lane_it)
 
@@ -580,10 +615,15 @@ def lane_ilqr_solve(
     lanes, and its results are scattered back. Otherwise the stage runs at full width.
     The kernels compute each lane alone and the fillers are frozen, so the result is
     bitwise that of compact_caps=() in every case. ``lane_ilqr_solve.stages`` counts the
-    stages after c1 that ran: "compacted" and "full" (width)."""
+    stages after c1 that ran: "compacted" and "full" (width).
+
+    ``lane_ilqr_solve.counts``: "host_reads", each read of the device by the host (one an
+    iteration's loop test, one a stage's count of unconverged lanes), and
+    "live_lane_iters", the lanes that entered each iteration unconverged, summed over the
+    iterations (the sum of ``with_lane_iters``' counts)."""
     B = U0.shape[-1]
     s = _Carry(0, X0, U0, torch.full((B,), float("inf"), dtype=U0.dtype, device=U0.device),
-               torch.zeros((B,), dtype=torch.bool, device=U0.device),
+               torch.zeros((B,), dtype=torch.int64, device=U0.device),
                torch.zeros((B,), dtype=torch.int32, device=U0.device) if with_lane_iters
                else None)
     consts = (x_hat0, X_ref, U_ref, C)
@@ -592,7 +632,9 @@ def lane_ilqr_solve(
     s = _improve(pb, *consts, s, caps[0] if caps else max_iter, **loop)
     later = caps[1:] + ((max_iter,) if caps else ())
     for cap, W in zip(later, stage_widths(B, len(later))):
-        unconverged = int((~s.done).sum())   # a host read, as all(done) is
+        with annotate("lane.host_read"):
+            unconverged = B - int(s.done.sum())
+        lane_ilqr_solve.counts["host_reads"] += 1
         if unconverged == 0 or s.it >= cap:
             continue
         if W >= B or unconverged > W:
@@ -601,13 +643,17 @@ def lane_ilqr_solve(
             continue
         # unconverged lanes first, then converged fillers; the first W entries of a
         # permutation hold no index twice, so the scatter back writes each lane once
-        idx = torch.argsort(s.done.to(torch.uint8), stable=True)[:W]
-        take = lambda t: None if t is None else t.index_select(-1, idx)
-        sub = _improve(pb, *map(take, consts), _Carry(s.it, *map(take, s[1:])), cap, **loop)
-        s = _Carry(sub.it, *(None if t is None else t.index_copy(-1, idx, u)
-                             for t, u in zip(s[1:], sub[1:])))
+        with annotate("lane.compact"):
+            idx = torch.argsort(s.done.to(torch.uint8), stable=True)[:W]
+            take = lambda t: None if t is None else t.index_select(-1, idx)
+            sub_consts, sub_carry = tuple(map(take, consts)), _Carry(s.it, *map(take, s[1:]))
+        sub = _improve(pb, *sub_consts, sub_carry, cap, **loop)
+        with annotate("lane.scatter"):
+            s = _Carry(sub.it, *(None if t is None else t.index_copy(-1, idx, u)
+                                 for t, u in zip(s[1:], sub[1:])))
         lane_ilqr_solve.stages["compacted"] += 1
     return (s.X, s.U, s.lane_it) if with_lane_iters else (s.X, s.U)
 
 
 lane_ilqr_solve.stages = {"compacted": 0, "full": 0}
+lane_ilqr_solve.counts = {"host_reads": 0, "live_lane_iters": 0}

@@ -28,6 +28,7 @@ from ..ops.dbas import AugmentedDynamics, BarrierParams
 from ..ops.lanes import ComponentSystem
 from ..systems.base import System
 from ..utils.checkpoint import LaneShards, run_steps
+from ..utils.profiling import annotate
 from .closed_loop import ClosedLoopLog, TubeMPCConfig
 from .lane_interface import (
     make_lane_problem,
@@ -91,7 +92,13 @@ def make_paper_lane_step(
     iter_telemetry appends each lane's solver iterations (nominal, ancillary; [B] int32
     each) to the log tuple: a step costs the most lanes' iterations, and the useful work
     is their mean. nom_compact_caps and aux_compact_caps: the two solves' straggler
-    compaction (lane_ilqr_solve), bitwise equal to none."""
+    compaction (lane_ilqr_solve), bitwise equal to none.
+
+    Spans (utils/profiling.py::annotate): ``tube.step`` around the whole body, and in it
+    ``tube.nominal_solve``, ``tube.ancillary_solve``, ``tube.sensitivity`` (the tube loss
+    and its gradients), ``tube.update`` (the finite mask, the population mean, the
+    momentum update) and ``tube.propagate`` (f̂, the new carry, the shifted warm starts
+    and the log row)."""
     dev = resolve_device(device)
     nx, nu = system.nx, system.nu
     N = cfg.N
@@ -100,75 +107,93 @@ def make_paper_lane_step(
     X_ref_nom = target[None, None].expand(B, N + 1, nx)
     U_ref_nom = torch.zeros((B, N, nu), dtype=dtype, device=dev)
 
-    def step(state: LaneLoopState, w_t: Tensor):
-        x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
-        nom_out = tube_ilqr_solve_lanes(
-            pb, nom_cfg, w=w_nominal, bp=bp, x_hat0=x_hat_bar, U_init=state.U_nom_ws,
-            X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev, with_lane_iters=iter_telemetry,
-            compact_caps=nom_compact_caps,
-        )
-        X_nom, U_nom = nom_out[:2]
-        X_ref = X_nom[..., :nx]
+    def body(state: LaneLoopState, w_t: Tensor):
+        with annotate("tube.nominal_solve"):
+            x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
+            nom_out = tube_ilqr_solve_lanes(
+                pb, nom_cfg, w=w_nominal, bp=bp, x_hat0=x_hat_bar, U_init=state.U_nom_ws,
+                X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev, with_lane_iters=iter_telemetry,
+                compact_caps=nom_compact_caps,
+            )
+            X_nom, U_nom = nom_out[:2]
+            X_ref = X_nom[..., :nx]
 
-        x_hat = torch.cat([state.x, state.b[:, None]], dim=-1)
-        w_aux = CostWeights(Q=state.adapt.Q, R=state.adapt.R, Qf=state.adapt.Q, qb=state.adapt.qb)
-        aux_out = tube_ilqr_solve_lanes(
-            pb, aux_cfg, w=w_aux, bp=bp, x_hat0=x_hat, U_init=state.U_aux_ws,
-            X_ref=X_ref, U_ref=U_nom, device=dev, with_lane_iters=iter_telemetry,
-            compact_caps=aux_compact_caps,
-        )
-        X_aux, U_aux = aux_out[:2]
+        with annotate("tube.ancillary_solve"):
+            x_hat = torch.cat([state.x, state.b[:, None]], dim=-1)
+            w_aux = CostWeights(Q=state.adapt.Q, R=state.adapt.R, Qf=state.adapt.Q,
+                                qb=state.adapt.qb)
+            aux_out = tube_ilqr_solve_lanes(
+                pb, aux_cfg, w=w_aux, bp=bp, x_hat0=x_hat, U_init=state.U_aux_ws,
+                X_ref=X_ref, U_ref=U_nom, device=dev, with_lane_iters=iter_telemetry,
+                compact_caps=aux_compact_caps,
+            )
+            X_aux, U_aux = aux_out[:2]
 
-        dx = X_aux[..., :nx] - X_ref
-        db = X_aux[..., nx]
-        L = torch.sum(dx * dx, dim=(-2, -1)) + torch.sum(db * db, dim=-1)
+        with annotate("tube.sensitivity"):
+            dx = X_aux[..., :nx] - X_ref
+            db = X_aux[..., nx]
+            L = torch.sum(dx * dx, dim=(-2, -1)) + torch.sum(db * db, dim=-1)
 
-        Q, R, qb = state.adapt
-        if population:
-            Q, R, qb = Q.expand(B, nx), R.expand(B, nu), qb.expand(B)
-        grads = tube_sensitivity_grads_lanes(
-            pb, w=CostWeights(Q=Q, R=R, Qf=Q, qb=qb), bp=bp, X_hat=X_aux, U=U_aux, X_ref=X_ref,
-            U_ref=U_nom, reg=1e-9, device=dev,
-        )
-        # Fault isolation: a lane whose gradient or loss is not finite (the true
-        # sensitivity overflows f32 in barrier-violating regimes) skips this
-        # update and keeps its weights, instead of poisoning them for good.
-        ok = (
-            torch.isfinite(grads.Q).all(dim=-1)
-            & torch.isfinite(grads.R).all(dim=-1)
-            & torch.isfinite(grads.qb)
-            & torch.isfinite(L)
-        )
-        zero = torch.zeros((), dtype=dtype, device=dev)
-        grads = AuxAdapt(
-            Q=torch.where(ok[:, None], grads.Q, zero),
-            R=torch.where(ok[:, None], grads.R, zero),
-            qb=torch.where(ok, grads.qb, zero),
-        )
-        if population:
-            grads = _population_mean(grads, ok, group)
-        adapt, vel = momentum_update(state.adapt, grads, state.vel, cfg.adapt, project_aux_adapt)
+            Q, R, qb = state.adapt
+            if population:
+                Q, R, qb = Q.expand(B, nx), R.expand(B, nu), qb.expand(B)
+            grads = tube_sensitivity_grads_lanes(
+                pb, w=CostWeights(Q=Q, R=R, Qf=Q, qb=qb), bp=bp, X_hat=X_aux, U=U_aux,
+                X_ref=X_ref, U_ref=U_nom, reg=1e-9, device=dev,
+            )
 
-        u = U_aux[:, 0]
-        x_hat_next = aug.f_hat(x_hat, u, bp)
-        u_bar = U_nom[:, 0]
-        x_hat_bar_next = aug.f_hat(x_hat_bar, u_bar, bp)
+        with annotate("tube.update"):
+            # Fault isolation: a lane whose gradient or loss is not finite (the true
+            # sensitivity overflows f32 in barrier-violating regimes) skips this
+            # update and keeps its weights, instead of poisoning them for good.
+            ok = (
+                torch.isfinite(grads.Q).all(dim=-1)
+                & torch.isfinite(grads.R).all(dim=-1)
+                & torch.isfinite(grads.qb)
+                & torch.isfinite(L)
+            )
+            zero = torch.zeros((), dtype=dtype, device=dev)
+            grads = AuxAdapt(
+                Q=torch.where(ok[:, None], grads.Q, zero),
+                R=torch.where(ok[:, None], grads.R, zero),
+                qb=torch.where(ok, grads.qb, zero),
+            )
+            if population:
+                grads = _population_mean(grads, ok, group)
+            adapt, vel = momentum_update(state.adapt, grads, state.vel, cfg.adapt,
+                                         project_aux_adapt)
 
-        new_state = LaneLoopState(
-            x=x_hat_next[..., :nx] + w_t,
-            b=x_hat_next[..., nx],
-            x_bar=x_hat_bar_next[..., :nx],
-            b_bar=x_hat_bar_next[..., nx],
-            U_nom_ws=_shift(U_nom),
-            U_aux_ws=_shift(U_aux),
-            adapt=adapt,
-            vel=vel,
-        )
-        log = (state.x, u, state.x_bar, u_bar, state.b, L,
-               adapt.Q.expand(B, nx), adapt.R.expand(B, nu), adapt.qb.expand(B))
-        if iter_telemetry:
-            log += (nom_out[2], aux_out[2])
+        with annotate("tube.propagate"):
+            u = U_aux[:, 0]
+            x_hat_next = aug.f_hat(x_hat, u, bp)
+            u_bar = U_nom[:, 0]
+            x_hat_bar_next = aug.f_hat(x_hat_bar, u_bar, bp)
+
+            new_state = LaneLoopState(
+                x=x_hat_next[..., :nx] + w_t,
+                b=x_hat_next[..., nx],
+                x_bar=x_hat_bar_next[..., :nx],
+                b_bar=x_hat_bar_next[..., nx],
+                U_nom_ws=_shift(U_nom),
+                U_aux_ws=_shift(U_aux),
+                adapt=adapt,
+                vel=vel,
+            )
+            log = (state.x, u, state.x_bar, u_bar, state.b, L,
+                   adapt.Q.expand(B, nx), adapt.R.expand(B, nu), adapt.qb.expand(B))
+            if iter_telemetry:
+                log += (nom_out[2], aux_out[2])
         return new_state, log
+
+    return _spanned_step(body)
+
+
+def _spanned_step(body: Callable) -> Callable:
+    """The step ``body`` run under the span ``tube.step``, in which every other span of
+    the step nests: the step's phases, each solve's, each kernel's."""
+    def step(state, w_t: Tensor):
+        with annotate("tube.step"):
+            return body(state, w_t)
 
     return step
 
@@ -392,7 +417,10 @@ def make_generic_lane_step(
     cfg.adapt.steps > 1 runs the reference's inner adaptation loop: iterations
     2..steps re-derive the gradient at this step's FIXED trajectories while θ
     moves, i.e. they rerun the sensitivity sweeps with the updated weights and
-    barrier parameters on the same (X, U); the solves are not repeated."""
+    barrier parameters on the same (X, U); the solves are not repeated.
+
+    Spans as in make_paper_lane_step; ``tube.sensitivity`` and ``tube.update`` once for
+    each of those iterations."""
     dev = resolve_device(device)
     adapt_nominal = cfg.adapt_nominal
     nx, nu = system.nx, system.nu
@@ -403,27 +431,29 @@ def make_generic_lane_step(
     X_ref_nom = target[None, None].expand(B, N + 1, nx)
     U_ref_nom = torch.zeros((B, N, nu), dtype=dtype, device=dev)
 
-    def step(state: GenericLaneState, w_t: Tensor):
+    def body(state: GenericLaneState, w_t: Tensor):
         raw, rawn = state.raw_aux, state.raw_nom
-        w_aux, bp_aux = _aux_params(raw, zero_t)
-        w_nom, bp_nom = _nom_params(rawn)
+        with annotate("tube.nominal_solve"):
+            w_nom, bp_nom = _nom_params(rawn)
+            x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
+            X_nom, U_nom = tube_ilqr_solve_lanes(
+                pb, nom_cfg, w=w_nom, bp=bp_nom, x_hat0=x_hat_bar, U_init=state.U_nom_ws,
+                X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev, compact_caps=nom_compact_caps,
+            )
+            X_ref = X_nom[..., :nx]
 
-        x_hat_bar = torch.cat([state.x_bar, state.b_bar[:, None]], dim=-1)
-        X_nom, U_nom = tube_ilqr_solve_lanes(
-            pb, nom_cfg, w=w_nom, bp=bp_nom, x_hat0=x_hat_bar, U_init=state.U_nom_ws,
-            X_ref=X_ref_nom, U_ref=U_ref_nom, device=dev, compact_caps=nom_compact_caps,
-        )
-        X_ref = X_nom[..., :nx]
+        with annotate("tube.ancillary_solve"):
+            w_aux, bp_aux = _aux_params(raw, zero_t)
+            x_hat = torch.cat([state.x, state.b[:, None]], dim=-1)
+            X_aux, U_aux = tube_ilqr_solve_lanes(
+                pb, aux_cfg, w=w_aux, bp=bp_aux, x_hat0=x_hat, U_init=state.U_aux_ws,
+                X_ref=X_ref, U_ref=U_nom, device=dev, compact_caps=aux_compact_caps,
+            )
 
-        x_hat = torch.cat([state.x, state.b[:, None]], dim=-1)
-        X_aux, U_aux = tube_ilqr_solve_lanes(
-            pb, aux_cfg, w=w_aux, bp=bp_aux, x_hat0=x_hat, U_init=state.U_aux_ws,
-            X_ref=X_ref, U_ref=U_nom, device=dev, compact_caps=aux_compact_caps,
-        )
-
-        dx = X_aux[..., :nx] - X_ref
-        db = X_aux[..., nx]
-        L = torch.sum(dx * dx, dim=(-2, -1)) + torch.sum(db * db, dim=-1)
+        with annotate("tube.sensitivity"):
+            dx = X_aux[..., :nx] - X_ref
+            db = X_aux[..., nx]
+            L = torch.sum(dx * dx, dim=(-2, -1)) + torch.sum(db * db, dim=-1)
 
         def grads_at(raw_i: RawAuxTheta, rawn_i: RawNominalTheta):
             """Raw-space gradients at the fixed trajectories with θ = (raw_i, rawn_i)."""
@@ -449,42 +479,46 @@ def make_generic_lane_step(
         raw_new, vel_new = raw, state.vel_aux
         rawn_new, veln_new = rawn, state.vel_nom
         for _ in range(cfg.adapt.steps):
-            g_raw, gn_raw = grads_at(raw_new, rawn_new)
-            # Fault isolation: a lane whose loss or any gradient leaf is not
-            # finite skips this update (see make_paper_lane_step).
-            ok = _finite_lanes(torch.isfinite(L), g_raw)
-            if adapt_nominal:
-                ok = _finite_lanes(ok, gn_raw)
-            raw_new, vel_new = momentum_update(raw_new, _mask(g_raw, ok), vel_new, cfg.adapt,
-                                               project_raw)
-            if adapt_nominal:
-                rawn_new, veln_new = momentum_update(rawn_new, _mask(gn_raw, ok), veln_new,
-                                                     cfg.adapt, project_raw)
+            with annotate("tube.sensitivity"):
+                g_raw, gn_raw = grads_at(raw_new, rawn_new)
+            with annotate("tube.update"):
+                # Fault isolation: a lane whose loss or any gradient leaf is not
+                # finite skips this update (see make_paper_lane_step).
+                ok = _finite_lanes(torch.isfinite(L), g_raw)
+                if adapt_nominal:
+                    ok = _finite_lanes(ok, gn_raw)
+                raw_new, vel_new = momentum_update(raw_new, _mask(g_raw, ok), vel_new,
+                                                   cfg.adapt, project_raw)
+                if adapt_nominal:
+                    rawn_new, veln_new = momentum_update(rawn_new, _mask(gn_raw, ok), veln_new,
+                                                         cfg.adapt, project_raw)
 
-        # propagate with the barrier parameters after this step's update
-        _, bp_aux_post = _aux_params(raw_new, zero_t)
-        _, bp_nom_post = _nom_params(rawn_new)
-        u = U_aux[:, 0]
-        x_hat_next = aug.f_hat(x_hat, u, bp_aux_post)
-        u_bar = U_nom[:, 0]
-        x_hat_bar_next = aug.f_hat(x_hat_bar, u_bar, bp_nom_post)
+        with annotate("tube.propagate"):
+            # propagate with the barrier parameters after this step's update
+            _, bp_aux_post = _aux_params(raw_new, zero_t)
+            _, bp_nom_post = _nom_params(rawn_new)
+            u = U_aux[:, 0]
+            x_hat_next = aug.f_hat(x_hat, u, bp_aux_post)
+            u_bar = U_nom[:, 0]
+            x_hat_bar_next = aug.f_hat(x_hat_bar, u_bar, bp_nom_post)
 
-        new_state = GenericLaneState(
-            x=x_hat_next[..., :nx] + w_t,
-            b=x_hat_next[..., nx],
-            x_bar=x_hat_bar_next[..., :nx],
-            b_bar=x_hat_bar_next[..., nx],
-            U_nom_ws=_shift(U_nom),
-            U_aux_ws=_shift(U_aux),
-            raw_aux=raw_new,
-            vel_aux=vel_new,
-            raw_nom=rawn_new,
-            vel_nom=veln_new,
-        )
-        log = (state.x, u, state.x_bar, u_bar, state.b, L, raw_new.Q(), raw_new.R(), raw_new.qb())
+            new_state = GenericLaneState(
+                x=x_hat_next[..., :nx] + w_t,
+                b=x_hat_next[..., nx],
+                x_bar=x_hat_bar_next[..., :nx],
+                b_bar=x_hat_bar_next[..., nx],
+                U_nom_ws=_shift(U_nom),
+                U_aux_ws=_shift(U_aux),
+                raw_aux=raw_new,
+                vel_aux=vel_new,
+                raw_nom=rawn_new,
+                vel_nom=veln_new,
+            )
+            log = (state.x, u, state.x_bar, u_bar, state.b, L, raw_new.Q(), raw_new.R(),
+                   raw_new.qb())
         return new_state, log
 
-    return step
+    return _spanned_step(body)
 
 
 def generic_lane_init_state(

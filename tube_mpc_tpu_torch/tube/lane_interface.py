@@ -19,6 +19,7 @@ from ..ops.lanes import ComponentSystem, augmented_lin_fn, augmented_step_fn
 from ..ops.cuda.lane_sensitivity import lane_sensitivity_grads
 from ..ops.cuda.lane_solver import LaneProblem, lane_ilqr_solve, rollout
 from ..solvers.ilqr import ILQRConfig
+from ..utils.profiling import annotate
 from .params import AuxAdapt
 
 
@@ -87,24 +88,26 @@ def tube_ilqr_solve_lanes(
     (X_hat [B, N+1, n̂], U [B, N, m]), then each lane's iterations [B] with
     ``with_lane_iters``; ``compact_caps`` runs the
     straggler compaction, bitwise equal to the uncompacted solve (lane_ilqr_solve).
-    Runs on the card unless device='cpu'."""
-    dev = resolve_device(device)
-    check_on(dev, (x_hat0, U_init, X_ref, U_ref), "tube_ilqr_solve_lanes")
-    B, N, m = U_init.shape
-    dtype = x_hat0.dtype
-    if X_ref.ndim == 2:
-        X_ref = X_ref[None].expand((B,) + tuple(X_ref.shape))
-    if U_ref.ndim == 2:
-        U_ref = U_ref[None].expand((B,) + tuple(U_ref.shape))
+    Runs on the card unless device='cpu'. The checks, the clamp, the transposes, the
+    const rows and the first rollout run under the span ``lane.solve_setup``."""
+    with annotate("lane.solve_setup"):
+        dev = resolve_device(device)
+        check_on(dev, (x_hat0, U_init, X_ref, U_ref), "tube_ilqr_solve_lanes")
+        B, N, m = U_init.shape
+        dtype = x_hat0.dtype
+        if X_ref.ndim == 2:
+            X_ref = X_ref[None].expand((B,) + tuple(X_ref.shape))
+        if U_ref.ndim == 2:
+            U_ref = U_ref[None].expand((B,) + tuple(U_ref.shape))
 
-    u_min = torch.as_tensor(pb.u_min, dtype=dtype, device=dev)
-    u_max = torch.as_tensor(pb.u_max, dtype=dtype, device=dev)
-    U0_r = _rows(torch.minimum(u_max, torch.maximum(u_min, U_init)))
-    x0_r = _rows(x_hat0)
-    Xr_r = _rows(_with_barrier_row(X_ref))
-    Ur_r = _rows(U_ref)
-    C = _build_C(pb, w, bp, B, dtype, dev)
-    X0_r = rollout(pb, x0_r, U0_r, Xr_r, Ur_r, C)
+        u_min = torch.as_tensor(pb.u_min, dtype=dtype, device=dev)
+        u_max = torch.as_tensor(pb.u_max, dtype=dtype, device=dev)
+        U0_r = _rows(torch.minimum(u_max, torch.maximum(u_min, U_init)))
+        x0_r = _rows(x_hat0)
+        Xr_r = _rows(_with_barrier_row(X_ref))
+        Ur_r = _rows(U_ref)
+        C = _build_C(pb, w, bp, B, dtype, dev)
+        X0_r = rollout(pb, x0_r, U0_r, Xr_r, Ur_r, C)
 
     out = lane_ilqr_solve(
         pb, x_hat0=x0_r, U0=U0_r, X0=X0_r, X_ref=Xr_r, U_ref=Ur_r, C=C,
